@@ -1,0 +1,162 @@
+"""zig_vulkan_tpu_torch's CUDA kernels against their plain torch versions.
+
+This file imports no JAX, so it also runs on a machine with a GPU and no
+JAX: `python -m pytest --noconftest tests/test_torch_kernels.py` (the
+suite's conftest.py imports JAX). The tests marked
+`cuda` build csrc/*.cu with nvcc and compare kernel A (traversal) and
+kernel B (material lookup) with their plain versions on the card; where
+`torch.cuda.is_available()` is False they skip. The build helpers are
+tested everywhere.
+"""
+
+import ctypes
+
+import pytest
+import torch
+
+from zig_vulkan_tpu_torch import _build
+from zig_vulkan_tpu_torch.config import EngineConfig
+from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+from zig_vulkan_tpu_torch.models import scenes
+from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+
+torch.set_num_threads(2)
+
+_KEYS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
+
+
+def test_trace_params_layout_matches_c_struct():
+    """struct TraceParams in csrc/traverse.cu: 3+3+5 floats, 3+3 ints,
+    then an int64 at its natural 8-byte alignment."""
+    P = _build.TraceParams
+    assert P.scale.offset == 24 and P.t_off.offset == 40
+    assert P.dims.offset == 44 and P.max_steps.offset == 64
+    assert P.n.offset == 72 and ctypes.sizeof(P) == 80
+
+
+def test_library_named_by_sources_and_flags():
+    path = _build.library_path()
+    assert path == _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libzvt_kernels_") and path.suffix == ".so"
+    assert {p.name for p in _build._sources()} >= {"traverse.cu", "lookup.cu"}
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene_on_card(card):
+    sc = scenes.default_scene(dims=(64, 32, 64))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=256, internal_resolution_height=144),
+        device=card)
+    return rt
+
+
+def _rays(rt, dev):
+    cam = trace.camera_vectors(rt.camera.d_camera, dev)
+    r = trace._camera_rays_soa(cam, 256, 144, 1.0)
+    dx, dy, dz = trace._norm3(r[3], r[4], r[5])
+    return tuple(a.contiguous() for a in (*r[:3], dx, dy, dz))
+
+
+def _hit(rt, rays, active, key, plain):
+    fn = trace._grid_hit_soa if plain else tile_tracer.grid_hit_tiles
+    return fn(rt.grid_static, rt.tables(), rt.arrays.material_indices,
+              *rays, active, ray_key=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["primary", "bounce", "bounce_keyed"])
+def test_kernel_a_matches_plain(scene_on_card, card, batch):
+    rt = scene_on_card
+    rays = _rays(rt, card)
+    n = rays[0].shape[0]
+    active = torch.ones(n, dtype=torch.bool, device=card)
+    key = None
+    if batch != "primary":
+        prim = _hit(rt, rays, active, None, plain=True)
+        g = torch.Generator().manual_seed(0)
+        d = torch.randn(n, 3, generator=g).to(card)
+        d = d / d.norm(dim=-1, keepdim=True)
+        rays = (prim["px"], prim["py"], prim["pz"],
+                *(d[:, i].contiguous() for i in range(3)))
+        active = prim["found"].contiguous()
+        if batch == "bounce_keyed":
+            key = torch.where(torch.rand(n, generator=g) < 0.5,
+                              torch.tensor(1.333),
+                              torch.tensor(float("nan"))).to(card)
+    want = _hit(rt, rays, active, key, plain=True)
+    before = tile_tracer.grid_hit_tiles.launches
+    got = _hit(rt, rays, active, key, plain=False)
+    torch.cuda.synchronize()
+    assert tile_tracer.grid_hit_tiles.launches == before + 1
+    assert int(want["found"].sum()) > 0
+    for k in _KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_kernel_b_matches_plain(card):
+    g = torch.Generator().manual_seed(1)
+    tables = torch.rand(5, 256, generator=g).to(card)
+    idx = torch.randint(-8, 264, (1 << 20,), generator=g,
+                        dtype=torch.int32).to(card)
+    before = lookup.table_lookup.launches
+    got = lookup.table_lookup(tables, idx)
+    torch.cuda.synchronize()
+    assert lookup.table_lookup.launches == before + 1
+    want = lookup._table_lookup_plain(tables, idx)
+    for t in range(5):
+        assert torch.equal(got[t], want[t])
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(scene_on_card, card):
+    rt = scene_on_card
+    rays = _rays(rt, card)
+    n = rays[0].shape[0]
+    active = torch.ones(n, dtype=torch.bool, device=card)
+    strided = torch.zeros(2 * n, device=card)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_tracer.grid_hit_tiles(rt.grid_static, rt.tables(),
+                                   rt.arrays.material_indices,
+                                   strided, *rays[1:], active)
+    with pytest.raises(ValueError, match="float32"):
+        tile_tracer.grid_hit_tiles(rt.grid_static, rt.tables(),
+                                   rt.arrays.material_indices,
+                                   rays[0].double(), *rays[1:], active)
+    with pytest.raises(ValueError, match="int32"):
+        lookup.table_lookup(rt.mats,
+                            torch.zeros(4, dtype=torch.int64, device=card))
+
+
+@pytest.mark.cuda
+def test_frame_launches_each_kernel(scene_on_card):
+    """One frame at max_bounce 2 (3 bounce levels), sun on: 6 launches of
+    kernel A (scatter + shadow per level) and 3 of kernel B."""
+    rt = scene_on_card
+    a0 = tile_tracer.grid_hit_tiles.launches
+    b0 = lookup.table_lookup.launches
+    img = rt.draw()
+    assert tile_tracer.grid_hit_tiles.launches - a0 == 6
+    assert lookup.table_lookup.launches - b0 == 3
+    assert img.shape == (144, 256, 3) and img.is_cuda
+    assert bool(torch.isfinite(img).all())
+    cpu = img.cpu().numpy()
+    assert cpu.min() >= 0.0 and cpu.max() <= 1.0

@@ -1,0 +1,132 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with `nvcc` into one shared library with a plain C
+interface, loaded with ctypes: no PyTorch headers, so a build takes seconds.
+The library goes to `build/` inside this package (ignored by git), named by
+a hash of the sources and flags, and is built on first use.
+
+`--fmad=false` keeps every `a*b + c` of the kernels two roundings, as the
+torch versions and the JAX reference compute them; the build never uses
+`--use_fast_math` (IEEE division and square root stay exact).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+
+
+class TraceParams(ctypes.Structure):
+    """Mirror of `struct TraceParams` in csrc/traverse.cu."""
+
+    _fields_ = [
+        ("g0", ctypes.c_float * 3),
+        ("g1", ctypes.c_float * 3),
+        ("scale", ctypes.c_float),
+        ("voxel_scale", ctypes.c_float),
+        ("park", ctypes.c_float),
+        ("enter_eps", ctypes.c_float),
+        ("t_off", ctypes.c_float),
+        ("dims", ctypes.c_int * 3),
+        ("cells", ctypes.c_int),
+        ("mat_cap", ctypes.c_int),
+        ("max_steps", ctypes.c_int),
+        ("n", ctypes.c_int64),
+    ]
+
+
+# C entry points: name -> argtypes; every one returns cudaGetLastError()
+_SIGNATURES = {
+    # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
+    # (NULL = no key), active, found, t, px, py, pz, nx, ny, nz, index,
+    # stream
+    "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 20,
+    # tables, n_tables, size, idx, n, out, stream
+    "zvt_table_lookup": [_P, _I32, _I32, _P, _I64, _P, _P],
+}
+
+_LIB = None
+build_seconds = None  # wall time of the last compile in this process
+build_log = ""        # nvcc's output of that compile (ptxas -v included)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libzvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists() and not force:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library(force_build: bool = False):
+    """The loaded kernel library (built first if needed)."""
+    global _LIB
+    if _LIB is not None and not force_build:
+        return _LIB
+    lib = ctypes.CDLL(str(build(force=force_build)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.zvt_error_string.argtypes = [ctypes.c_int]
+    lib.zvt_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        msg = _LIB.zvt_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg}) at launch")

@@ -1,0 +1,692 @@
+"""Wavefront path tracer on torch tensors (the frame's compute path).
+
+The torch counterpart of `zig_vulkan_tpu.ops.trace` (the reference's
+per-pixel megakernel, assets/shaders/brick_raytracer.comp). A frame is a
+wavefront: every ray is one lane of flat (N,) float32 arrays, kept as
+separate x/y/z components (SoA). Per bounce level the wavefront goes
+through
+
+1. the first-hit traversal, `ops.tile_tracer.grid_hit_tiles` (kernel A on
+   CUDA, `_grid_hit_soa` below on the CPU);
+2. the material lookup, `ops.lookup.table_lookup` (kernel B on CUDA);
+3. the shading glue in this module: lambertian / metal / dielectric /
+   emissive scatter, a sun-shadow ray (a second traversal), background and
+   tone map.
+
+Colours do not depend on lane order (every random number is a hash of hit
+positions and ray directions), so the wavefront stays in pixel order: the
+reference's bin sorts and unsort are not needed.
+
+Float parity: every expression keeps the reference's operation order, one
+float32 rounding per operation. Divisions by constants divide by a 0-d
+tensor on the wavefront's device, because PyTorch's CUDA division by a
+Python scalar multiplies by its reciprocal, which can differ in the last
+bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import BRICK_DIMENSION, BRICK_WORDS
+from ..core.grid import GridArrays, GridStatic
+from ..core.materials import (
+    MAT_DIELECTRIC,
+    MAT_EMISSIVE,
+    MAT_LAMBERTIAN,
+    MAT_METAL,
+    MAT_NONE,
+    MaterialTable,
+)
+from . import rng
+from .lookup import table_lookup
+
+F32 = torch.float32
+_F = np.float32
+_BD = BRICK_DIMENSION
+EMPTY = -1  # empty-cell record sentinel: 0xFFFFFFFF seen as int32
+
+
+def _c(x) -> float:
+    """A Python float holding exactly the float32 value of `x`."""
+    return float(_F(x))
+
+
+def _div(x, c):
+    """`x / c` for a float32 constant `c`, rounded as a true division on
+    every device (see the module docstring)."""
+    return x / torch.tensor(_F(c), dtype=F32, device=x.device)
+
+
+def materials_to_device(table: MaterialTable, device) -> torch.Tensor:
+    """The material table as the bounce loop reads it: f32[5, 256] rows of
+    albedo r, g, b, mtype (as float) and type_data, the layout kernel B
+    (ops.lookup) looks up by material index."""
+    albedo = np.asarray(table.albedo, dtype=np.float32)
+    lookup = np.stack([albedo[:, 0], albedo[:, 1], albedo[:, 2],
+                       np.asarray(table.mtype).astype(np.float32),
+                       np.asarray(table.type_data, dtype=np.float32)])
+    return torch.from_numpy(np.ascontiguousarray(lookup)).to(device)
+
+
+# -- small SoA vector helpers ---------------------------------------------------
+
+def _rsqrt(x):
+    # 1/sqrt(x), correctly rounded per step on every device (torch.rsqrt
+    # on CUDA is an approximation)
+    return torch.reciprocal(torch.sqrt(x))
+
+
+def _norm3(x, y, z):
+    inv = _rsqrt(x * x + y * y + z * z)
+    return x * inv, y * inv, z * inv
+
+
+def _dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def safe_inverse(v):
+    """GLSL safeInverse (brick_raytracer.comp:267-268)."""
+    return torch.where(v == 0.0, torch.full_like(v, 1e12),
+                       torch.reciprocal(v))
+
+
+# -- scene tables ---------------------------------------------------------------
+
+DIST_CAP = 31  # max encoded empty-space Chebyshev radius
+
+# conservative far-field windows (zig_vulkan_tpu/ops/trace.py:189-190):
+# exact to _DF_EXACT_RADIUS, then doubled windows with floor penalties
+_DF_EXACT_RADIUS = 3
+_DF_LEVELS = ((6, 4), (12, 7), (24, 13), (DIST_CAP - 1, 25))
+
+
+def _distance_field(static: GridStatic, loaded, exact: bool = False):
+    """Chebyshev distance to the nearest loaded cell, capped at DIST_CAP,
+    as int32[cells] (zig_vulkan_tpu/ops/trace.py:193-264).
+
+    Separable into three 1-D min-max passes (along x, z, y). `exact=True`
+    evaluates every offset up to DIST_CAP-1 (the scene-build field);
+    otherwise offsets up to _DF_EXACT_RADIUS are exact and the far field
+    uses doubled windowed minima with floor penalties, which never
+    overestimate the true distance."""
+    vol = loaded.reshape(static.dim_y, static.dim_z, static.dim_x)
+    cap = torch.full(vol.shape, DIST_CAP, dtype=torch.int32, device=vol.device)
+    dist = torch.where(vol, torch.zeros_like(cap), cap)
+    exact_r = DIST_CAP - 1 if exact else _DF_EXACT_RADIUS
+    levels = () if exact else _DF_LEVELS
+
+    def pad(d, axis, width):
+        shape = list(d.shape)
+        shape[axis] = width
+        side = torch.full(shape, DIST_CAP, dtype=d.dtype, device=d.device)
+        return torch.cat([side, d, side], dim=axis)
+
+    def axis_pass(d, axis):
+        n = d.shape[axis]
+        out = d
+        p = pad(d, axis, exact_r)
+        w = d  # windowed min, its radius grows as we go
+        for k in range(1, exact_r + 1):
+            left = p.narrow(axis, exact_r - k, n)
+            right = p.narrow(axis, exact_r + k, n)
+            near = torch.minimum(left, right)
+            out = torch.minimum(out, torch.clamp(near, min=k))
+            w = torch.minimum(w, near)
+        prev_r = exact_r
+        for r, floor in levels:
+            step = r - prev_r
+            pw = pad(w, axis, step)
+            w = torch.minimum(w, torch.minimum(pw.narrow(axis, 0, n),
+                                               pw.narrow(axis, 2 * step, n)))
+            out = torch.minimum(out, torch.clamp(w, min=floor))
+            prev_r = r
+        return out
+
+    for axis in (2, 1, 0):
+        dist = axis_pass(dist, axis)
+    return dist.reshape(-1)
+
+
+def _loaded_cells(static: GridStatic, arrays: GridArrays):
+    """bool[cells]: the status bit of every cell. The int32 status words
+    shift arithmetically; `& 1` still isolates the right bit."""
+    cells = torch.arange(static.cells, dtype=torch.int64,
+                         device=arrays.statuses.device)
+    bits = arrays.statuses[cells // 32]
+    return ((bits >> (cells % 32).to(torch.int32)) & 1) == 1
+
+
+def distance_field(static: GridStatic, arrays: GridArrays,
+                   exact: bool = False):
+    """The skip field of a scene (zig_vulkan_tpu/ops/trace.py:267-276)."""
+    return _distance_field(static, _loaded_cells(static, arrays), exact=exact)
+
+
+def build_trace_tables(static: GridStatic, arrays: GridArrays, dist=None):
+    """Per-cell traversal records, int32[cells, 8]
+    (zig_vulkan_tpu/ops/trace.py:279-324): {material window start (or -1 =
+    empty cell), occupancy word 0, occupancy word 1, Chebyshev skip
+    distance, dielectric-mask word 0, dielectric-mask word 1, brick ir as
+    float32 bits, 0}. One 32-byte row per cell: everything the traversal
+    needs at a cell, in one aligned read."""
+    loaded = _loaded_cells(static, arrays)
+    zero = torch.zeros_like(arrays.indices)
+    brick = torch.where(loaded, arrays.indices, zero).long()
+    occ2 = arrays.occupancy.reshape(static.brick_alloc, BRICK_WORDS)
+    occ_rows = occ2[brick]
+    diel2 = arrays.diel_mask.reshape(static.brick_alloc, BRICK_WORDS)
+    diel_rows = diel2[brick]
+    ir_bits = arrays.brick_ir[brick].view(torch.int32)
+    start = torch.where(loaded, arrays.start_indices[brick],
+                        torch.full_like(zero, EMPTY))
+    if dist is None:
+        dist = _distance_field(static, loaded)
+    return torch.stack(
+        [start, occ_rows[:, 0], occ_rows[:, 1], dist,
+         diel_rows[:, 0], diel_rows[:, 1], ir_bits, torch.zeros_like(dist)],
+        dim=-1).contiguous()
+
+
+# -- first-hit traversal: the plain torch version of kernel A ------------------
+
+def trace_constants(static: GridStatic) -> dict:
+    """The float32 constants of the traversal, rounded as the reference
+    rounds them (also passed to kernel A)."""
+    scale = _F(static.scale)
+    voxel_scale = _F(static.scale / _BD)
+    return dict(
+        g0=tuple(_F(v) for v in static.min_point),
+        g1=tuple(_F(v) for v in static.max_point),
+        scale=scale,
+        voxel_scale=voxel_scale,
+        park=_F(1e-4) * scale,        # the 1e-4*scale cursor offset
+        enter_eps=_F(0.01) * scale,   # the 0.01*scale brick entry offset
+        t_off=voxel_scale * _F(0.05),  # the hit-point offset along the normal
+    )
+
+
+# brick-level voxel steps per traversal loop iteration (the reference's
+# brick_unroll default); kernel A has the same constant
+BRICK_UNROLL = 4
+
+
+def _grid_hit_soa(static: GridStatic, tables, material_indices,
+                  ox, oy, oz, dx, dy, dz, active, ray_key=None,
+                  max_steps: int = 768):
+    """First voxel hit of the two-level grid+brick DDA with Chebyshev empty
+    skip (GLSL GridHit + BrickHit, brick_raytracer.comp:271-471) for a
+    wavefront of rays: the plain torch version of kernel A
+    (csrc/traverse.cu).
+
+    The semantics are those of `zig_vulkan_tpu.ops.trace._grid_hit_soa`
+    with `use_skip=True`, `bounded_t=False` (t_max = +inf, as every RayColor
+    call has it) and the per-ray dielectric key: `ray_key` is the ir of a
+    refracted ray and NaN otherwise; a voxel of the brick's dielectric mask
+    is skipped when the brick's ir equals the key (brick_raytracer.comp:427).
+    NaN never compares equal, so `ray_key=None` skips nothing.
+
+    One loop iteration is one reference while-loop iteration: one
+    grid-level action (enter a brick, leap empty space, or step a cell)
+    plus BRICK_UNROLL brick-level voxel steps. A lane that has not hit
+    after `max_steps` iterations is a miss, as in the reference.
+
+    Returns dict(found, t, px, py, pz, nx, ny, nz, index).
+    """
+    k = trace_constants(static)
+    dev = ox.device
+    n = ox.shape[0]
+    gx0, gy0, gz0 = (_c(v) for v in k["g0"])
+    gx1, gy1, gz1 = (_c(v) for v in k["g1"])
+    scale = _c(k["scale"])
+    voxel_scale = _c(k["voxel_scale"])
+    park = _c(k["park"])
+    enter_eps = _c(k["enter_eps"])
+    t_off = _c(k["t_off"])
+    dim_x, dim_y, dim_z = static.dims
+    cells = static.cells
+    mat_cap = material_indices.shape[0] - 1
+    inf = torch.full((n,), float("inf"), dtype=F32, device=dev)
+
+    ix, iy, iz = safe_inverse(dx), safe_inverse(dy), safe_inverse(dz)
+
+    # slab entry with normal (AdvNormIntersect, brick_raytracer.comp:522-536)
+    tlx, tux = (gx0 - ox) * ix, (gx1 - ox) * ix
+    tly, tuy = (gy0 - oy) * iy, (gy1 - oy) * iy
+    tlz, tuz = (gz0 - oz) * iz, (gz1 - oz) * iz
+    tminx, tmaxx = torch.minimum(tlx, tux), torch.maximum(tlx, tux)
+    tminy, tmaxy = torch.minimum(tly, tuy), torch.maximum(tly, tuy)
+    tminz, tmaxz = torch.minimum(tlz, tuz), torch.maximum(tlz, tuz)
+    # indexOfMaxComponent tie-breaking (brick_raytracer.comp:501-503)
+    is_y = (tminy > tminx) & (tminy > tminz)
+    is_z = (tminz > tminx) & (tminz > tminy)
+    is_x = ~(is_y | is_z)
+    entry_tmin = torch.where(is_x, tminx, torch.where(is_y, tminy, tminz))
+    grid_t_min = torch.maximum(torch.full_like(entry_tmin, _c(1e-5)),
+                               entry_tmin)
+    grid_t_max = torch.minimum(
+        inf, torch.minimum(tmaxx, torch.minimum(tmaxy, tmaxz)))
+    slab_ok = grid_t_min <= grid_t_max
+
+    adx, ady, adz = torch.abs(ix), torch.abs(iy), torch.abs(iz)
+    stx = torch.sign(dx).to(torch.int32)
+    sty = torch.sign(dy).to(torch.int32)
+    stz = torch.sign(dz).to(torch.int32)
+    stxf, styf, stzf = stx.to(F32), sty.to(F32), stz.to(F32)
+
+    def cursor(t0, g0, stf, ad, o, d, size):
+        # DDA cursor from the ray position at t0 (brick_raytracer.comp:
+        # 287-311 at grid level, :389-405 at brick level)
+        f = _div(o + d * t0 - g0, size)
+        fl = torch.floor(f)
+        return (stf * (fl - f) + (stf * 0.5 + 0.5)) * ad, fl.to(torch.int32)
+
+    def grid_init(t_base):
+        t0 = t_base + park
+        sx, lx = cursor(t0, gx0, stxf, adx, ox, dx, scale)
+        sy, ly = cursor(t0, gy0, styf, ady, oy, dy, scale)
+        sz, lz = cursor(t0, gz0, stzf, adz, oz, dz, scale)
+        return sx, sy, sz, lx, ly, lz
+
+    sx, sy, sz, lx, ly, lz = grid_init(grid_t_min)
+    inv_max_abs_d = torch.reciprocal(torch.maximum(
+        torch.abs(dx), torch.maximum(torch.abs(dy), torch.abs(dz))))
+
+    # normal code: axis (0, 1, 2) + 4 for the negative sign
+    four = torch.full_like(stx, 4)
+    slab_code = torch.where(
+        is_x, torch.where(ix >= 0, 0, four),
+        torch.where(is_y, torch.where(iy >= 0, 1, four + 1),
+                    torch.where(iz >= 0, 2, four + 2))).to(torch.int32)
+    step_code_x = torch.where(stx < 0, 0, four)  # normal +x when stepping -x
+    step_code_y = torch.where(sty < 0, 1, four + 1)
+    step_code_z = torch.where(stz < 0, 2, four + 2)
+
+    zf = torch.zeros(n, dtype=F32, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
+    zb = torch.zeros(n, dtype=torch.bool, device=dev)
+    running = active & slab_ok
+    in_brick = zb
+    t_base = grid_t_min
+    t_value = zf
+    ncode = slab_code
+    blx = bly = blz = zi
+    bsx = bsy = bsz = zf
+    b_t = entry_t = zf
+    occ_lo = occ_hi = dmask_lo = dmask_hi = zi
+    mat_start = zi
+    bminx = bminy = bminz = zf
+    local_t_max = zf
+    brick_key = torch.full((n,), float("nan"), dtype=F32, device=dev)
+    if ray_key is None:
+        ray_key = brick_key
+    found = zb
+    out_t = zf
+    out_addr = zi
+
+    def sel3(a, b, c, xs, ys, zs):
+        return torch.where(a, xs, torch.where(b, ys, zs))
+
+    step = 0
+    while step < max_steps and bool(running.any()):
+        step += 1
+        # ---------------- grid level: cell check ----------------
+        g = running & ~in_brick
+        in_b_g = ((lx >= 0) & (lx < dim_x) & (ly >= 0) & (ly < dim_y)
+                  & (lz >= 0) & (lz < dim_z))
+        g_miss = g & ~in_b_g
+        g_act = g & in_b_g
+        cell = torch.clamp(lx + dim_x * (lz + dim_z * ly), 0, cells - 1)
+        rec = tables[cell.long()]
+        start_raw = rec[:, 0]
+        enter = g_act & (start_raw != EMPTY)
+        occ_lo = torch.where(enter, rec[:, 1], occ_lo)
+        occ_hi = torch.where(enter, rec[:, 2], occ_hi)
+        mat_start = torch.where(enter, start_raw & 0x7FFFFFFF, mat_start)
+        dmask_lo = torch.where(enter, rec[:, 4], dmask_lo)
+        dmask_hi = torch.where(enter, rec[:, 5], dmask_hi)
+        brick_key = torch.where(enter, rec[:, 6].contiguous().view(F32),
+                                brick_key)
+
+        # empty-space skip: leap dist-1 cells and re-derive the DDA cursor
+        dist = rec[:, 3]
+        do_skip = g_act & ~enter & (dist >= 2)
+        cur_t = t_base + park + t_value
+        new_base = cur_t + (dist.to(F32) - 1.0) * scale * inv_max_abs_d
+        t_base_old = t_base
+        t_base = torch.where(do_skip, new_base, t_base)
+        rsx, rsy, rsz, rlx, rly, rlz = grid_init(t_base)
+
+        bminx = torch.where(enter, lx.to(F32) * scale + gx0, bminx)
+        bminy = torch.where(enter, ly.to(F32) * scale + gy0, bminy)
+        bminz = torch.where(enter, lz.to(F32) * scale + gz0, bminz)
+        new_global_t = t_value + t_base_old + enter_eps
+        entry_t = torch.where(enter, new_global_t, entry_t)
+
+        # brick-level DDA init on entry (brick_raytracer.comp:389-405)
+        esx, elx = cursor(entry_t, bminx, stxf, adx, ox, dx, voxel_scale)
+        esy, ely = cursor(entry_t, bminy, styf, ady, oy, dy, voxel_scale)
+        esz, elz = cursor(entry_t, bminz, stzf, adz, oz, dz, voxel_scale)
+        bsx = torch.where(enter, esx, bsx)
+        bsy = torch.where(enter, esy, bsy)
+        bsz = torch.where(enter, esz, bsz)
+        blx = torch.where(enter, elx, blx)
+        bly = torch.where(enter, ely, bly)
+        blz = torch.where(enter, elz, blz)
+        b_t = torch.where(enter, zf, b_t)
+        local_t_max = torch.where(enter, grid_t_max - entry_t, local_t_max)
+        in_brick = in_brick | enter
+
+        # ------- brick level: voxel checks -------
+        b_exit_any = zb
+        for _ in range(BRICK_UNROLL):
+            b = running & in_brick
+            in_b_b = ((blx >= 0) & (blx < _BD) & (bly >= 0) & (bly < _BD)
+                      & (blz >= 0) & (blz < _BD) & (b_t <= local_t_max))
+            b_exit = b & ~in_b_b
+            in_brick = in_brick & ~b_exit
+            b_exit_any = b_exit_any | b_exit
+            b_act = b & in_b_b
+
+            vi = blx + _BD * (blz + _BD * bly)
+            viu = torch.clamp(vi, 0, _BD ** 3 - 1)
+            sh = viu % 32
+            occ_word = torch.where(viu < 32, occ_lo, occ_hi)
+            vhit = b_act & (((occ_word >> sh) & 1) == 1)
+            mat_addr = torch.clamp(mat_start + vi, 0, mat_cap)
+            d_word = torch.where(viu < 32, dmask_lo, dmask_hi)
+            ignore = (((d_word >> sh) & 1) == 1) & (brick_key == ray_key)
+            real_hit = vhit & ~ignore
+
+            hit_t = entry_t + b_t - t_off
+            found = found | real_hit
+            out_t = torch.where(real_hit, hit_t, out_t)
+            out_addr = torch.where(real_hit, mat_addr, out_addr)
+            running = running & ~real_hit
+
+            brick_steps = b_act & ~real_hit
+            bax = (bsx < bsy) & (bsx < bsz)
+            bay = ~(bsx < bsy) & (bsy < bsz)
+            baz = ~(bax | bay)
+            bt_new = sel3(bax, bay, baz, bsx, bsy, bsz) * voxel_scale
+            mx, my, mz = brick_steps & bax, brick_steps & bay, brick_steps & baz
+            bsx = torch.where(mx, bsx + adx, bsx)
+            blx = torch.where(mx, blx + stx, blx)
+            bsy = torch.where(my, bsy + ady, bsy)
+            bly = torch.where(my, bly + sty, bly)
+            bsz = torch.where(mz, bsz + adz, bsz)
+            blz = torch.where(mz, blz + stz, blz)
+            b_t = torch.where(brick_steps, bt_new, b_t)
+            ncode = torch.where(
+                brick_steps,
+                sel3(bax, bay, baz, step_code_x, step_code_y, step_code_z),
+                ncode)
+
+        # ---------------- grid advance ----------------
+        grid_steps = (g_act & ~enter & ~do_skip) | b_exit_any
+        running = running & ~g_miss
+        gax = (sx < sy) & (sx < sz)
+        gay = ~(sx < sy) & (sy < sz)
+        gaz = ~(gax | gay)
+        gt_new = sel3(gax, gay, gaz, sx, sy, sz) * scale
+        mx, my, mz = grid_steps & gax, grid_steps & gay, grid_steps & gaz
+        sx = torch.where(do_skip, rsx, torch.where(mx, sx + adx, sx))
+        lx = torch.where(do_skip, rlx, torch.where(mx, lx + stx, lx))
+        sy = torch.where(do_skip, rsy, torch.where(my, sy + ady, sy))
+        ly = torch.where(do_skip, rly, torch.where(my, ly + sty, ly))
+        sz = torch.where(do_skip, rsz, torch.where(mz, sz + adz, sz))
+        lz = torch.where(do_skip, rlz, torch.where(mz, lz + stz, lz))
+        t_value = torch.where(do_skip, zf,
+                              torch.where(grid_steps, gt_new, t_value))
+        ncode = torch.where(
+            grid_steps,
+            sel3(gax, gay, gaz, step_code_x, step_code_y, step_code_z), ncode)
+
+    # decode the normal code; hit point (brick_raytracer.comp:431-433)
+    sign = torch.where(ncode < 4, 1.0, -1.0).to(F32)
+    axis = ncode & 3
+    nx = torch.where(axis == 0, sign, zf)
+    ny = torch.where(axis == 1, sign, zf)
+    nz = torch.where(axis == 2, sign, zf)
+    px = ox + dx * out_t + nx * t_off
+    py = oy + dy * out_t + ny * t_off
+    pz = oz + dz * out_t + nz * t_off
+    index = material_indices[torch.where(found, out_addr, zi).long()].to(
+        torch.int32)
+    return dict(found=found, t=out_t, px=px, py=py, pz=pz,
+                nx=nx, ny=ny, nz=nz, index=index)
+
+
+# -- path tracing ---------------------------------------------------------------
+
+def _rand_vec3_range_soa(cox, coy, lo, hi):
+    """SoA GLSL RandVec3(co, min, max) (rand.comp:15-20)."""
+    v = rng.rand_vec3_range(torch.stack([cox, coy], dim=-1), lo, hi)
+    return v[:, 0], v[:, 1], v[:, 2]
+
+
+def _ray_color_soa(static: GridStatic, tables, material_indices,
+                   mats, ox, oy, oz, dx, dy, dz,
+                   max_bounce: int, sun_position, sun_enabled: bool,
+                   sun_color, sun_radius, max_steps: int = 768):
+    """Path-traced, tone-mapped radiance for a wavefront (RayColor,
+    brick_raytracer.comp:203-265; zig_vulkan_tpu/ops/trace.py:867-1325).
+
+    `mats` is `materials_to_device`'s f32[5, 256] table; `sun_position`/
+    `sun_color` are float32[3] numpy vectors and `sun_radius` a float32
+    scalar (the per-frame push constants).
+    Returns (r, g, b) f32[N] each, in lane order."""
+    from .tile_tracer import grid_hit_tiles  # imports this module
+
+    def hit(hox, hoy, hoz, hdx, hdy, hdz, mask, ray_key=None):
+        return grid_hit_tiles(static, tables, material_indices,
+                              hox, hoy, hoz, hdx, hdy, hdz, mask,
+                              ray_key=ray_key, max_steps=max_steps)
+
+    n = ox.shape[0]
+    dev = ox.device
+    dx, dy, dz = _norm3(dx, dy, dz)
+    zf = torch.zeros(n, dtype=F32, device=dev)
+    cr, cg, cb = zf, zf, zf
+    internal_refl = torch.ones(n, dtype=F32, device=dev)
+    ignore_type = torch.full((n,), MAT_NONE, dtype=torch.int32, device=dev)
+    loop_count = torch.zeros(n, dtype=torch.int32, device=dev)
+    bouncing = torch.ones(n, dtype=torch.bool, device=dev)
+    nan = torch.full((n,), float("nan"), dtype=F32, device=dev)
+    sun_p = [_c(v) for v in np.asarray(sun_position, dtype=np.float32)]
+    sun_c = [_c(v) for v in np.asarray(sun_color, dtype=np.float32)]
+    radius = _F(sun_radius)
+
+    # original direction for the background of never-hit rays
+    odx, ody, odz = dx, dy, dz
+
+    for bounce_i in range(max_bounce):
+        if bounce_i == 0:
+            # dielectric-skip state exists only after a refraction
+            h = hit(ox, oy, oz, dx, dy, dz, bouncing)
+        else:
+            # per-ray dielectric skip key: NaN (skip nothing) unless the
+            # ray was refracted (brick_raytracer.comp:427)
+            key = torch.where(ignore_type == MAT_DIELECTRIC, internal_refl,
+                              nan)
+            h = hit(ox, oy, oz, dx, dy, dz, bouncing, ray_key=key)
+        active = bouncing & h["found"]
+
+        ar, ag, ab, mtype_f, type_data = table_lookup(mats, h["index"])
+        mtype = mtype_f.to(torch.int32)
+        is_emissive = mtype == MAT_EMISSIVE
+        known = (mtype <= MAT_DIELECTRIC) | is_emissive
+        loop_count = loop_count + (active & known).to(torch.int32)
+
+        px, py, pz = h["px"], h["py"], h["pz"]
+        nx, ny, nz = h["nx"], h["ny"], h["nz"]
+        cox = px + pz
+        coy = py + pz
+
+        # lambertian (brick_raytracer.comp:539-544)
+        rx, ry, rz = _rand_vec3_range_soa(cox, coy, -0.4, 0.4)
+        lamx, lamy, lamz = _norm3(nx + rx, ny + ry, nz + rz)
+
+        # metal (brick_raytracer.comp:546-551)
+        dn = _dot3(dx, dy, dz, nx, ny, nz)
+        refx = dx - 2.0 * dn * nx
+        refy = dy - 2.0 * dn * ny
+        refz = dz - 2.0 * dn * nz
+        fuzz = type_data
+        mx, my, mz = _rand_vec3_range_soa(cox, coy, -fuzz, fuzz)
+        metx, mety, metz = _norm3(refx + mx, refy + my, refz + mz)
+        met_ok = _dot3(metx, mety, metz, nx, ny, nz) > 0
+
+        # dielectric (brick_raytracer.comp:576-596)
+        ex, ey, ez = _rand_vec3_range_soa(cox, coy, -0.05, 0.05)
+        dnx, dny, dnz = _norm3(nx + ex, ny + ey, nz + ez)
+        ir = type_data
+        eta = ir / internal_refl
+        c1 = -_dot3(dx, dy, dz, dnx, dny, dnz)
+        w = eta * c1
+        c2m = (w - eta) * (w + eta)
+        should_refract = c2m >= -1.0
+        wk = w - torch.sqrt(torch.clamp(1.0 + c2m, min=0.0))
+        tx = eta * dx + wk * dnx
+        ty = eta * dy + wk * dny
+        tz = eta * dz + wk * dnz
+        rnd = rng.rand3(torch.stack([px, py, pz], dim=-1))
+        do_refract = should_refract & (rnd > 0.5)
+        ddn = _dot3(dx, dy, dz, dnx, dny, dnz)
+        rfx = dx - 2.0 * ddn * dnx
+        rfy = dy - 2.0 * ddn * dny
+        rfz = dz - 2.0 * ddn * dnz
+        diex, diey, diez = _norm3(
+            torch.where(do_refract, tx, rfx),
+            torch.where(do_refract, ty, rfy),
+            torch.where(do_refract, tz, rfz))
+
+        is_lam = mtype == MAT_LAMBERTIAN
+        is_met = mtype == MAT_METAL
+        is_die = mtype == MAT_DIELECTRIC
+        sdx = torch.where(is_lam, lamx, torch.where(is_met, metx, diex))
+        sdy = torch.where(is_lam, lamy, torch.where(is_met, mety, diey))
+        sdz = torch.where(is_lam, lamz, torch.where(is_met, metz, diez))
+        # emissive paths terminate (superset; see core.materials)
+        result = is_lam | (is_met & met_ok) | (~is_lam & ~is_met & is_die)
+        refracted = is_die & do_refract
+        new_ignore = torch.where(refracted, MAT_DIELECTRIC,
+                                 MAT_NONE).to(torch.int32)
+        new_internal = torch.where(refracted, ir, 1.0)
+
+        # emissive contribution: albedo * strength, unshadowed
+        emit = active & is_emissive
+        cr = cr + torch.where(emit, ar * type_data, zf)
+        cg = cg + torch.where(emit, ag * type_data, zf)
+        cb = cb + torch.where(emit, ab * type_data, zf)
+        sun_or_diffuse = active & ~is_emissive
+
+        if sun_enabled:
+            # jittered sun-disk target; the jitter seed is the incoming
+            # ray direction (brick_raytracer.comp:242)
+            sx_, sy_, sz_ = _rand_vec3_range_soa(dx + dz, dy + dz,
+                                                 -radius, radius)
+            shx = sun_p[0] + sx_ - px
+            shy = sun_p[1] + sy_ - py
+            shz = sun_p[2] + sz_ - pz
+            shx, shy, shz = _norm3(shx, shy, shz)
+            sh = hit(px, py, pz, shx, shy, shz, active)
+            lit = sun_or_diffuse & ~sh["found"]
+            cr = cr + torch.where(lit, ar * sun_c[0], zf)
+            cg = cg + torch.where(lit, ag * sun_c[1], zf)
+            cb = cb + torch.where(lit, ab * sun_c[2], zf)
+        else:
+            cr = cr + torch.where(sun_or_diffuse, ar, zf)
+            cg = cg + torch.where(sun_or_diffuse, ag, zf)
+            cb = cb + torch.where(sun_or_diffuse, ab, zf)
+
+        bouncing = active & result
+        ox = torch.where(active, px, ox)
+        oy = torch.where(active, py, oy)
+        oz = torch.where(active, pz, oz)
+        dx = torch.where(bouncing, sdx, dx)
+        dy = torch.where(bouncing, sdy, dy)
+        dz = torch.where(bouncing, sdz, dz)
+        internal_refl = torch.where(active, new_internal, internal_refl)
+        ignore_type = torch.where(active, new_ignore, ignore_type)
+
+    # background for never-hit rays (brick_raytracer.comp:260-262); a ray
+    # that never hits keeps its original direction
+    never = loop_count == 0
+    t = 0.5 * (ody + 1.0)
+    bgr = (1.0 - t) + t * 0.5
+    bgg = (1.0 - t) + t * _c(0.7)
+    bgb = (1.0 - t) + t * 1.0
+    if sun_enabled:
+        bgr, bgg, bgb = bgr * sun_c[0], bgg * sun_c[1], bgb * sun_c[2]
+    cr = cr + torch.where(never, bgr, zf)
+    cg = cg + torch.where(never, bgg, zf)
+    cb = cb + torch.where(never, bgb, zf)
+    # color/(color+1) tone map (brick_raytracer.comp:264)
+    return cr / (cr + 1.0), cg / (cg + 1.0), cb / (cb + 1.0)
+
+
+# -- camera rays and the frame --------------------------------------------------
+
+def camera_vectors(camera_device, device) -> dict:
+    """The camera basis (the push-constant payload, Camera.zig:183-193) as
+    float32[3] tensors on `device`."""
+    d = camera_device
+    return {name: torch.from_numpy(np.asarray(getattr(d, name),
+                                              dtype=np.float32).copy()).to(device)
+            for name in ("horizontal", "vertical", "lower_left_corner",
+                         "origin")}
+
+
+def _camera_rays_soa(cam: dict, width: int, height: int, sample_index):
+    """Per-pixel jittered camera rays (brick_raytracer.comp:162-171 +
+    CameraGetRay :474-477), row-major, as six f32[height*width] arrays."""
+    w, h = int(width), int(height)
+    dev = cam["origin"].device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=F32, device=dev),
+                            torch.arange(w, dtype=F32, device=dev),
+                            indexing="ij")
+    xs = xs.reshape(-1)
+    ys = ys.reshape(-1)
+    s = torch.tensor(_F(sample_index), dtype=F32, device=dev)
+    sf = _c(0.2) * (s > 0).to(F32)
+    noise_x = rng.hash12(torch.stack([(xs + s) * sf, ys * sf], dim=-1))
+    noise_y = rng.hash12(torch.stack([xs * sf, (ys + s) * sf], dim=-1))
+    u = _div(xs + noise_x, w - 1)
+    v = _div(ys + noise_y, h - 1)
+    hvec = cam["horizontal"]
+    vvec = cam["vertical"]
+    ll = cam["lower_left_corner"]
+    o = cam["origin"]
+    rdx = hvec[0] * u + ll[0] + vvec[0] * v - o[0]
+    rdy = hvec[1] * u + ll[1] + vvec[1] * v - o[1]
+    rdz = hvec[2] * u + ll[2] + vvec[2] * v - o[2]
+    n = h * w
+    return (o[0].expand(n), o[1].expand(n), o[2].expand(n), rdx, rdy, rdz)
+
+
+def render_rows(static: GridStatic, tables, material_indices, mats,
+                cam: dict, width: int, height: int, spp: int,
+                max_bounce: int, sun_position, sun_color, sun_radius,
+                sun_enabled: bool, max_steps: int = 768):
+    """Render a frame: f32[height, width, 3], tone-mapped and gamma'd
+    (brick_raytracer.comp:153-178; zig_vulkan_tpu/ops/trace.py:1382-1470).
+
+    All `spp` samples ride one wavefront of spp*height*width lanes, so each
+    bounce level is one traversal launch (plus one for its shadows) and one
+    lookup launch, whatever spp is. Per-lane results equal a loop over
+    samples: the RNG keys off hit positions and the per-sample jitter seed,
+    not lane position."""
+    w, h = int(width), int(height)
+    samples = [_camera_rays_soa(cam, w, h, s) for s in range(spp)]
+    oxs, oys, ozs, rdx, rdy, rdz = (
+        torch.cat([sm[i] for sm in samples]) for i in range(6))
+    cr, cg, cb = _ray_color_soa(
+        static, tables, material_indices, mats, oxs, oys, ozs,
+        rdx, rdy, rdz, max_bounce, sun_position, sun_enabled, sun_color,
+        sun_radius, max_steps)
+    color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, h * w, 3).sum(dim=0)
+    color = torch.sqrt(_div(color, spp))
+    return color.reshape(h, w, 3)
