@@ -20,10 +20,25 @@ non-zero if any phase fails:
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
    with the kernels' launch counts;
 7. headline analogue: 1920x1080 primary rays through kernel A over the
-   fly-through path's points, in Mray/s.
+   fly-through path's points (three passes), in Mray/s;
+8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148):
+   1920x1080, 1 spp, max_bounce 1, animated sun, no denoiser, max_steps
+   160, 512 random voxels inserted (even frames) or removed (odd frames)
+   on the device every frame, on a fresh copy of the default scene; frame,
+   insert and remove times, the degraded fraction, peak memory and kernel
+   A's steps per primary ray (stats build) before and after the edits;
+   holds the decoded scene against a host replay of the edits, the
+   refreshed records against a full rebuild, and kernel A against its
+   plain version on the sprayed scene;
+9. the sun-shadow probe: kernel A's shadow build against its plain
+   version, and default frames with `sun_in_kernel` on and off;
+10. temporal accumulation: five frames of a static pose, then
+    `set_resolutions`;
+11. the fly-through harness: `run_benchmark(fixed_dt=0.5)` prints the
+    reference's report.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Imports no JAX.
+The line before the last is a JSON object with one entry per kernel build;
+the last line is {"ok": true, "device": {...}}. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +55,13 @@ REPO = Path(__file__).resolve().parent
 
 FRAMES = 10
 HEADLINE_POSES = 10
+HEADLINE_PASSES = 3  # passes over the poses: one pass is too short to time
+EDIT_FRAMES = 8      # timed frames of phase 8: 4 insert and 4 remove batches
+EDIT_VOXELS = 512    # voxels per batch (benchmarks/configs.py:132)
+PROBE_FRAMES = 3     # timed default frames per group in phase 9 (2 groups
+                     # per variant)
+TEMPORAL_FRAMES = 5
+BENCH_FRAMES = 12
 # the first points of the fly-through path (zig_vulkan_tpu/engine/
 # benchmark.py:29, Benchmark.zig:146-158)
 PATH_POINTS = ((0, 0, 0), (2, 5, 0), (3, 5, 5), (5, 2, 1), (10, 0, 10),
@@ -88,6 +110,396 @@ def compare_hits(name, got, want, mask):
     return max_dt
 
 
+def frame_events():
+    import torch
+
+    return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+
+def read_lanes(tables):
+    """The records with the lanes kernel A never reads zeroed: an empty
+    cell's occupancy, dielectric and ir lanes (they hold brick 0's words,
+    which the incremental refresh leaves as they were, as the JAX
+    package's does) and lane 7."""
+    t = tables.clone()
+    empty = t[:, 0] == -1
+    t[empty, 1:3] = 0
+    t[empty, 4:7] = 0
+    t[:, 7] = 0
+    return t
+
+
+def host_remove(grid, xyz):
+    """Clear voxels in a host BrickGrid's arrays: the numpy replay of
+    core.grid.remove_edits."""
+    from zig_vulkan_tpu_torch.core.grid import grid_at, voxel_at
+
+    st, a = grid.static, grid.arrays
+    x, y, z = (xyz[:, i].astype(np.int64) for i in range(3))
+    fy = (st.voxel_dims[1] - 1) - y
+    cell = grid_at(st, x, fy, z)
+    nth = voxel_at(x, fy, z)
+    loaded = ((a.statuses[cell // 32] >> (cell % 32).astype(np.uint32))
+              & 1) == 1
+    word = a.indices[cell[loaded]].astype(np.int64) * 2 + nth[loaded] // 32
+    keep = ~(np.uint32(1) << (nth[loaded] % 32).astype(np.uint32))
+    np.bitwise_and.at(a.occupancy, word, keep)
+    np.bitwise_and.at(a.diel_mask, word, keep)
+
+
+def step_stats(n_step):
+    """Mean and p99 of per-ray loop iterations."""
+    import torch
+
+    s = n_step.float()
+    return s.mean().item(), torch.quantile(s, 0.99).item()
+
+
+def compare_exact(name, got, want, keys):
+    """A kernel build against its plain version, bit for bit."""
+    import torch
+
+    bad = {k: int((got[k] != want[k]).sum()) for k in keys}
+    log(name, lanes=int(want["found"].numel()),
+        hits=int(want["found"].sum()),
+        mismatches=json.dumps(bad, separators=(",", ":")))
+    if any(bad.values()) or not all(torch.equal(got[k], want[k])
+                                    for k in keys):
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             f"version")
+
+
+def edit_flythrough(dev, scene, res, frames):
+    """Phase 8: BASELINE config 3 on a fresh device copy of `scene`."""
+    import copy
+
+    import torch
+
+    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
+                                             EngineConfig, SunConfig,
+                                             TraceConfig)
+    from zig_vulkan_tpu_torch.core.grid import dense_materials
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+
+    w, h = res
+    max_steps = 160
+    cfg = EngineConfig(
+        internal_resolution_width=w, internal_resolution_height=h,
+        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
+                            max_bounce=1),
+        sun=SunConfig(enabled=True, animate=True),
+        denoiser=DenoiserConfig(enabled=False),
+        trace=TraceConfig(max_steps=max_steps))
+    host = copy.deepcopy(scene.grid)  # the host replay of every edit
+    rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
+    st = rt.grid_static
+    rt.tables()
+    bench = rt.create_benchmark(duration=60.0)
+    rng = np.random.default_rng(0)
+    vx, vy, vz = st.voxel_dims
+    replay = []
+
+    def move(insert):
+        # benchmarks/configs.py:132-141, the same random stream
+        bench.update(0.016)
+        rt.update_sun(0.016)
+        n = EDIT_VOXELS
+        xyz = np.stack([rng.integers(0, vx, n), rng.integers(0, vy, n),
+                        rng.integers(0, vz, n)], axis=-1)
+        if insert:
+            mats = rng.integers(1, 8, n).astype(np.uint8)
+            replay.append((xyz, mats))
+            return lambda: rt.insert_voxels(xyz, mats)
+        replay.append((xyz, None))
+        return lambda: rt.remove_voxels(xyz)
+
+    fractions = [rt.nonempty_region_fraction()]
+
+    # the first pose's primary rays, traced before the edits and after
+    cam = trace.camera_vectors(rt.camera.d_camera, dev)
+    r = trace._camera_rays_soa(cam, w, h, 0)
+    prim = tuple(a.contiguous() for a in (*r[:3], *trace._norm3(*r[3:])))
+    on = torch.ones(w * h, dtype=torch.bool, device=dev)
+
+    def hit(rays, active, plain=False, tables=None, **kw):
+        fn = tile_tracer.grid_hit_plain if plain else tile_tracer.grid_hit_tiles
+        return fn(st, rt.tables() if tables is None else tables,
+                  rt.arrays.material_indices, *rays, active,
+                  max_steps=max_steps, **kw)
+
+    stats_launches = 0
+
+    def stats_run(tables=None):
+        nonlocal stats_launches
+        tile_tracer.reset_launch_counts()
+        out = hit(prim, on, tables=tables, stats=True)
+        torch.cuda.synchronize()
+        stats_launches += tile_tracer.grid_hit_tiles.build_launches["stats"]
+        return out
+
+    before = stats_run()
+    steps_before = step_stats(before["n_step"])
+    # the clean scene with the conservative field every edit switches to
+    steps_conservative = step_stats(stats_run(trace.build_trace_tables(
+        st, rt.arrays, trace.distance_field(st, rt.arrays)))["n_step"])
+    clean_ms = cuda_ms(lambda: hit(prim, on), reps=5)
+
+    # warm both edit paths outside the timing (benchmarks/configs.py:52-62)
+    for insert in (True, False):
+        move(insert)()
+        rt.render()
+        torch.cuda.synchronize()
+        if insert:
+            fractions.append(rt.nonempty_region_fraction())
+
+    torch.cuda.reset_peak_memory_stats()
+    tile_tracer.reset_launch_counts()
+    lookup.table_lookup.launches = 0
+    frame_ms, wall_ms, edit_ms = [], [], {True: [], False: []}
+    image = None
+    for i in range(frames):
+        insert = i % 2 == 0
+        edit = move(insert)
+        e0, e1, e2 = frame_events()
+        t0 = time.perf_counter()
+        e0.record()
+        edit()
+        e1.record()
+        image = rt.render()
+        e2.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        frame_ms.append(e0.elapsed_time(e2))
+        edit_ms[insert].append(e0.elapsed_time(e1))
+        if insert:
+            fractions.append(rt.nonempty_region_fraction())
+    launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
+                "A_all": tile_tracer.grid_hit_tiles.launches,
+                "B": lookup.table_lookup.launches}
+    peak = torch.cuda.max_memory_allocated()
+    img = image.cpu().numpy()
+    log("edit", frames=frames, resolution=f"{w}x{h}",
+        median_frame_ms=f"{np.median(frame_ms):.3f}",
+        min_frame_ms=f"{min(frame_ms):.3f}", max_frame_ms=f"{max(frame_ms):.3f}",
+        median_wall_ms=f"{np.median(wall_ms):.3f}",
+        median_insert_refresh_ms=f"{np.median(edit_ms[True]):.3f}",
+        median_remove_refresh_ms=f"{np.median(edit_ms[False]):.3f}",
+        peak_bytes=peak, launches_A=launches["A"], launches_B=launches["B"],
+        shape=list(img.shape))
+    log("edit", nonempty_region_fraction_by_insert_batches=json.dumps(
+        [round(f, 4) for f in fractions]),
+        after_1=f"{fractions[1]:.4f}", after_3=f"{fractions[3]:.4f}",
+        degraded=rt._scene_degraded())
+    if img.shape != (h, w, 3) or not np.isfinite(img).all():
+        raise AssertionError("edit frame has the wrong shape or non-finite "
+                             "values")
+    if launches != {"A": 4 * frames, "A_all": 4 * frames, "B": 2 * frames}:
+        raise AssertionError(f"expected 4 A and 2 B launches per edit frame, "
+                             f"got {launches} over {frames} frames")
+    if not rt._scene_degraded():
+        raise AssertionError("the sprayed scene did not degrade")
+
+    # one more insert and one more removal, each held against a full rebuild
+    move(True)()
+    full = trace.build_trace_tables(st, rt.arrays,
+                                    trace.distance_field(st, rt.arrays))
+    ins_exact = torch.equal(rt.tables(), full)
+    ins_ok = torch.equal(read_lanes(rt.tables()), read_lanes(full))
+    move(False)()
+    full = trace.build_trace_tables(st, rt.arrays, rt._dist)
+    rem_exact = torch.equal(rt.tables(), full)
+    rem_ok = torch.equal(read_lanes(rt.tables()), read_lanes(full))
+    log("edit", tables_vs_rebuild_after_insert=ins_ok,
+        all_lanes_after_insert=ins_exact,
+        tables_vs_rebuild_after_remove=rem_ok, all_lanes_after_remove=rem_exact)
+    if not (ins_ok and rem_ok):
+        raise AssertionError("refreshed records differ from a full rebuild")
+
+    # the decoded scene against the host replay of every edit
+    t0 = time.perf_counter()
+    for xyz, mats in replay:
+        if mats is None:
+            host_remove(host, xyz)
+        else:
+            host.insert_batch(xyz[:, 0], xyz[:, 1], xyz[:, 2], mats)
+    got = dense_materials(st, rt.arrays)
+    want = dense_materials(st, host.arrays.to_device(dev))
+    same = torch.equal(got, want)
+    log("edit", batches=len(replay), solid_voxels=int((want >= 0).sum()),
+        scene_vs_host_replay=same,
+        replay_seconds=f"{time.perf_counter() - t0:.2f}")
+    if not same:
+        raise AssertionError("the edited scene differs from the host replay")
+
+    # kernel A on the sprayed scene: steps, agreement, time
+    after = stats_run()
+    steps_after = step_stats(after["n_step"])
+    log("edit", steps_per_primary_ray_before=f"mean {steps_before[0]:.2f} "
+        f"p99 {steps_before[1]:.0f}",
+        clean_with_conservative_field=f"mean {steps_conservative[0]:.2f} "
+        f"p99 {steps_conservative[1]:.0f}",
+        steps_per_primary_ray_after=f"mean {steps_after[0]:.2f} "
+        f"p99 {steps_after[1]:.0f}", stats_launches=stats_launches,
+        max_steps=max_steps)
+    compare_exact("stats build", after, hit(prim, on, plain=True, stats=True),
+                  ("found", "t", "index", "n_step"))
+    want_p = hit(prim, on, plain=True)
+    compare_exact("sprayed primary", hit(prim, on), want_p,
+                  tuple(want_p))
+    brng = np.random.default_rng(1)
+    d = torch.from_numpy(brng.standard_normal((w * h, 3)).astype(
+        np.float32)).to(dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    nrm = torch.stack([want_p["nx"], want_p["ny"], want_p["nz"]], -1)
+    d = torch.where((d * nrm).sum(-1, keepdim=True) < 0, -d, d)
+    bounce = (want_p["px"], want_p["py"], want_p["pz"],
+              *(d[:, i].contiguous() for i in range(3)))
+    live = want_p["found"].contiguous()
+    want_b = hit(bounce, live, plain=True)
+    compare_exact("sprayed bounce", hit(bounce, live), want_b, tuple(want_b))
+    sprayed_ms = cuda_ms(lambda: hit(prim, on), reps=5)
+    sprayed_plain_ms = cuda_ms(lambda: hit(prim, on, plain=True), reps=1)
+    stats_ms = cuda_ms(lambda: hit(prim, on, stats=True), reps=5)
+    stats_plain_ms = cuda_ms(lambda: hit(prim, on, plain=True, stats=True),
+                             reps=1)
+    log("edit", kernel_a_primary_ms_clean=f"{clean_ms:.3f}",
+        kernel_a_primary_ms_sprayed=f"{sprayed_ms:.3f}",
+        plain_ms_sprayed=f"{sprayed_plain_ms:.1f}",
+        stats_build_ms=f"{stats_ms:.3f}", stats_plain_ms=f"{stats_plain_ms:.1f}")
+    return dict(
+        sprayed=dict(launches=launches["A"], max_abs_err=0.0, ms=sprayed_ms,
+                     plain_ms=sprayed_plain_ms),
+        stats=dict(launches=stats_launches, max_abs_err=0.0, ms=stats_ms,
+                   plain_ms=stats_plain_ms))
+
+
+def shadow_probe(rt, rays, active, key):
+    """Phase 9: kernel A's shadow build and the sun_in_kernel frame, at the
+    default EngineConfig (`rt`), on the frame's primary wavefront `rays`
+    and the keyed bounce batch `key` = (rays, active, ray_key)."""
+    import dataclasses
+
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+
+    st = rt.grid_static
+    sun = rt.sun.device_data
+    radius = np.float32(sun.radius)
+
+    def hit(r, a, plain=False, **kw):
+        fn = tile_tracer.grid_hit_plain if plain else tile_tracer.grid_hit_tiles
+        return fn(st, rt.tables(), rt.arrays.material_indices, *r, a,
+                  max_steps=rt.trace_config.max_steps, **kw)
+
+    keys = ("found", "t", "index", "occluded", "px", "py", "pz", "nx", "ny",
+            "nz")
+    tg = trace.sun_targets(rays[3], rays[4], rays[5], sun.position, radius)
+    want = hit(rays, active, plain=True, shadow_targets=tg)
+    compare_exact("shadow build primary", hit(rays, active, shadow_targets=tg),
+                  want, keys)
+    occ_share = want["occluded"][want["found"]].float().mean().item()
+    krays, kactive, kkey = key
+    ktg = trace.sun_targets(krays[3], krays[4], krays[5], sun.position, radius)
+    compare_exact("shadow build keyed bounce",
+                  hit(krays, kactive, ray_key=kkey, shadow_targets=ktg),
+                  hit(krays, kactive, plain=True, ray_key=kkey,
+                      shadow_targets=ktg), keys)
+    ms = cuda_ms(lambda: hit(rays, active, shadow_targets=tg), reps=5)
+    plain_ms = cuda_ms(lambda: hit(rays, active, plain=True,
+                                   shadow_targets=tg), reps=1)
+    log("shadow", occluded_share_of_hits=f"{occ_share:.4f}",
+        shadow_build_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}")
+
+    base = rt.trace_config
+    images = {}
+    ms_lists = {False: [], True: []}
+    counts = {False: {}, True: {}}
+    # in turns (separate, in kernel, in kernel, separate): the frames are
+    # host-bound and drift between groups
+    for probe in (False, True, True, False):
+        rt.trace_config = dataclasses.replace(base, sun_in_kernel=probe)
+        rt.draw()  # warm-up
+        tile_tracer.reset_launch_counts()
+        lookup.table_lookup.launches = 0
+        for _ in range(PROBE_FRAMES):
+            e0, e1, _ = frame_events()
+            e0.record()
+            images[probe] = rt.draw()
+            e1.record()
+            torch.cuda.synchronize()
+            ms_lists[probe].append(e0.elapsed_time(e1))
+        for name, n in dict(tile_tracer.grid_hit_tiles.build_launches,
+                            B=lookup.table_lookup.launches).items():
+            counts[probe][name] = counts[probe].get(name, 0) + n
+    rt.trace_config = base
+    timing = {k: float(np.median(v)) for k, v in ms_lists.items()}
+    diff = (images[True] - images[False]).abs().amax(-1)
+    share = (diff > 1e-3).float().mean().item()
+    log("shadow", frame_ms_separate=f"{timing[False]:.3f}",
+        frame_ms_in_kernel=f"{timing[True]:.3f}",
+        frames_each=2 * PROBE_FRAMES,
+        launches_separate=json.dumps(counts[False], separators=(",", ":")),
+        launches_in_kernel=json.dumps(counts[True], separators=(",", ":")),
+        share_over_1e_3=share,
+        bit_equal=bool(torch.equal(images[True], images[False])))
+    if share >= 0.01:
+        raise AssertionError("sun_in_kernel frame differs from the separate "
+                             "shadow launches")
+    f = 2 * PROBE_FRAMES
+    if (counts[True]["shadow"] != 3 * f or counts[True]["default"] != 0
+            or counts[False]["default"] != 6 * f or counts[False]["shadow"]
+            or counts[True]["B"] != 3 * f):
+        raise AssertionError(f"unexpected launch counts {counts}")
+    return dict(launches=counts[True]["shadow"], max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms)
+
+
+def temporal(rt):
+    """Phase 10: accumulation over a static pose, then set_resolutions."""
+    import torch
+
+    rt.set_temporal(True)
+    accums = []
+    for _ in range(TEMPORAL_FRAMES):
+        img = rt.draw()
+        accums.append(rt._accum.clone())
+    deltas = [(b - a).abs().mean().item() for a, b in zip(accums, accums[1:])]
+    finite = bool(torch.isfinite(img).all())
+    log("temporal", frames=TEMPORAL_FRAMES, accum_count=rt._accum_count,
+        mean_abs_delta=json.dumps([f"{d:.3e}" for d in deltas]),
+        finite=finite)
+    if rt._accum_count != TEMPORAL_FRAMES or not finite:
+        raise AssertionError("temporal accumulation count or values wrong")
+    if not deltas[-1] < deltas[0]:
+        raise AssertionError("accumulated frames do not settle")
+    internal, output = rt.internal_resolution, rt.output_resolution
+    iw, ih = internal
+    new_out = (iw * 5 // 8, ih * 5 // 8)  # 640x360 from 1024x576
+    rt.set_resolutions(internal=(iw // 2, ih // 2), output=new_out)
+    shape = tuple(rt.draw().shape)
+    log("temporal", set_resolutions_shape=list(shape),
+        accum_count=rt._accum_count)
+    if shape != (new_out[1], new_out[0], 3) or rt._accum_count != 1:
+        raise AssertionError("set_resolutions did not change the output")
+    rt.set_temporal(False)
+    rt.set_resolutions(internal=internal, output=output)
+
+
+def flythrough(rt):
+    """Phase 11: the fly-through harness prints the reference's report."""
+    t0 = time.perf_counter()
+    bench = rt.run_benchmark(fixed_dt=0.5, max_frames=BENCH_FRAMES)
+    rep = bench.report
+    log("benchmark", frames=BENCH_FRAMES, samples=rep.delta_time_sum_samples,
+        avg_ms=f"{rep.average() * 1e3:.3f}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if rep.delta_time_sum_samples != BENCH_FRAMES - 1 or not np.isfinite(
+            rep.average()):
+        raise AssertionError("benchmark report incomplete")
+
+
 def main() -> int:
     import torch
 
@@ -103,7 +515,7 @@ def main() -> int:
 
 
 def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
-          poses_n: int = HEADLINE_POSES) -> int:
+          poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES) -> int:
     """The phases on the scene `make_scene()` builds, at `cfg` (main()
     passes the default scene and EngineConfig)."""
     import torch
@@ -262,7 +674,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 6. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tile_tracer.grid_hit_tiles.launches = 0
+    tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
     rt.draw()  # warm-up frame
     frame_ms = []
@@ -277,8 +689,10 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         end.record()
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
-    launches = {"A": tile_tracer.grid_hit_tiles.launches,
+    launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "B": lookup.table_lookup.launches}
+    if tile_tracer.grid_hit_tiles.launches != launches["A"]:
+        raise AssertionError("the default frame launched another build of A")
     peak = torch.cuda.max_memory_allocated()
     frames += 1  # with the warm-up
     img = image.cpu().numpy()
@@ -313,27 +727,52 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for rays in poses:
-        hit(rays, hon, None)
+    for _ in range(HEADLINE_PASSES):
+        for rays in poses:
+            hit(rays, hon, None)
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / len(poses)
+    ms = start.elapsed_time(end) / (HEADLINE_PASSES * len(poses))
     got_h = hit(poses[0], hon, None)
     t0 = time.perf_counter()
     want_h = hit(poses[0], hon, None, plain=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     compare_hits("headline_pose0", got_h, want_h, hon)
-    log("headline", rays=w * h, poses=len(poses),
+    log("headline", rays=w * h, poses=len(poses), passes=HEADLINE_PASSES,
         kernel_ms_per_pose=f"{ms:.3f}",
         mrays_per_s=f"{w * h / ms / 1e3:.1f}",
         plain_ms_per_pose=f"{plain_s * 1e3:.1f}")
 
+    # -- 8. the edit fly-through (BASELINE config 3) ------------------------------
+    t0 = time.perf_counter()
+    edit = edit_flythrough(dev, scene, headline, edit_frames)
+    log("edit", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 9. the sun-shadow probe at the default EngineConfig -----------------------
+    shadow = shadow_probe(rt, primary, all_on, (bounce, live, key))
+
+    # -- 10. temporal accumulation and set_resolutions ----------------------------
+    temporal(rt)
+
+    # -- 11. the fly-through harness ----------------------------------------------
+    flythrough(rt)
+
+    src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
-        dict(name="traverse (kernel A)", route="cuda",
-             source="zig_vulkan_tpu_torch/csrc/traverse.cu",
-             replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
+        dict(name="traverse (kernel A, default build)", route="cuda",
+             source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
              launches=launches["A"], **results["A"]),
+        dict(name="traverse (kernel A, default build on the sprayed scene, "
+             "for the sparse_roam build)", route="cuda", source=src_a,
+             replaces="zig_vulkan_tpu/ops/tile_tracer.py:595",
+             **edit["sprayed"]),
+        dict(name="traverse (kernel A, shadow build)", route="cuda",
+             source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:381",
+             **shadow),
+        dict(name="traverse (kernel A, stats build)", route="cuda",
+             source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:377",
+             **edit["stats"]),
         dict(name="table_lookup (kernel B)", route="cuda",
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",

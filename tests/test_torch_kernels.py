@@ -3,19 +3,23 @@
 This file imports no JAX, so it also runs on a machine with a GPU and no
 JAX: `python -m pytest --noconftest tests/test_torch_kernels.py` (the
 suite's conftest.py imports JAX). The tests marked
-`cuda` build csrc/*.cu with nvcc and compare kernel A (traversal) and
-kernel B (material lookup) with their plain versions on the card; where
-`torch.cuda.is_available()` is False they skip. The build helpers are
-tested everywhere.
+`cuda` build csrc/*.cu with nvcc and compare kernel A (traversal; its
+default, shadow and stats builds) and kernel B (material lookup) with their
+plain versions on the card, and the voxel edits on the card with the same
+edits on the CPU; where `torch.cuda.is_available()` is False they skip.
+The build helpers are tested everywhere.
 """
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from zig_vulkan_tpu_torch import _build
-from zig_vulkan_tpu_torch.config import EngineConfig
+from zig_vulkan_tpu_torch.config import EngineConfig, TraceConfig
+from zig_vulkan_tpu_torch.core import grid as grid_mod
 from zig_vulkan_tpu_torch.engine.engine import VoxelRT
 from zig_vulkan_tpu_torch.models import scenes
 from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
@@ -160,3 +164,127 @@ def test_frame_launches_each_kernel(scene_on_card):
     assert bool(torch.isfinite(img).all())
     cpu = img.cpu().numpy()
     assert cpu.min() >= 0.0 and cpu.max() <= 1.0
+
+
+def _primary(rt, card):
+    rays = _rays(rt, card)
+    return rays, torch.ones(rays[0].shape[0], dtype=torch.bool, device=card)
+
+
+def _targets(rays):
+    """Sun targets scattered far around the scene in every direction, so
+    that some lanes' sun rays are blocked and some are not."""
+    g = torch.Generator().manual_seed(2)
+    t = torch.randn(3, rays[0].shape[0], generator=g) * 1000.0
+    return tuple(t[i].contiguous().to(rays[0].device) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["shadow", "stats", "shadow+stats"])
+def test_kernel_a_builds_match_plain(scene_on_card, card, build):
+    rt = scene_on_card
+    rays, active = _primary(rt, card)
+    kw = {}
+    if "shadow" in build:
+        kw["shadow_targets"] = _targets(rays)
+    if "stats" in build:
+        kw["stats"] = True
+    args = (rt.grid_static, rt.tables(), rt.arrays.material_indices, *rays,
+            active)
+    want = tile_tracer.grid_hit_plain(*args, **kw)
+    before = dict(tile_tracer.grid_hit_tiles.build_launches)
+    got = tile_tracer.grid_hit_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tile_tracer.grid_hit_tiles.build_launches[build]
+            == before[build] + 1)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if "shadow" in build:
+        share = got["occluded"][got["found"]].float().mean().item()
+        assert 0.0 < share < 1.0
+
+
+@pytest.mark.cuda
+def test_edits_on_card_match_cpu(card):
+    """apply_edits/remove_edits and the table refreshes on the card give
+    the CPU's arrays and records bit for bit."""
+    sc = scenes.default_scene(dims=(32, 16, 32))
+    st = sc.grid.static
+    rng = np.random.default_rng(0)
+    vx, vy, vz = st.voxel_dims
+    xyz = np.stack([rng.integers(0, vx, 512), rng.integers(0, vy, 512),
+                    rng.integers(0, vz, 512)], -1).astype(np.int32)
+    mats = rng.integers(0, 8, 512).astype(np.uint8)
+    fy = vy - 1 - xyz[:, 1]
+    cells = torch.from_numpy(xyz[:, 0] // 4 + st.dim_x * (
+        xyz[:, 2] // 4 + st.dim_z * (fy // 4)))
+    is_diel = torch.from_numpy(sc.materials.mtype == 2)
+    ir = torch.from_numpy(sc.materials.type_data.astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        a = sc.grid.arrays.to_device(dev)
+        tables = trace.build_trace_tables(st, a, trace.distance_field(
+            st, a, exact=True))
+        valid = torch.ones(512, dtype=torch.bool, device=dev)
+        a = grid_mod.apply_edits(st, a, torch.from_numpy(xyz).to(dev),
+                                 torch.from_numpy(mats).to(dev), valid,
+                                 is_diel.to(dev), ir.to(dev))
+        tables, dist = trace.refresh_tables_after_insert(
+            st, a, tables, cells.to(dev), valid)
+        a = grid_mod.remove_edits(st, a, torch.from_numpy(xyz[::3]).to(dev),
+                                  valid[::3])
+        tables = trace.refresh_tables_after_remove(
+            st, a, tables, dist, cells[::3].to(dev), valid[::3])
+        out[str(dev)] = (a, tables)
+    (ca, ct), (ga, gt) = out["cpu"], out[str(card)]
+    for f in dataclasses.fields(ca):
+        assert torch.equal(getattr(ca, f.name).cpu(),
+                           getattr(ga, f.name).cpu()) or f.name == "brick_ir"
+    assert torch.equal(ca.brick_ir.cpu().view(torch.int32),
+                       ga.brick_ir.cpu().view(torch.int32))
+    assert torch.equal(ct, gt.cpu())
+    assert torch.equal(grid_mod.dense_materials(st, ga).cpu(),
+                       grid_mod.dense_materials(st, ca))
+
+
+@pytest.mark.cuda
+def test_kernel_a_matches_plain_on_a_sprayed_scene(card):
+    """The config-3 regime: random single voxels in most regions."""
+    sc = scenes.default_scene(dims=(64, 32, 64))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=256, internal_resolution_height=144,
+        trace=TraceConfig(max_steps=160)), device=card)
+    rt.tables()
+    rng = np.random.default_rng(0)
+    vx, vy, vz = rt.grid_static.voxel_dims
+    for _ in range(3):
+        xyz = np.stack([rng.integers(0, vx, 512), rng.integers(0, vy, 512),
+                        rng.integers(0, vz, 512)], -1)
+        rt.insert_voxels(xyz, rng.integers(1, 8, 512).astype(np.uint8))
+    assert rt._scene_degraded()
+    rays, active = _primary(rt, card)
+    args = (rt.grid_static, rt.tables(), rt.arrays.material_indices)
+    want = tile_tracer.grid_hit_plain(*args, *rays, active, max_steps=160)
+    got = tile_tracer.grid_hit_tiles(*args, *rays, active, max_steps=160)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_frame_with_sun_in_kernel(scene_on_card):
+    """sun_in_kernel: 3 launches of the shadow build per frame at
+    max_bounce 2 and none of the default build, and the same image."""
+    rt = scene_on_card
+    separate = rt.draw()
+    before = dict(tile_tracer.grid_hit_tiles.build_launches)
+    rt.trace_config = TraceConfig(sun_in_kernel=True)
+    try:
+        img = rt.draw()
+    finally:
+        rt.trace_config = TraceConfig()
+    after = tile_tracer.grid_hit_tiles.build_launches
+    assert after["shadow"] - before["shadow"] == 3
+    assert after["default"] == before["default"]
+    assert torch.equal(img, separate)

@@ -113,7 +113,8 @@ class _Setup:
                     nx=nrm[:, 0], ny=nrm[:, 1], nz=nrm[:, 2],
                     index=np.asarray(out["index"]))
 
-    def port(self, ro, rd, key, max_steps: int = 768, device="cpu"):
+    def port(self, ro, rd, key, max_steps: int = 768, device="cpu",
+             stats: bool = False):
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -122,7 +123,8 @@ class _Setup:
             self.material_indices.to(device),
             *(t(ro[:, i]) for i in range(3)), *(t(rd[:, i]) for i in range(3)),
             torch.ones(len(ro), dtype=torch.bool, device=device),
-            ray_key=None if key is None else t(key), max_steps=max_steps)
+            ray_key=None if key is None else t(key), max_steps=max_steps,
+            stats=stats)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -189,6 +191,28 @@ def test_step_bound_counts_like_reference(setup, max_steps):
     got = setup.port(ro, rd, None, max_steps=max_steps)
     for k in _KEYS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("quantile", [0.0, 0.5, 0.9, 1.0])
+def test_stats_twin_counts_steps_like_reference(setup, quantile):
+    """The stats build's `n_step`: a lane that hits with n_step = k hits
+    with max_steps = k and misses with k - 1 in the reference run op by
+    op; the other outputs are those of the build without stats."""
+    ro, rd, key = setup.batches["refracted"]
+    got = setup.port(ro, rd, key, stats=True)
+    plain = setup.port(ro, rd, key)
+    for k in _KEYS:
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    n_step, found = got["n_step"], got["found"]
+    assert n_step.dtype == np.int32 and (n_step >= 0).all()
+    assert (n_step[~found] <= 768).all() and found.sum() > 100
+    k = int(np.quantile(n_step[found], quantile, method="nearest"))
+    lanes = found & (n_step == k)
+    at_k = setup.reference(ro, rd, key, jit=False, max_steps=k)
+    below = setup.reference(ro, rd, key, jit=False, max_steps=k - 1)
+    assert lanes.any()
+    assert at_k["found"][lanes].all()
+    assert not below["found"][lanes].any()
 
 
 def test_cpu_wrapper_runs_twin_without_counting(setup):

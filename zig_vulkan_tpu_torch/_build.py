@@ -2,8 +2,10 @@
 
 The sources compile with `nvcc` into one shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes seconds.
-The library goes to `build/` inside this package (ignored by git), named by
-a hash of the sources and flags, and is built on first use.
+Each source compiles in its own nvcc process, all started together, and one
+more links them. The library goes to `build/` inside this package (ignored
+by git), named by a hash of the sources and flags, and is built on first
+use.
 
 `--fmad=false` keeps every `a*b + c` of the kernels two roundings, as the
 torch versions and the JAX reference compute them; the build never uses
@@ -24,8 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -54,9 +55,10 @@ class TraceParams(ctypes.Structure):
 # C entry points: name -> argtypes; every one returns cudaGetLastError()
 _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
-    # (NULL = no key), active, found, t, px, py, pz, nx, ny, nz, index,
-    # stream
-    "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 20,
+    # (NULL = no key), active, sun targets tx, ty, tz (NULL = no shadow
+    # ray), found, t, px, py, pz, nx, ny, nz, index, occluded (with the
+    # targets), n_step (NULL = no stats), stream
+    "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 25,
     # tables, n_tables, size, idx, n, out, stream
     "zvt_table_lookup": [_P, _I32, _I32, _P, _I64, _P, _P],
 }
@@ -97,14 +99,35 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = _sources()
+    objs, procs = [], []
+    for src in srcs:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [src.name for src, proc in zip(srcs, procs)
+              if proc.returncode != 0]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

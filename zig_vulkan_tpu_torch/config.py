@@ -78,10 +78,24 @@ class TraceConfig:
     counts its while-loop iterations. A ray that exhausts it is a miss.
     `empty_skip` selects the Chebyshev distance-field leap over empty
     cells; only the skipping traversal is implemented.
+
+    `sun_in_kernel` traces each bounce level's sun-shadow ray inside the
+    same kernel A launch (the shadow build: one thread traces its own sun
+    ray, as brick_raytracer.comp:240-249 does) instead of a second launch;
+    None (the default) and False keep the separate launch. The two give
+    the same image.
+
+    `degraded_nonempty_fraction`: the scene counts as degraded (empty-space
+    roaming collapsed, the BASELINE config-3 regime) when more than this
+    fraction of 4x16x16-cell regions holds a loaded cell. Only the engine's
+    report reads it: a one-thread-per-ray kernel has no region serve to
+    switch.
     """
 
     max_steps: int = 768
     empty_skip: bool = True
+    sun_in_kernel: Optional[bool] = None
+    degraded_nonempty_fraction: float = 0.5
 
     def __post_init__(self):
         if not self.empty_skip:

@@ -20,7 +20,9 @@ within a brick = bx + 4 * (bz + 4 * by) (Grid.zig:198-203); `insert` flips Y
 `BrickGrid` builds scenes with vectorized batch inserts, bit for bit as the
 reference builder does. `GridArrays.to_device` is the one converter from
 host arrays to torch tensors; it also takes arrays built by
-`zig_vulkan_tpu.core.grid.BrickGrid`. Device-side edits are not ported yet.
+`zig_vulkan_tpu.core.grid.BrickGrid`. `apply_edits` and `remove_edits`
+edit the torch arrays where they live (the engine's per-frame voxel
+edits); `dense_materials` decodes a scene for comparisons.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import (
     BRICK_BITS,
@@ -124,7 +127,6 @@ class GridArrays:
         built by the JAX package's `BrickGrid`:
         `GridArrays.to_device(reference_grid.arrays, device)`.
         """
-        import torch
 
         def u32_bits(a):
             a = np.array(np.asarray(a), dtype=np.uint32)
@@ -314,3 +316,249 @@ class BrickGrid:
             return None
         start = int(a.start_indices[brick] & np.uint32(0x7FFFFFFF))
         return int(a.material_indices[start + nth])
+
+
+# -- device-side edits (torch) --------------------------------------------------
+#
+# The torch counterparts of zig_vulkan_tpu.core.grid.apply_edits /
+# remove_edits: the reference's edit path (Grid.insert -> dirty ranges ->
+# staging upload, VoxelRT.zig:107-172) as scatter updates on the device
+# arrays. The arrays are the int32 bit views of GridArrays.to_device; every
+# word update below is a bitwise OR / AND-NOT of per-word masks, and a mask
+# is built by summing distinct bits into zero (a sum of distinct bits is
+# their OR, and no partial sum leaves int32), so bit 31 needs no care.
+# Edits update the arrays in place (the JAX package donates them) and bring
+# no scene value back to the host; the boolean-mask indexing below does wait
+# for the device, to size its results.
+
+def _voxel_cells(static: GridStatic, xyz):
+    """(cell, voxel bit) int64[N] of int[N, 3] voxel coordinates, Y flipped
+    (Grid.zig:135, :198-211)."""
+    xyz = xyz.to(torch.int64)
+    fy = (static.voxel_dims[1] - 1) - xyz[:, 1]
+    return (grid_at(static, xyz[:, 0], fy, xyz[:, 2]),
+            voxel_at(xyz[:, 0], fy, xyz[:, 2]))
+
+
+def _bits_at(words, index):
+    """bool: bit index%32 of words[index//32]."""
+    return ((words[index // 32] >> (index % 32).to(torch.int32)) & 1) == 1
+
+
+def _bit(n):
+    """int32 word with bit n (0..31) set; bit 31 is the sign bit."""
+    return torch.ones_like(n, dtype=torch.int32) << n.to(torch.int32)
+
+
+def _run_starts(key):
+    """bool: lane i starts a run of equal keys (key sorted)."""
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    return first
+
+
+def _run_ends(key):
+    """bool: lane i ends a run of equal keys (key sorted)."""
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    return last
+
+
+def _run_or(run_start, bits, take):
+    """Per run, the OR of `bits` over the lanes `take`, on every lane of the
+    run. The taken bits of a run must be distinct."""
+    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    acc = torch.zeros_like(bits)
+    acc.index_put_((run,), torch.where(take, bits, torch.zeros_like(bits)),
+                   accumulate=True)
+    return acc[run]
+
+
+def _by_word_bit(word_key, nbit):
+    """Stable lane order by (word, bit): the reference's
+    lexsort((bit, word_key)) as one int64 key."""
+    key = word_key * 32 + nbit
+    order = torch.argsort(key, stable=True)
+    return order, key[order]
+
+
+def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
+                valid, mat_is_diel=None, mat_ir=None) -> GridArrays:
+    """Insert a batch of voxels into device-resident arrays
+    (zig_vulkan_tpu/core/grid.py:393-543).
+
+    Args:
+      arrays: GridArrays of torch tensors (GridArrays.to_device); updated
+        in place.
+      xyz: int[N, 3] voxel coordinates; material_index: uint8[N];
+      valid: bool[N], False lanes are ignored (the reference pads batches).
+      mat_is_diel, mat_ir: optional bool[256] / f32[256] material
+        classification that maintains diel_mask/brick_ir; without them the
+        edited voxels count as non-dielectric there.
+
+    Returns GridArrays holding the same tensors and the new 0-d
+    `active_bricks`/`material_cursor` (computed on the device).
+
+    Brick slots are numbered in cell order, material windows in the same
+    rank order (stable sorts, so the arrays equal the reference's bit for
+    bit). A voxel given twice in one batch takes its last lane's material
+    and dielectric bit, as sequential inserts would; the reference leaves
+    that unspecified. Bricks whose lanes bring different ir end up NaN.
+    The caller keeps the brick count within `brick_alloc` (the engine's
+    capacity guard); lanes past it are dropped as the reference drops them.
+    """
+    a = arrays
+    dev = a.statuses.device
+    cells, alloc = static.cells, static.brick_alloc
+    n = xyz.shape[0]
+    cell, nth = _voxel_cells(static, xyz)
+
+    # lanes sorted by cell; invalid lanes sort last as their own run
+    sort_key = torch.where(valid, cell, torch.full_like(cell, cells))
+    order = torch.argsort(sort_key, stable=True)
+    s_cell, s_valid, s_nth = sort_key[order], valid[order], nth[order]
+    s_mat = material_index.to(torch.uint8)[order]
+    safe_cell = s_cell.clamp(0, cells - 1)
+
+    loaded = _bits_at(a.statuses, safe_cell)
+    is_first = _run_starts(s_cell)
+    allocates = is_first & ~loaded & s_valid
+    alloc_i = allocates.to(torch.int32)
+    rank = torch.cumsum(alloc_i, 0, dtype=torch.int32) - alloc_i
+    n_new = alloc_i.sum(dtype=torch.int32)
+    new_brick_id = a.active_bricks + rank
+
+    # brick slot per lane: loaded cells keep theirs; the lanes of a newly
+    # allocated cell take its first lane's fresh id
+    seg = torch.cumsum(is_first.to(torch.int64), 0) - 1
+    seg_new_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    seg_new_id[seg[allocates]] = new_brick_id[allocates]
+    brick = torch.where(loaded, a.indices[safe_cell], seg_new_id[seg])
+    brick = torch.where(s_valid, brick, torch.zeros_like(brick)).to(torch.int64)
+
+    # cell -> brick index and status bit of the allocating lanes (distinct
+    # cells whose bits are clear: the sum is the OR)
+    new_cells = s_cell[allocates]
+    a.indices[new_cells] = new_brick_id[allocates]
+    a.statuses.index_put_((new_cells // 32,), _bit(new_cells % 32),
+                          accumulate=True)
+
+    # material windows for the new bricks, bump-allocated in rank order
+    # (MaterialAllocator.zig:34-43)
+    start_new = a.material_cursor + rank * BRICK_BITS
+    fits = allocates & (new_brick_id < alloc)
+    a.start_indices[new_brick_id[fits].to(torch.int64)] = start_new[fits]
+    material_cursor = a.material_cursor + n_new * BRICK_BITS
+    active_bricks = a.active_bricks + n_new
+
+    start_val = a.start_indices[brick.clamp(0, alloc - 1)] & 0x7FFFFFFF
+    mat_addr = start_val.to(torch.int64) + s_nth
+
+    # one representative lane per voxel: the last of its (word, bit) run
+    word = brick * BRICK_WORDS + s_nth // 32
+    word_key = torch.where(s_valid, word,
+                           torch.full_like(word, alloc * BRICK_WORDS))
+    wb, key = _by_word_bit(word_key, s_nth % 32)
+    w_s, v_s = word_key[wb], s_valid[wb]
+    b_s = _bit(s_nth[wb] % 32)
+    take = v_s & _run_ends(key)
+    m_s = s_mat[wb]
+
+    # material bytes
+    addr = mat_addr[wb]
+    put = take & (addr < a.material_indices.numel())
+    a.material_indices[addr[put]] = m_s[put]
+
+    # occupancy and dielectric bits: one read-modify-write per touched word
+    if mat_is_diel is not None:
+        lane_diel = mat_is_diel[m_s.to(torch.int64)]
+        lane_ir = mat_ir[m_s.to(torch.int64)]
+    else:
+        lane_diel = torch.zeros_like(v_s)
+        lane_ir = torch.zeros(n, dtype=torch.float32, device=dev)
+    word_start = _run_starts(w_s)
+    occ_or = _run_or(word_start, b_s, take)
+    diel_or = _run_or(word_start, b_s, take & lane_diel)
+    diel_clear = _run_or(word_start, b_s, take & ~lane_diel)
+    rmw = word_start & v_s & (w_s < a.occupancy.numel())
+    w = w_s[rmw]
+    a.occupancy[w] = a.occupancy[w] | occ_or[rmw]
+    a.diel_mask[w] = (a.diel_mask[w] | diel_or[rmw]) & ~diel_clear[rmw]
+
+    # per-brick ir: a NaN (unset) brick adopts the lanes' ir, a differing
+    # ir poisons it to NaN (brick_raytracer.comp:427 then skips nothing)
+    b_sorted = brick[wb]
+    safe_b = b_sorted.clamp(0, alloc - 1)
+    prev = a.brick_ir[safe_b]
+    nan = torch.full_like(prev, float("nan"))
+    new_ir = torch.where(torch.isnan(prev), lane_ir,
+                         torch.where(prev != lane_ir, nan, prev))
+    carries = take & lane_diel
+    inf = torch.full_like(prev, float("inf"))
+    val = torch.where(torch.isnan(new_ir), inf, new_ir)
+    brick_start = _run_starts(w_s // BRICK_WORDS)
+    run = torch.cumsum(brick_start.to(torch.int64), 0) - 1
+    lo = inf.clone().scatter_reduce_(0, run, torch.where(carries, val, inf),
+                                     "amin")
+    hi = (-inf).scatter_reduce_(0, run, torch.where(carries, val, -inf),
+                                "amax")
+    lo, hi = lo[run], hi[run]
+    merged = torch.where((lo == hi) & torch.isfinite(lo), lo, nan)
+    put = brick_start & v_s & (hi > -inf) & (b_sorted < alloc)
+    a.brick_ir[b_sorted[put]] = merged[put]
+
+    return dataclasses.replace(a, active_bricks=active_bricks,
+                               material_cursor=material_cursor)
+
+
+def remove_edits(static: GridStatic, arrays: GridArrays, xyz,
+                 valid) -> GridArrays:
+    """Clear a batch of voxels in device-resident arrays
+    (zig_vulkan_tpu/core/grid.py:546-591): occupancy and dielectric bits
+    only. Bricks are never freed, so statuses, indices, windows and the
+    skip field stay as they are. Updates the arrays in place."""
+    a = arrays
+    cells, alloc = static.cells, static.brick_alloc
+    cell, nth = _voxel_cells(static, xyz)
+    safe_cell = cell.clamp(0, cells - 1)
+    act = valid & _bits_at(a.statuses, safe_cell)
+    word = a.indices[safe_cell].to(torch.int64) * BRICK_WORDS + nth // 32
+    word_key = torch.where(act, word, torch.full_like(word, alloc * BRICK_WORDS))
+    order, key = _by_word_bit(word_key, nth % 32)
+    w_s, v_s = word_key[order], act[order]
+    word_start = _run_starts(w_s)
+    clear = _run_or(word_start, _bit(nth[order] % 32),
+                    v_s & _run_starts(key))
+    rmw = word_start & v_s
+    w = w_s[rmw]
+    a.occupancy[w] = a.occupancy[w] & ~clear[rmw]
+    a.diel_mask[w] = a.diel_mask[w] & ~clear[rmw]
+    return dataclasses.replace(a)
+
+
+def dense_materials(static: GridStatic, arrays: GridArrays):
+    """The scene as a dense int16[vx, vy, vz] tensor of material indices
+    (-1 = empty), indexed by the insert coordinates
+    (zig_vulkan_tpu/core/grid.py:594-628).
+
+    Independent of brick slot numbering, so it compares scenes built in
+    different orders. Decodes on the device the tensors live on; host
+    (numpy) arrays are decoded on the CPU."""
+    if isinstance(arrays.statuses, np.ndarray):
+        arrays = arrays.to_device("cpu")
+    dev = arrays.statuses.device
+    vx, vy, vz = static.voxel_dims
+    x = torch.arange(vx, device=dev).view(vx, 1, 1)
+    y = torch.arange(vy, device=dev).view(1, vy, 1)
+    z = torch.arange(vz, device=dev).view(1, 1, vz)
+    fy = (vy - 1) - y
+    cell = grid_at(static, x, fy, z)
+    nth = voxel_at(x, fy, z)
+    loaded = _bits_at(arrays.statuses, cell)
+    brick = arrays.indices[cell].to(torch.int64)
+    solid = loaded & _bits_at(arrays.occupancy, brick * 64 + nth)
+    start = (arrays.start_indices[brick.clamp(0, static.brick_alloc - 1)]
+             & 0x7FFFFFFF).to(torch.int64)
+    mats = arrays.material_indices
+    midx = mats[(start + nth).clamp(0, mats.numel() - 1)].to(torch.int16)
+    return torch.where(solid, midx, torch.full_like(midx, -1))

@@ -21,6 +21,13 @@
 // tiles and bin sorts existed because a TPU has no fast per-lane gather and
 // are left out. Coherence sorting and persistent blocks are later work.
 //
+// Builds (template flags, one instantiation each): the default; SHADOW, the
+// TPU kernel's sun-shadow probe, where a thread that hits traces its own
+// sun ray as the GLSL reference does (brick_raytracer.comp:240-249); STATS,
+// per-ray loop iterations. The TPU kernel's sparse_roam build changes only
+// its region park schedule; on a sprayed scene this kernel computes the
+// same first hits as everywhere else.
+//
 // Step bound: one loop iteration is one iteration of the reference's
 // while loop (one grid-level action, then up to BRICK_UNROLL brick steps),
 // and a lane stops after max_steps of them with the reference's verdict,
@@ -77,26 +84,27 @@ __device__ __forceinline__ void cursor(float t0, float g0, float stf,
   l = (int)fl;
 }
 
-__global__ void __launch_bounds__(128)
-traverse_kernel(TraceParams p, const int4* __restrict__ tables,
-                const uint8_t* __restrict__ material_indices,
-                const float* __restrict__ ox_, const float* __restrict__ oy_,
-                const float* __restrict__ oz_, const float* __restrict__ dx_,
-                const float* __restrict__ dy_, const float* __restrict__ dz_,
-                const float* __restrict__ ray_key_,
-                const bool* __restrict__ active_, bool* __restrict__ found_,
-                float* __restrict__ t_, float* __restrict__ px_,
-                float* __restrict__ py_, float* __restrict__ pz_,
-                float* __restrict__ nx_, float* __restrict__ ny_,
-                float* __restrict__ nz_, int32_t* __restrict__ index_) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
-  const float dx = dx_[i], dy = dy_[i], dz = dz_[i];
-  const bool has_key = ray_key_ != nullptr;
-  const float ray_key = has_key ? ray_key_[i] : __int_as_float(0x7fc00000);
-  const float scale = p.scale, voxel_scale = p.voxel_scale;
+// What one traversal reports: hit flag, hit t, the face code of the normal
+// (axis 0..2, +4 for the negative sign), the clamped material address and
+// the loop iterations it ran.
+struct Hit {
+  bool found;
+  float t;
+  int ncode;
+  int addr;
+  int steps;
+};
 
+// One ray through the two-level DDA. `has_key` selects the dielectric key
+// (the second record read); STATS counts the loop iterations.
+template <bool STATS>
+__device__ __forceinline__ Hit trace_ray(const TraceParams& p,
+                                         const int4* __restrict__ tables,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         bool active, bool has_key,
+                                         float ray_key) {
+  const float scale = p.scale, voxel_scale = p.voxel_scale;
   const float ix = safe_inverse(dx), iy = safe_inverse(dy),
               iz = safe_inverse(dz);
 
@@ -132,10 +140,11 @@ traverse_kernel(TraceParams p, const int4* __restrict__ tables,
   const int code_y = sty < 0 ? 1 : 5;
   const int code_z = stz < 0 ? 2 : 6;
 
-  bool running = active_[i] && slab_ok;
+  bool running = active && slab_ok;
   bool found = false;
   float out_t = 0.0f;
   int out_addr = 0;
+  int steps = 0;
 
   // grid-level DDA state
   float t_base = grid_t_min, t_value = 0.0f;
@@ -158,6 +167,7 @@ traverse_kernel(TraceParams p, const int4* __restrict__ tables,
   float brick_key = __int_as_float(0x7fc00000);
 
   for (int step = 0; step < p.max_steps && running; ++step) {
+    if (STATS) ++steps;
     // ---------------- grid level: cell check ----------------
     bool g_act = false, enter = false, do_skip = false;
     if (!in_brick) {
@@ -268,22 +278,76 @@ traverse_kernel(TraceParams p, const int4* __restrict__ tables,
       }
     }
   }
+  return Hit{found, out_t, ncode, out_addr, steps};
+}
+
+// The buffers of one launch (see zvt_traverse).
+struct Buffers {
+  const int4* tables;
+  const uint8_t* material_indices;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  const float* ray_key;  // nullptr: no dielectric key
+  const bool* active;
+  const float *tx, *ty, *tz;  // sun targets (SHADOW builds)
+  bool* found;
+  float *t, *px, *py, *pz, *nx, *ny, *nz;
+  int32_t* index;
+  bool* occluded;   // SHADOW builds
+  int32_t* n_step;  // STATS builds
+};
+
+// SHADOW: a thread whose ray hits traces the sun ray from the hit point
+// toward its target and writes `occluded` (the TPU kernel's shadow=True
+// probe, tile_tracer.py:381-391). STATS: writes the first traversal's loop
+// iterations (the TPU kernel's stats=True n_step). Both are compile-time
+// flags, so the default build carries neither. The launch bounds hold the
+// default and stats builds to 64 registers, so 8 blocks of 128 threads
+// (half the SM's warps) stay resident.
+template <bool SHADOW, bool STATS>
+__global__ void __launch_bounds__(128, SHADOW ? 7 : 8)
+traverse_kernel(TraceParams p, Buffers b) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const float ox = b.ox[i], oy = b.oy[i], oz = b.oz[i];
+  const float dx = b.dx[i], dy = b.dy[i], dz = b.dz[i];
+  const bool has_key = b.ray_key != nullptr;
+  const float nan = __int_as_float(0x7fc00000);
+  const Hit h = trace_ray<STATS>(p, b.tables, ox, oy, oz, dx, dy, dz,
+                                 b.active[i], has_key,
+                                 has_key ? b.ray_key[i] : nan);
 
   // epilogue: normal from the face code, hit point, material byte
-  const float sign = ncode < 4 ? 1.0f : -1.0f;
-  const int axis = ncode & 3;
+  const float sign = h.ncode < 4 ? 1.0f : -1.0f;
+  const int axis = h.ncode & 3;
   const float nx = axis == 0 ? sign : 0.0f;
   const float ny = axis == 1 ? sign : 0.0f;
   const float nz = axis == 2 ? sign : 0.0f;
-  found_[i] = found;
-  t_[i] = out_t;
-  px_[i] = ox + dx * out_t + nx * p.t_off;
-  py_[i] = oy + dy * out_t + ny * p.t_off;
-  pz_[i] = oz + dz * out_t + nz * p.t_off;
-  nx_[i] = nx;
-  ny_[i] = ny;
-  nz_[i] = nz;
-  index_[i] = (int32_t)material_indices[found ? out_addr : 0];
+  const float px = ox + dx * h.t + nx * p.t_off;
+  const float py = oy + dy * h.t + ny * p.t_off;
+  const float pz = oz + dz * h.t + nz * p.t_off;
+  b.found[i] = h.found;
+  b.t[i] = h.t;
+  b.px[i] = px;
+  b.py[i] = py;
+  b.pz[i] = pz;
+  b.nx[i] = nx;
+  b.ny[i] = ny;
+  b.nz[i] = nz;
+  b.index[i] = (int32_t)b.material_indices[h.found ? h.addr : 0];
+  if (STATS) b.n_step[i] = h.steps;
+  if (SHADOW) {
+    bool occluded = false;
+    if (h.found) {
+      // toward the target, normalized as ops/trace.py:shadow_dirs rounds
+      // it; no dielectric key, as the separate shadow launch has none
+      const float sx = b.tx[i] - px, sy = b.ty[i] - py, sz = b.tz[i] - pz;
+      const float inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz);
+      occluded = trace_ray<false>(p, b.tables, px, py, pz, sx * inv,
+                                  sy * inv, sz * inv, true, false, nan)
+                     .found;
+    }
+    b.occluded[i] = occluded;
+  }
 }
 
 }  // namespace
@@ -293,20 +357,36 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
                             const void* oy, const void* oz, const void* dx,
                             const void* dy, const void* dz,
                             const void* ray_key, const void* active,
+                            const void* tx, const void* ty, const void* tz,
                             void* found, void* t, void* px, void* py,
                             void* pz, void* nx, void* ny, void* nz,
-                            void* index, void* stream) {
+                            void* index, void* occluded, void* n_step,
+                            void* stream) {
   const TraceParams p = *params;
+  const Buffers b{(const int4*)tables, (const uint8_t*)material_indices,
+                  (const float*)ox, (const float*)oy, (const float*)oz,
+                  (const float*)dx, (const float*)dy, (const float*)dz,
+                  (const float*)ray_key, (const bool*)active,
+                  (const float*)tx, (const float*)ty, (const float*)tz,
+                  (bool*)found, (float*)t, (float*)px, (float*)py,
+                  (float*)pz, (float*)nx, (float*)ny, (float*)nz,
+                  (int32_t*)index, (bool*)occluded, (int32_t*)n_step};
+  const bool shadow = tx != nullptr;
+  const bool stats = n_step != nullptr;
+  if (shadow && (ty == nullptr || tz == nullptr || occluded == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (p.n > 0) {
     const int threads = 128;
     const unsigned blocks = (unsigned)((p.n + threads - 1) / threads);
-    traverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        p, (const int4*)tables, (const uint8_t*)material_indices,
-        (const float*)ox, (const float*)oy, (const float*)oz,
-        (const float*)dx, (const float*)dy, (const float*)dz,
-        (const float*)ray_key, (const bool*)active, (bool*)found, (float*)t,
-        (float*)px, (float*)py, (float*)pz, (float*)nx, (float*)ny,
-        (float*)nz, (int32_t*)index);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (shadow && stats)
+      traverse_kernel<true, true><<<blocks, threads, 0, s>>>(p, b);
+    else if (shadow)
+      traverse_kernel<true, false><<<blocks, threads, 0, s>>>(p, b);
+    else if (stats)
+      traverse_kernel<false, true><<<blocks, threads, 0, s>>>(p, b);
+    else
+      traverse_kernel<false, false><<<blocks, threads, 0, s>>>(p, b);
   }
   return (int)cudaGetLastError();
 }

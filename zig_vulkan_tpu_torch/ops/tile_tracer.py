@@ -9,8 +9,21 @@ region tables, the region vote and the phase budget do not exist here; every
 lane retires within `max_steps`, so there is no `unfinished` output and no
 retrace.
 
+The TPU kernel's builds map onto kernel A's compile-time variants:
+
+- the default builds (sequential/concurrent serve, with or without the
+  dielectric key) -> the default variant (the key is a run-time pointer);
+- `shadow=True` (the sun-shadow probe) -> the shadow variant: a thread that
+  records a hit traces its own sun ray toward the lane's target and writes
+  `occluded`;
+- `stats=True` -> the stats variant: `n_step` per lane. The TPU kernel's
+  other counter, `n_phase`, counts region parks; a per-ray kernel has none;
+- `sparse_roam=True` (roaming through regions of a sprayed scene) changes
+  only the TPU kernel's park schedule, not its answer: kernel A computes
+  that answer on any scene.
+
 For tensors on the CPU the wrapper runs the plain torch version,
-`ops.trace._grid_hit_soa`. For CUDA tensors it launches kernel A or raises.
+`grid_hit_plain`. For CUDA tensors it launches kernel A or raises.
 """
 
 from __future__ import annotations
@@ -19,15 +32,57 @@ import torch
 
 from .. import _build
 from ..core.grid import GridStatic
-from .trace import _grid_hit_soa, trace_constants
+from .trace import _grid_hit_soa, shadow_dirs, trace_constants
 
 _RAY_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz")
 _OUT_FIELDS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
 
+# region edge lengths in grid cells (y, z, x) of the TPU kernel's region
+# blocks (zig_vulkan_tpu/ops/tile_tracer.py:98); the engine's roamability
+# report counts regions of this size
+REGION_CELLS = (4, 16, 16)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def region_grid(static: GridStatic):
+    """Number of regions per axis (y, z, x); dims are padded up."""
+    ry, rz, rx = REGION_CELLS
+    return (_cdiv(static.dim_y, ry), _cdiv(static.dim_z, rz),
+            _cdiv(static.dim_x, rx))
+
+
+def _build_name(shadow: bool, stats: bool) -> str:
+    return {(False, False): "default", (True, False): "shadow",
+            (False, True): "stats", (True, True): "shadow+stats"}[
+                (shadow, stats)]
+
+
+def grid_hit_plain(static: GridStatic, tables, material_indices,
+                   ox, oy, oz, dx, dy, dz, active, ray_key=None,
+                   max_steps: int = 768, shadow_targets=None,
+                   stats: bool = False):
+    """The plain torch version of every build of kernel A: the traversal
+    twin `ops.trace._grid_hit_soa`, run a second time for the sun rays of
+    the lanes that hit when `shadow_targets` is given."""
+    out = _grid_hit_soa(static, tables, material_indices, ox, oy, oz,
+                        dx, dy, dz, active, ray_key=ray_key,
+                        max_steps=max_steps, stats=stats)
+    if shadow_targets is not None:
+        sdx, sdy, sdz = shadow_dirs(out, shadow_targets)
+        sh = _grid_hit_soa(static, tables, material_indices, out["px"],
+                           out["py"], out["pz"], sdx, sdy, sdz,
+                           active & out["found"], max_steps=max_steps)
+        out["occluded"] = sh["found"]
+    return out
+
 
 def grid_hit_tiles(static: GridStatic, tables, material_indices,
                    ox, oy, oz, dx, dy, dz, active, ray_key=None,
-                   max_steps: int = 768):
+                   max_steps: int = 768, shadow_targets=None,
+                   stats: bool = False):
     """First voxel hit for a wavefront of rays.
 
     Args:
@@ -37,21 +92,38 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
       active: bool[N] lanes to trace.
       ray_key: optional f32[N] dielectric key (the ir of a refracted ray,
         NaN otherwise); None skips nothing.
+      shadow_targets: optional (tx, ty, tz) f32[N] sun targets
+        (ops.trace.sun_targets): each lane that hits also traces the ray
+        from its hit point toward its target (no dielectric key) and the
+        result gains `occluded`, bool[N].
+      stats: the result gains `n_step`, int32[N] loop iterations of the
+        first traversal.
 
     Returns dict(found bool, t, px, py, pz, nx, ny, nz f32, index int32),
     each of shape [N].
     """
     rays = (ox, oy, oz, dx, dy, dz)
     if tables.device.type == "cpu":
-        return _grid_hit_soa(static, tables, material_indices, *rays, active,
-                             ray_key=ray_key, max_steps=max_steps)
+        return grid_hit_plain(static, tables, material_indices, *rays,
+                              active, ray_key=ray_key, max_steps=max_steps,
+                              shadow_targets=shadow_targets, stats=stats)
     if tables.device.type != "cuda":
         raise ValueError(f"grid_hit_tiles: unsupported device {tables.device}")
     return _launch(static, tables, material_indices, rays, active, ray_key,
-                   max_steps)
+                   max_steps, shadow_targets, stats)
 
 
+# kernel A launches, in all and per build ("default", "shadow", "stats",
+# "shadow+stats"); counted only where the kernel is launched
 grid_hit_tiles.launches = 0
+grid_hit_tiles.build_launches = dict.fromkeys(
+    ("default", "shadow", "stats", "shadow+stats"), 0)
+
+
+def reset_launch_counts() -> None:
+    grid_hit_tiles.launches = 0
+    for name in grid_hit_tiles.build_launches:
+        grid_hit_tiles.build_launches[name] = 0
 
 
 def _check(name, t, dtype, shape, device):
@@ -64,7 +136,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def _launch(static, tables, material_indices, rays, active, ray_key,
-            max_steps):
+            max_steps, shadow_targets, stats):
     dev = tables.device
     n = rays[0].shape[0]
     _check("tables", tables, torch.int32, (static.cells, 8), dev)
@@ -78,6 +150,12 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
     _check("active", active, torch.bool, (n,), dev)
     if ray_key is not None:
         _check("ray_key", ray_key, torch.float32, (n,), dev)
+    shadow = shadow_targets is not None
+    if shadow:
+        if len(shadow_targets) != 3:
+            raise ValueError("grid_hit_tiles: shadow_targets is (tx, ty, tz)")
+        for name, a in zip(("tx", "ty", "tz"), shadow_targets):
+            _check(name, a, torch.float32, (n,), dev)
 
     k = trace_constants(static)
     p = _build.TraceParams()
@@ -98,15 +176,24 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
            for name in _OUT_FIELDS}
     out["found"] = torch.empty(n, dtype=torch.bool, device=dev)
     out["index"] = torch.empty(n, dtype=torch.int32, device=dev)
+    if shadow:
+        out["occluded"] = torch.empty(n, dtype=torch.bool, device=dev)
+    if stats:
+        out["n_step"] = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.zvt_traverse(
             p, tables.data_ptr(), material_indices.data_ptr(),
-            *(a.data_ptr() for a in rays),
-            None if ray_key is None else ray_key.data_ptr(),
-            active.data_ptr(),
-            *(out[name].data_ptr() for name in _OUT_FIELDS), stream)
+            *(a.data_ptr() for a in rays), ptr(ray_key), active.data_ptr(),
+            *(ptr(a) for a in (shadow_targets or (None, None, None))),
+            *(out[name].data_ptr() for name in _OUT_FIELDS),
+            ptr(out.get("occluded")), ptr(out.get("n_step")), stream)
     _build.check(status, "zvt_traverse")
     grid_hit_tiles.launches += 1
+    grid_hit_tiles.build_launches[_build_name(shadow, stats)] += 1
     return out

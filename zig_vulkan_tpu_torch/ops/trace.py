@@ -10,8 +10,8 @@ through
    CUDA, `_grid_hit_soa` below on the CPU);
 2. the material lookup, `ops.lookup.table_lookup` (kernel B on CUDA);
 3. the shading glue in this module: lambertian / metal / dielectric /
-   emissive scatter, a sun-shadow ray (a second traversal), background and
-   tone map.
+   emissive scatter, a sun-shadow ray (a second traversal, or traced by
+   the same kernel A thread with `shadow_probe`), background and tone map.
 
 Colours do not depend on lane order (every random number is a hash of hit
 positions and ray directions), so the wavefront stays in pixel order: the
@@ -165,6 +165,28 @@ def distance_field(static: GridStatic, arrays: GridArrays,
     return _distance_field(static, _loaded_cells(static, arrays), exact=exact)
 
 
+def _rows_for_cells(static: GridStatic, arrays: GridArrays, cells,
+                    dist_rows):
+    """The traversal records of `cells` (int64[K], in range), with skip
+    distances `dist_rows` (zig_vulkan_tpu/ops/trace.py:327-351)."""
+    bits = arrays.statuses[cells // 32]
+    loaded = ((bits >> (cells % 32).to(torch.int32)) & 1) == 1
+    cell_brick = arrays.indices[cells]
+    brick = torch.where(loaded, cell_brick,
+                        torch.zeros_like(cell_brick)).long()
+    occ2 = arrays.occupancy.reshape(static.brick_alloc, BRICK_WORDS)
+    occ_rows = occ2[brick]
+    diel2 = arrays.diel_mask.reshape(static.brick_alloc, BRICK_WORDS)
+    diel_rows = diel2[brick]
+    ir_bits = arrays.brick_ir[brick].view(torch.int32)
+    start = arrays.start_indices[brick]
+    start = torch.where(loaded, start, torch.full_like(start, EMPTY))
+    return torch.stack(
+        [start, occ_rows[:, 0], occ_rows[:, 1], dist_rows,
+         diel_rows[:, 0], diel_rows[:, 1], ir_bits,
+         torch.zeros_like(dist_rows)], dim=-1).contiguous()
+
+
 def build_trace_tables(static: GridStatic, arrays: GridArrays, dist=None):
     """Per-cell traversal records, int32[cells, 8]
     (zig_vulkan_tpu/ops/trace.py:279-324): {material window start (or -1 =
@@ -172,22 +194,44 @@ def build_trace_tables(static: GridStatic, arrays: GridArrays, dist=None):
     distance, dielectric-mask word 0, dielectric-mask word 1, brick ir as
     float32 bits, 0}. One 32-byte row per cell: everything the traversal
     needs at a cell, in one aligned read."""
-    loaded = _loaded_cells(static, arrays)
-    zero = torch.zeros_like(arrays.indices)
-    brick = torch.where(loaded, arrays.indices, zero).long()
-    occ2 = arrays.occupancy.reshape(static.brick_alloc, BRICK_WORDS)
-    occ_rows = occ2[brick]
-    diel2 = arrays.diel_mask.reshape(static.brick_alloc, BRICK_WORDS)
-    diel_rows = diel2[brick]
-    ir_bits = arrays.brick_ir[brick].view(torch.int32)
-    start = torch.where(loaded, arrays.start_indices[brick],
-                        torch.full_like(zero, EMPTY))
     if dist is None:
-        dist = _distance_field(static, loaded)
-    return torch.stack(
-        [start, occ_rows[:, 0], occ_rows[:, 1], dist,
-         diel_rows[:, 0], diel_rows[:, 1], ir_bits, torch.zeros_like(dist)],
-        dim=-1).contiguous()
+        dist = _distance_field(static, _loaded_cells(static, arrays))
+    cells = torch.arange(static.cells, dtype=torch.int64,
+                         device=arrays.statuses.device)
+    return _rows_for_cells(static, arrays, cells, dist)
+
+
+def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
+                                tables, cells, valid):
+    """Bring cached tables up to date after an insert batch
+    (zig_vulkan_tpu/ops/trace.py:354-373), in place: the conservative
+    skip field is rebuilt whole (inserts can load new cells, lowering
+    distances anywhere within DIST_CAP) and written to lane 3, then the
+    rows of the touched `cells` (int[K], masked by `valid`) are gathered
+    anew. Returns (tables, dist); the tables then equal
+    `build_trace_tables(static, arrays, distance_field(static, arrays))`
+    on every lane the traversal reads. (An empty cell's row also carries
+    brick 0's words, which stay as they were when an edit changes brick 0,
+    as in the reference; no traversal reads them.)"""
+    dist = distance_field(static, arrays)
+    tables[:, 3] = dist
+    _refresh_rows(static, arrays, tables, dist, cells, valid)
+    return tables, dist
+
+
+def refresh_tables_after_remove(static: GridStatic, arrays: GridArrays,
+                                tables, dist, cells, valid):
+    """Bring cached tables up to date after removals
+    (zig_vulkan_tpu/ops/trace.py:376-385), in place: statuses never change
+    (bricks are not freed), so the cached skip field `dist` stays valid and
+    only the touched rows are gathered anew."""
+    _refresh_rows(static, arrays, tables, dist, cells, valid)
+    return tables
+
+
+def _refresh_rows(static, arrays, tables, dist, cells, valid):
+    safe = cells.to(torch.int64).clamp(0, static.cells - 1)[valid]
+    tables[safe] = _rows_for_cells(static, arrays, safe, dist[safe])
 
 
 # -- first-hit traversal: the plain torch version of kernel A ------------------
@@ -215,7 +259,7 @@ BRICK_UNROLL = 4
 
 def _grid_hit_soa(static: GridStatic, tables, material_indices,
                   ox, oy, oz, dx, dy, dz, active, ray_key=None,
-                  max_steps: int = 768):
+                  max_steps: int = 768, stats: bool = False):
     """First voxel hit of the two-level grid+brick DDA with Chebyshev empty
     skip (GLSL GridHit + BrickHit, brick_raytracer.comp:271-471) for a
     wavefront of rays: the plain torch version of kernel A
@@ -233,7 +277,9 @@ def _grid_hit_soa(static: GridStatic, tables, material_indices,
     plus BRICK_UNROLL brick-level voxel steps. A lane that has not hit
     after `max_steps` iterations is a miss, as in the reference.
 
-    Returns dict(found, t, px, py, pz, nx, ny, nz, index).
+    Returns dict(found, t, px, py, pz, nx, ny, nz, index); with `stats`
+    also `n_step`, int32 loop iterations per lane (a lane that hits with
+    `n_step = k` hits with `max_steps = k` and misses with `k - 1`).
     """
     k = trace_constants(static)
     dev = ox.device
@@ -329,9 +375,11 @@ def _grid_hit_soa(static: GridStatic, tables, material_indices,
     def sel3(a, b, c, xs, ys, zs):
         return torch.where(a, xs, torch.where(b, ys, zs))
 
+    n_step = zi
     step = 0
     while step < max_steps and bool(running.any()):
         step += 1
+        n_step = n_step + running.to(torch.int32)
         # ---------------- grid level: cell check ----------------
         g = running & ~in_brick
         in_b_g = ((lx >= 0) & (lx < dim_x) & (ly >= 0) & (ly < dim_y)
@@ -455,8 +503,27 @@ def _grid_hit_soa(static: GridStatic, tables, material_indices,
     pz = oz + dz * out_t + nz * t_off
     index = material_indices[torch.where(found, out_addr, zi).long()].to(
         torch.int32)
-    return dict(found=found, t=out_t, px=px, py=py, pz=pz,
-                nx=nx, ny=ny, nz=nz, index=index)
+    out = dict(found=found, t=out_t, px=px, py=py, pz=pz,
+               nx=nx, ny=ny, nz=nz, index=index)
+    if stats:
+        out["n_step"] = n_step
+    return out
+
+
+def sun_targets(dx, dy, dz, sun_p, radius):
+    """Per-lane jittered sun-disk target of a ray (brick_raytracer.comp:
+    240-249; zig_vulkan_tpu/ops/trace.py:1127-1139). The jitter seed is the
+    incoming direction, so the target is known before the traversal: the
+    shadow build of kernel A takes it and traces the sun ray itself."""
+    jx, jy, jz = _rand_vec3_range_soa(dx + dz, dy + dz, -radius, radius)
+    return sun_p[0] + jx, sun_p[1] + jy, sun_p[2] + jz
+
+
+def shadow_dirs(hit, targets):
+    """Normalized directions from the hit points toward `targets`, rounded
+    as kernel A's shadow build rounds them."""
+    return _norm3(targets[0] - hit["px"], targets[1] - hit["py"],
+                  targets[2] - hit["pz"])
 
 
 # -- path tracing ---------------------------------------------------------------
@@ -470,20 +537,25 @@ def _rand_vec3_range_soa(cox, coy, lo, hi):
 def _ray_color_soa(static: GridStatic, tables, material_indices,
                    mats, ox, oy, oz, dx, dy, dz,
                    max_bounce: int, sun_position, sun_enabled: bool,
-                   sun_color, sun_radius, max_steps: int = 768):
+                   sun_color, sun_radius, max_steps: int = 768,
+                   shadow_probe: bool = False):
     """Path-traced, tone-mapped radiance for a wavefront (RayColor,
     brick_raytracer.comp:203-265; zig_vulkan_tpu/ops/trace.py:867-1325).
 
     `mats` is `materials_to_device`'s f32[5, 256] table; `sun_position`/
     `sun_color` are float32[3] numpy vectors and `sun_radius` a float32
-    scalar (the per-frame push constants).
+    scalar (the per-frame push constants). With `shadow_probe` (and the
+    sun on) each bounce level's sun ray is traced inside its scatter
+    traversal (kernel A's shadow build) instead of a second traversal; the
+    colours are the same.
     Returns (r, g, b) f32[N] each, in lane order."""
     from .tile_tracer import grid_hit_tiles  # imports this module
 
-    def hit(hox, hoy, hoz, hdx, hdy, hdz, mask, ray_key=None):
+    def hit(hox, hoy, hoz, hdx, hdy, hdz, mask, ray_key=None, targets=None):
         return grid_hit_tiles(static, tables, material_indices,
                               hox, hoy, hoz, hdx, hdy, hdz, mask,
-                              ray_key=ray_key, max_steps=max_steps)
+                              ray_key=ray_key, max_steps=max_steps,
+                              shadow_targets=targets)
 
     n = ox.shape[0]
     dev = ox.device
@@ -501,17 +573,21 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
 
     # original direction for the background of never-hit rays
     odx, ody, odz = dx, dy, dz
+    probe = shadow_probe and sun_enabled
 
     for bounce_i in range(max_bounce):
+        # the jittered sun target depends on the incoming direction only
+        tgt = sun_targets(dx, dy, dz, sun_p, radius) if sun_enabled else None
         if bounce_i == 0:
             # dielectric-skip state exists only after a refraction
-            h = hit(ox, oy, oz, dx, dy, dz, bouncing)
+            key = None
         else:
             # per-ray dielectric skip key: NaN (skip nothing) unless the
             # ray was refracted (brick_raytracer.comp:427)
             key = torch.where(ignore_type == MAT_DIELECTRIC, internal_refl,
                               nan)
-            h = hit(ox, oy, oz, dx, dy, dz, bouncing, ray_key=key)
+        h = hit(ox, oy, oz, dx, dy, dz, bouncing, ray_key=key,
+                targets=tgt if probe else None)
         active = bouncing & h["found"]
 
         ar, ag, ab, mtype_f, type_data = table_lookup(mats, h["index"])
@@ -584,16 +660,12 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
         sun_or_diffuse = active & ~is_emissive
 
         if sun_enabled:
-            # jittered sun-disk target; the jitter seed is the incoming
-            # ray direction (brick_raytracer.comp:242)
-            sx_, sy_, sz_ = _rand_vec3_range_soa(dx + dz, dy + dz,
-                                                 -radius, radius)
-            shx = sun_p[0] + sx_ - px
-            shy = sun_p[1] + sy_ - py
-            shz = sun_p[2] + sz_ - pz
-            shx, shy, shz = _norm3(shx, shy, shz)
-            sh = hit(px, py, pz, shx, shy, shz, active)
-            lit = sun_or_diffuse & ~sh["found"]
+            if probe:
+                occluded = h["occluded"]
+            else:
+                shx, shy, shz = shadow_dirs(h, tgt)
+                occluded = hit(px, py, pz, shx, shy, shz, active)["found"]
+            lit = sun_or_diffuse & ~occluded
             cr = cr + torch.where(lit, ar * sun_c[0], zf)
             cg = cg + torch.where(lit, ag * sun_c[1], zf)
             cb = cb + torch.where(lit, ab * sun_c[2], zf)
@@ -670,23 +742,29 @@ def _camera_rays_soa(cam: dict, width: int, height: int, sample_index):
 def render_rows(static: GridStatic, tables, material_indices, mats,
                 cam: dict, width: int, height: int, spp: int,
                 max_bounce: int, sun_position, sun_color, sun_radius,
-                sun_enabled: bool, max_steps: int = 768):
+                sun_enabled: bool, max_steps: int = 768,
+                sample_base: float = 0.0, shadow_probe: bool = False):
     """Render a frame: f32[height, width, 3], tone-mapped and gamma'd
     (brick_raytracer.comp:153-178; zig_vulkan_tpu/ops/trace.py:1382-1470).
 
     All `spp` samples ride one wavefront of spp*height*width lanes, so each
-    bounce level is one traversal launch (plus one for its shadows) and one
-    lookup launch, whatever spp is. Per-lane results equal a loop over
-    samples: the RNG keys off hit positions and the per-sample jitter seed,
-    not lane position."""
+    bounce level is one traversal launch (plus one for its shadows, unless
+    `shadow_probe`) and one lookup launch, whatever spp is. Per-lane
+    results equal a loop over samples: the RNG keys off hit positions and
+    the per-sample jitter seed, not lane position.
+
+    `sample_base` offsets the per-sample jitter seed (sample s uses
+    sample_base + s, in float32); temporal accumulation passes
+    frame_index * spp so every frame draws fresh sub-pixel samples."""
     w, h = int(width), int(height)
-    samples = [_camera_rays_soa(cam, w, h, s) for s in range(spp)]
+    samples = [_camera_rays_soa(cam, w, h, _F(_F(sample_base) + _F(s)))
+               for s in range(spp)]
     oxs, oys, ozs, rdx, rdy, rdz = (
         torch.cat([sm[i] for sm in samples]) for i in range(6))
     cr, cg, cb = _ray_color_soa(
         static, tables, material_indices, mats, oxs, oys, ozs,
         rdx, rdy, rdz, max_bounce, sun_position, sun_enabled, sun_color,
-        sun_radius, max_steps)
+        sun_radius, max_steps, shadow_probe=shadow_probe)
     color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, h * w, 3).sum(dim=0)
     color = torch.sqrt(_div(color, spp))
     return color.reshape(h, w, 3)
