@@ -35,7 +35,23 @@ non-zero if any phase fails:
 10. temporal accumulation: five frames of a static pose, then
     `set_resolutions`;
 11. the fly-through harness: `run_benchmark(fixed_dt=0.5)` prints the
-    reference's report.
+    reference's report;
+12. oracle parity on the card: 24x24 subsampled 1080p rays from three
+    fly-through poses of the default scene through kernel A's NO_SKIP build
+    (the exact DDA, `TraceConfig(empty_skip=False)`) against the port's
+    numpy oracle (identical hits and indices) and its twin (bit for bit),
+    the default build's flip rate against the oracle (< 0.5%) and against
+    its twin; full-RGB frames of the exact path through the engine against
+    `oracle.render` on two poses; NO_SKIP against the default build on the
+    1080p primary rays;
+13. the app: `python -m zig_vulkan_tpu_torch.app.run`'s `main` at its
+    defaults with `--frames 8 --out`, `--script demo`, `--benchmark`,
+    `--profile` (the zones in the trace) and `--live` (output captured);
+14. host I/O: save_scene / load_scene / flush_grid of phase 8's edited
+    scene (same arrays, same frame), the file read by plain numpy against
+    the JAX package's format, `cached_default_scene` cold and warm,
+    `stream_into_engine(terrain_regions(...))` into an empty engine against
+    the host terrain build, and the native C++ builder where g++ exists.
 
 The line before the last is a JSON object with one entry per kernel build;
 the last line is {"ok": true, "device": {...}}. Imports no JAX.
@@ -43,9 +59,13 @@ the last line is {"ok": true, "device": {...}}. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +82,32 @@ PROBE_FRAMES = 3     # timed default frames per group in phase 9 (2 groups
                      # per variant)
 TEMPORAL_FRAMES = 5
 BENCH_FRAMES = 12
+ORACLE_POSES = (0, 3, 7)   # PATH_POINTS indices (tests/test_parity_at_scale.py)
+ORACLE_SIDE = 24           # rays per pose: a 24x24 subgrid of 1080p
+RGB_POSES = (0, 3)
+RGB_RES = (64, 36)         # the full-RGB oracle frames
+# Path-traced frames of the default scene against the oracle: the sin hash
+# turns last-bit differences of a scatter direction into other random
+# numbers, and the terrain's voxel staircase turns those into other hits,
+# so no implementation matches the oracle pixel for pixel there. The bound
+# is the JAX package's own distance from its oracle on the same frames
+# (render_image with empty_skip=False on XLA:CPU, 64x36, 2 spp, 3 levels,
+# sun): (share of pixels with |d| > 1e-3, mean |d|) per RGB_POSES entry.
+# The port must come no further; the parity scene keeps the 1% bound of
+# tests/test_trace_parity.py:75-77.
+RGB_REFERENCE = {0: (0.1094, 0.01528), 3: (0.1536, 0.01935)}
+STREAM_BATCH = 262144      # io.streaming.stream_into_engine's max_batch
+# the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
+# 24-46, core/materials.py:MaterialTable)
+SCENE_FILE_DTYPES = {
+    "dim_x": np.int64, "dim_y": np.int64, "dim_z": np.int64,
+    "brick_alloc": np.int64, "min_point": np.float64, "scale": np.float64,
+    "base_t": np.float64, "statuses": np.uint32, "indices": np.uint32,
+    "occupancy": np.uint32, "start_indices": np.uint32,
+    "material_indices": np.uint8, "active_bricks": np.uint32,
+    "material_cursor": np.uint32, "diel_mask": np.uint32,
+    "brick_ir": np.float32, "mat_type": np.int32, "mat_albedo": np.float32,
+    "mat_type_data": np.float32}
 # the first points of the fly-through path (zig_vulkan_tpu/engine/
 # benchmark.py:29, Benchmark.zig:146-158)
 PATH_POINTS = ((0, 0, 0), (2, 5, 0), (3, 5, 5), (5, 2, 1), (10, 0, 10),
@@ -371,7 +417,8 @@ def edit_flythrough(dev, scene, res, frames):
         sprayed=dict(launches=launches["A"], max_abs_err=0.0, ms=sprayed_ms,
                      plain_ms=sprayed_plain_ms),
         stats=dict(launches=stats_launches, max_abs_err=0.0, ms=stats_ms,
-                   plain_ms=stats_plain_ms))
+                   plain_ms=stats_plain_ms),
+        engine=rt)
 
 
 def shadow_probe(rt, rays, active, key):
@@ -500,6 +547,497 @@ def flythrough(rt):
         raise AssertionError("benchmark report incomplete")
 
 
+def parity_scene():
+    """tests/test_trace_parity.py's water pool + metal pillar scene, on
+    which the golden renders were made."""
+    from zig_vulkan_tpu_torch.models import scenes
+
+    sc = scenes.flat_test_scene(dim=8)
+    xs, zs = np.meshgrid(np.arange(6, 16), np.arange(6, 16), indexing="ij")
+    sc.grid.insert_batch(xs.ravel(), np.full(xs.size, 4), zs.ravel(),
+                         np.zeros(xs.size, dtype=np.uint8))
+    ys = np.arange(4, 12)
+    sc.grid.insert_batch(np.full(ys.size, 20), ys, np.full(ys.size, 20),
+                         np.full(ys.size, 7, dtype=np.uint8))
+    return sc
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    head = Path(path).read_bytes()[:24]
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def sub_rays(origin, n_side=ORACLE_SIDE, width=1920, height=1080):
+    """An n_side x n_side subgrid of the 1080p camera rays from a pose
+    (tests/test_parity_at_scale.py:31-44), as numpy (origins, dirs)."""
+    from zig_vulkan_tpu_torch.config import CameraConfig
+    from zig_vulkan_tpu_torch.core.camera import Camera
+
+    cam = Camera(75.0, width, height, CameraConfig(origin=tuple(origin)))
+    d = cam.d_camera
+    xs = np.linspace(0, width - 1, n_side, dtype=np.float32)
+    ys = np.linspace(0, height - 1, n_side, dtype=np.float32)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    u = (gx / np.float32(width - 1)).ravel()
+    v = (gy / np.float32(height - 1)).ravel()
+    rd = (d.horizontal * u[:, None] + d.lower_left_corner
+          + d.vertical * v[:, None] - d.origin).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro = np.broadcast_to(d.origin, rd.shape).astype(np.float32).copy()
+    return ro, rd
+
+
+def frame_launches_per_level(rt):
+    """Kernel A launches per bounce level of a frame: the scatter ray, and
+    the sun ray unless it is off."""
+    return 2 if rt.sun.device_data.enabled else 1
+
+
+def oracle_parity(dev, scene, rt, poses_1080):
+    """Phase 12: kernel A's NO_SKIP and default builds against the numpy
+    oracle on the default scene (`scene`, host arrays; `rt` its engine),
+    exact-path frames against `oracle.render`, and NO_SKIP against the
+    default build on the 1080p primary rays `poses_1080`."""
+    import torch
+
+    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
+                                             EngineConfig, SunConfig,
+                                             TraceConfig)
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.core.materials import MAT_NONE
+    from zig_vulkan_tpu_torch.core.sun import Sun
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.oracle import cpu_tracer as oracle
+
+    st = rt.grid_static
+    osc = oracle.OracleScene(st, scene.grid.arrays, scene.materials)
+    skip_tables = rt.tables()
+    exact_tables = trace.build_trace_tables(
+        st, rt.arrays, trace.no_skip_field(st, rt.arrays))
+    mat_idx = rt.arrays.material_indices
+    keys = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
+
+    def hit(rays, active, exact, plain=False, **kw):
+        fn = tile_tracer.grid_hit_plain if plain else tile_tracer.grid_hit_tiles
+        return fn(st, exact_tables if exact else skip_tables, mat_idx, *rays,
+                  active, use_skip=not exact, **kw)
+
+    t0 = time.perf_counter()
+    total = flips = 0
+    for i in ORACLE_POSES:
+        ro, rd = sub_rays(PATH_POINTS[i])
+        n = ro.shape[0]
+        o = oracle.grid_hit(osc, ro, rd, np.float32(1e-5), np.float32(np.inf),
+                            np.full(n, MAT_NONE, np.int32),
+                            np.ones(n, np.float32), np.ones(n, bool))
+        rays = tuple(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
+                     for a in (ro, rd) for k in range(3))
+        on = torch.ones(n, dtype=torch.bool, device=dev)
+        ex = hit(rays, on, exact=True)
+        compare_exact(f"NO_SKIP build oracle pose {i}", ex,
+                      hit(rays, on, exact=True, plain=True), keys)
+        sk = hit(rays, on, exact=False)
+        compare_exact(f"default build oracle pose {i}", sk,
+                      hit(rays, on, exact=False, plain=True), keys)
+        ef, et, ei = (ex[k].cpu().numpy() for k in ("found", "t", "index"))
+        both = ef & o.found
+        dt = np.abs(et[both] - o.t[both])
+        t_ok = bool(np.all(dt <= 1e-4 + 1e-5 * np.abs(o.t[both])))
+        found_bad = int((ef != o.found).sum())
+        index_bad = int((ei[both] != o.index[both]).sum())
+        sf, stt = sk["found"].cpu().numpy(), sk["t"].cpu().numpy()
+        sboth = sf & o.found
+        pose_flips = int((sf != o.found).sum()
+                         + (np.abs(stt[sboth] - o.t[sboth]) >= 1e-2).sum())
+        total += n
+        flips += pose_flips
+        log("oracle", pose=list(PATH_POINTS[i]), rays=n,
+            oracle_hits=int(o.found.sum()), exact_found_mismatch=found_bad,
+            exact_index_mismatch=index_bad,
+            exact_max_dt=float(dt.max()) if dt.size else 0.0,
+            exact_t_within_tol=t_ok, skip_flips=pose_flips)
+        if found_bad or index_bad or not t_ok:
+            raise AssertionError(f"NO_SKIP build differs from the oracle at "
+                                 f"pose {PATH_POINTS[i]}")
+    flip_rate = flips / total
+    log("oracle", rays=total, skip_flip_rate=f"{flip_rate:.6f}",
+        bound=0.005, seconds=f"{time.perf_counter() - t0:.2f}")
+    if flip_rate >= 0.005:
+        raise AssertionError("the default build flips more than 0.5% of the "
+                             "oracle's hits")
+
+    def frame_diff(got, want):
+        d = np.abs(got - want).max(axis=-1)
+        return (float((d > 1e-3).mean()), float(d.mean()), float(d.max()),
+                float((got - want).mean()))
+
+    # RGB of the exact path on the parity scene, tests/test_trace_parity.py's
+    # bound
+    t0 = time.perf_counter()
+    psc = parity_scene()
+    parr = psc.grid.arrays.to_device(dev)
+    pst = psc.grid.static
+    pcam = Camera(75.0, 48, 48, CameraConfig(origin=(4.0, 6.5, 15.0)))
+    psun = Sun(SunConfig(enabled=True)).device_data
+    ptab = trace.build_trace_tables(pst, parr, trace.no_skip_field(pst, parr))
+    img = trace.render_rows(
+        pst, ptab, parr.material_indices, trace.materials_to_device(psc.materials, dev),
+        trace.camera_vectors(pcam.d_camera, dev), 48, 48,
+        pcam.d_camera.samples_per_pixel, pcam.d_camera.max_bounce,
+        psun.position, psun.color, psun.radius, True,
+        use_skip=False).cpu().numpy()
+    want = oracle.render(oracle.OracleScene(pst, psc.grid.arrays,
+                                            psc.materials),
+                         pcam.d_camera, psun)
+    share, mean, mx, signed = frame_diff(img, want)
+    log("oracle rgb", scene="parity", resolution="48x48", spp=2,
+        bounce_levels=int(pcam.d_camera.max_bounce),
+        share_over_1e_3=f"{share:.6f}", mean_abs=f"{mean:.3e}",
+        max_abs=f"{mx:.4f}", bound="share < 0.01, mean < 5e-3")
+    if share >= 0.01 or mean >= 5e-3:
+        raise AssertionError("exact-path parity frame differs from the "
+                             "oracle")
+
+    # RGB of the exact path on the default scene, through the engine (the
+    # NO_SKIP build's main path: launches counted from 0 over these frames)
+    w, h = RGB_RES
+    counts = {"exact": 0, "other_A": 0, "B": 0, "expected_A": 0,
+              "expected_B": 0}
+    for i in RGB_POSES:
+        origin = tuple(float(v) for v in PATH_POINTS[i])
+        for primary in (True, False):
+            camera = (CameraConfig(origin=origin, samples_per_pixel=1,
+                                   max_bounce=0) if primary
+                      else CameraConfig(origin=origin))
+            ert = VoxelRT(scene.grid, scene.materials, EngineConfig(
+                internal_resolution_width=w, internal_resolution_height=h,
+                camera=camera, sun=SunConfig(enabled=not primary),
+                denoiser=DenoiserConfig(enabled=False),
+                trace=TraceConfig(empty_skip=False)), device=dev)
+            ert.tables()
+            tile_tracer.reset_launch_counts()
+            lookup.table_lookup.launches = 0
+            img = ert.render()
+            torch.cuda.synchronize()
+            a = tile_tracer.grid_hit_tiles
+            counts["exact"] += a.build_launches["exact"]
+            counts["other_A"] += a.launches - a.build_launches["exact"]
+            counts["B"] += lookup.table_lookup.launches
+            levels = int(ert.camera.d_camera.max_bounce)
+            counts["expected_A"] += levels * frame_launches_per_level(ert)
+            counts["expected_B"] += levels
+            got = img.cpu().numpy()
+            want = oracle.render(osc, ert.camera.d_camera, ert.sun.device_data)
+            share, mean, mx, signed = frame_diff(got, want)
+            ref_share, ref_mean = RGB_REFERENCE[i]
+            log("oracle rgb", scene="default", pose=list(PATH_POINTS[i]),
+                frame="primary" if primary else "path-traced",
+                resolution=f"{w}x{h}",
+                spp=int(ert.camera.d_camera.samples_per_pixel),
+                bounce_levels=levels, share_over_1e_3=f"{share:.6f}",
+                mean_abs=f"{mean:.3e}", max_abs=f"{mx:.4f}",
+                signed_mean=f"{signed:.2e}",
+                bound=("max < 1e-5" if primary else
+                       f"share < {ref_share}, mean < {ref_mean} (the JAX "
+                       f"package vs its oracle), |signed mean| < 2e-3"))
+            ok = np.isfinite(got).all() and got.shape == want.shape
+            if primary:
+                ok = ok and mx < 1e-5
+            else:
+                ok = (ok and share < ref_share and mean < ref_mean
+                      and abs(signed) < 2e-3)
+            if not ok:
+                raise AssertionError(f"exact-path frame differs from the "
+                                     f"oracle at pose {PATH_POINTS[i]}")
+    log("oracle rgb", launches=json.dumps(counts, separators=(",", ":")),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if (counts["exact"] != counts["expected_A"] or counts["other_A"]
+            or counts["B"] != counts["expected_B"]):
+        raise AssertionError(f"unexpected launch counts {counts}")
+
+    # NO_SKIP against the default build on the 1080p primary rays, in turns
+    hon = torch.ones(poses_1080[0][0].shape[0], dtype=torch.bool, device=dev)
+
+    def pass_ms(exact):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for rays in poses_1080:
+            hit(rays, hon, exact)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / len(poses_1080)
+
+    hit(poses_1080[0], hon, True)  # warm
+    times = {True: [], False: []}
+    for exact in (False, True, True, False):
+        times[exact].append(pass_ms(exact))
+    exact_ms, skip_ms = (float(np.mean(times[k])) for k in (True, False))
+    steps = {k: step_stats(hit(poses_1080[0], hon, k, stats=True)["n_step"])
+             for k in (True, False)}
+    got = hit(poses_1080[0], hon, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = hit(poses_1080[0], hon, True, plain=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    compare_exact("NO_SKIP build 1080p pose 0", got, want, keys)
+    log("oracle", rays=int(hon.numel()), poses=len(poses_1080),
+        no_skip_ms_per_pose=f"{exact_ms:.3f}",
+        default_ms_per_pose=f"{skip_ms:.3f}",
+        no_skip_mrays_per_s=f"{hon.numel() / exact_ms / 1e3:.1f}",
+        steps_per_ray_no_skip=f"mean {steps[True][0]:.2f} "
+        f"p99 {steps[True][1]:.0f}",
+        steps_per_ray_default=f"mean {steps[False][0]:.2f} "
+        f"p99 {steps[False][1]:.0f}",
+        no_skip_plain_ms=f"{plain_ms:.1f}")
+    return dict(launches=counts["exact"], max_abs_err=0.0, ms=exact_ms,
+                plain_ms=plain_ms)
+
+
+def app_phase(app_args):
+    """Phase 13: the app's `main` in each mode, in this process."""
+    import torch
+
+    from zig_vulkan_tpu_torch.app import run as app_run
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer
+    from zig_vulkan_tpu_torch.utils import profiling
+
+    engines = []
+    build = app_run.build_engine
+
+    def keep(args):
+        engines.append(build(args))
+        return engines[-1]
+
+    def run(*extra, capture=False):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with (contextlib.redirect_stdout(buf) if capture
+              else contextlib.nullcontext()):
+            rc = app_run.main([*app_args, *extra])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"app {' '.join(extra)} exited with {rc}")
+        return buf.getvalue(), time.perf_counter() - t0, engines[-1]
+
+    app_run.build_engine = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tile_tracer.reset_launch_counts()
+            lookup.table_lookup.launches = 0
+            _, secs, rt = run("--frames", "8", "--out", f"{tmp}/frames")
+            a = tile_tracer.grid_hit_tiles
+            launches = {"A": a.build_launches["default"], "A_all": a.launches,
+                        "B": lookup.table_lookup.launches}
+            pngs = sorted(Path(tmp, "frames").glob("frame_*.png"))
+            sizes = sorted({png_size(p) for p in pngs})
+            levels = int(rt.camera.d_camera.max_bounce)
+            per = levels * frame_launches_per_level(rt)
+            log("app", mode="frames", frames=len(pngs), png_sizes=sizes,
+                launches=json.dumps(launches, separators=(",", ":")),
+                seconds=f"{secs:.2f}")
+            if len(pngs) != 8 or sizes != [rt.output_resolution]:
+                raise AssertionError("the app did not write 8 frames of the "
+                                     "output size")
+            if launches != {"A": 8 * per, "A_all": 8 * per, "B": 8 * levels}:
+                raise AssertionError(f"unexpected app launches {launches}")
+
+            _, secs, rt = run("--script", "demo", "--frames", "8")
+            ft = np.asarray(rt.metrics.frame_times) * 1e3
+            log("app", mode="script demo", frames=len(ft),
+                median_frame_ms=f"{np.median(ft[1:]):.3f}",
+                frame0_ms=f"{ft[0]:.3f}", seconds=f"{secs:.2f}",
+                origin=np.round(rt.camera.d_camera.origin, 3).tolist())
+            if len(ft) != 8 or not np.isfinite(ft).all():
+                raise AssertionError("the scripted run recorded no frames")
+
+            report, secs, rt = run("--benchmark", "--benchmark-duration",
+                                   "60", "--frames", "12", capture=True)
+            print(report, end="", flush=True)
+            log("app", mode="benchmark", seconds=f"{secs:.2f}")
+            if "BENCHMARK REPORT" not in report:
+                raise AssertionError("the benchmark printed no report")
+
+            _, secs, rt = run("--profile", f"{tmp}/prof", "--frames", "3")
+            trace = json.loads(Path(tmp, "prof", profiling.TRACE_FILE)
+                               .read_text())
+            events = trace["traceEvents"]
+            names = {e.get("name") for e in events}
+            zones = [z for z in ("draw", "render_step", "device_sync",
+                                 "build_tables") if z in names]
+            kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            log("app", mode="profile", zones=zones, trace_events=len(events),
+                cuda_kernel_events=kernels, seconds=f"{secs:.2f}")
+            if not {"draw", "render_step"} <= set(zones):
+                raise AssertionError("the trace lacks the draw/render_step "
+                                     "zones")
+
+            out, secs, rt = run("--live", "--frames", "3", capture=True)
+            log("app", mode="live", paints=out.count("\x1b[H"),
+                bytes=len(out), seconds=f"{secs:.2f}")
+            if out.count("\x1b[H") != 3:
+                raise AssertionError("the live viewer did not paint 3 frames")
+    finally:
+        app_run.build_engine = build
+
+
+_FIELDS = ("statuses", "indices", "occupancy", "start_indices",
+           "material_indices", "active_bricks", "material_cursor",
+           "diel_mask", "brick_ir")
+
+
+def host_io(dev, scene, rt8, cfg):
+    """Phase 14: save/load of phase 8's edited scene (`rt8`), the file
+    format, the scene cache, terrain streaming and the native builder."""
+    import dataclasses
+
+    import torch
+
+    from zig_vulkan_tpu_torch.config import GridConfig
+    from zig_vulkan_tpu_torch.core.grid import BrickGrid, dense_materials
+    from zig_vulkan_tpu_torch.core.materials import terrain_materials
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.io import (native_builder, scene_io, streaming,
+                                         terrain)
+    from zig_vulkan_tpu_torch.models import scenes
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the round trip; the frames run the exact DDA, which reads the
+        # scene arrays only (an edited scene's skip field is the
+        # conservative one; a reload rebuilds the exact one)
+        rt8.trace_config = dataclasses.replace(rt8.trace_config,
+                                               empty_skip=False)
+        before = rt8.render()
+        torch.cuda.synchronize()
+        arrays = rt8.arrays
+        path = f"{tmp}/edited.npz"
+        t0 = time.perf_counter()
+        rt8.save_scene(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grid, _ = scene_io.load_scene(path)
+        rt8.flush_grid(grid)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = [f for f in _FIELDS
+                if torch.equal(raw(getattr(rt8.arrays, f)),
+                               raw(getattr(arrays, f)))]
+        after = rt8.render()
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(before, after))
+        log("io", round_trip_file_bytes=Path(path).stat().st_size,
+            save_seconds=f"{save_s:.2f}", load_flush_seconds=f"{load_s:.2f}",
+            arrays_equal=f"{len(same)}/{len(_FIELDS)}",
+            next_frame_bit_identical=identical,
+            frame=list(after.shape))
+        if len(same) != len(_FIELDS) or not identical:
+            raise AssertionError("save/load/flush changed the scene or frame")
+
+        # the same file through plain numpy: the JAX package's format
+        with np.load(path) as z:
+            keys = set(z.files)
+            bad = {k: str(z[k].dtype) for k, dt in SCENE_FILE_DTYPES.items()
+                   if k in keys and z[k].dtype != dt}
+            statuses = bool(np.array_equal(
+                z["statuses"], arrays.statuses.cpu().numpy().view(np.uint32)))
+            active = int(z["active_bricks"])
+        log("io", numpy_keys_match=keys == set(SCENE_FILE_DTYPES),
+            dtype_mismatches=json.dumps(bad), statuses_equal=statuses,
+            active_bricks=active)
+        if keys != set(SCENE_FILE_DTYPES) or bad or not statuses:
+            raise AssertionError("the scene file is not the JAX format")
+
+        # the scene cache: cold build and save, then a load
+        cache = f"{tmp}/scene_cache.npz"
+        t0 = time.perf_counter()
+        cold = scenes.cached_default_scene(cache)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = scenes.cached_default_scene(cache)
+        warm_s = time.perf_counter() - t0
+        cache_same = all(np.array_equal(
+            np.atleast_1d(np.asarray(getattr(warm.grid.arrays, f))).view(
+                np.uint8),
+            np.atleast_1d(np.asarray(getattr(cold.grid.arrays, f))).view(
+                np.uint8)) for f in _FIELDS)
+        log("io", cache_cold_build_seconds=f"{cold_s:.2f}",
+            cache_load_seconds=f"{warm_s:.2f}",
+            cache_bytes=Path(cache).stat().st_size, cache_equal=cache_same)
+        if not cache_same:
+            raise AssertionError("the cached scene differs from the build")
+
+    # terrain streamed into an empty engine of the scene's geometry
+    st = scene.grid.static
+    gcfg = GridConfig(brick_alloc=st.brick_alloc, base_t=st.base_t,
+                      min_point=st.min_point, scale=st.scale)
+    empty = BrickGrid(st.dim_x, st.dim_y, st.dim_z, gcfg)
+    mats = terrain_materials()
+    srt = VoxelRT(empty, mats, cfg, device=dev)
+    batch_s = []
+    insert = srt.insert_voxels
+
+    def timed_insert(xyz, material_index):
+        t = time.perf_counter()
+        insert(xyz, material_index)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t)
+
+    srt.insert_voxels = timed_insert
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    total = streaming.stream_into_engine(
+        srt, streaming.terrain_regions(empty, seed=420, scale=4.0,
+                                       ocean_level=20),
+        max_batch=STREAM_BATCH)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    host = BrickGrid(st.dim_x, st.dim_y, st.dim_z, gcfg)
+    host.attach_materials(mats)
+    terrain.generate(host, seed=420, scale=4.0, ocean_level=20)
+    host_s = time.perf_counter() - t0
+    want = dense_materials(st, host.arrays.to_device(dev))
+    streamed_same = bool(torch.equal(dense_materials(st, srt.arrays), want))
+    log("stream", voxels=total, batches=len(batch_s),
+        seconds=f"{stream_s:.2f}", voxels_per_s=f"{total / stream_s:.0f}",
+        median_batch_ms=f"{np.median(batch_s) * 1e3:.1f}",
+        max_batch_ms=f"{max(batch_s) * 1e3:.1f}", peak_bytes=peak,
+        host_build_seconds=f"{host_s:.2f}", equals_host_build=streamed_same)
+    if not streamed_same or total != int((want >= 0).sum()):
+        raise AssertionError("the streamed terrain differs from the host "
+                             "build")
+
+    # the native C++ builder, where the machine has g++
+    t0 = time.perf_counter()
+    if not native_builder.native_available():
+        log("native", available=False,
+            note="no g++ on this machine; the native builder was not run")
+        return
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb = native_builder.NativeGridBuilder(st.dim_x, st.dim_y, st.dim_z, gcfg)
+    nb.generate_terrain(seed=420, scale=4.0, ocean_level=20)
+    ngrid = nb.finish()
+    native_s = time.perf_counter() - t0
+    native_same = bool(torch.equal(
+        dense_materials(st, ngrid.arrays.to_device(dev)), want))
+    log("native", available=True, compile_seconds=f"{build_s:.2f}",
+        terrain_seconds=f"{native_s:.2f}", threads=nb.threads,
+        equals_numpy_build=native_same)
+    if not native_same:
+        raise AssertionError("the native builder's terrain differs")
+
+
 def main() -> int:
     import torch
 
@@ -515,17 +1053,19 @@ def main() -> int:
 
 
 def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
-          poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES) -> int:
+          poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES,
+          app_args=()) -> int:
     """The phases on the scene `make_scene()` builds, at `cfg` (main()
-    passes the default scene and EngineConfig)."""
+    passes the default scene and EngineConfig); `app_args` go before the
+    app's flags in phase 13 (none: the app's defaults)."""
     import torch
 
+    t_start = time.perf_counter()
     from zig_vulkan_tpu_torch import _build
     from zig_vulkan_tpu_torch.config import CameraConfig, SunConfig
     from zig_vulkan_tpu_torch.core.camera import Camera
     from zig_vulkan_tpu_torch.core.sun import Sun
     from zig_vulkan_tpu_torch.engine.engine import VoxelRT
-    from zig_vulkan_tpu_torch.models import scenes
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
 
     results = {}
@@ -640,13 +1180,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     # -- 5. golden parity on the card ----------------------------------------------
     golden = np.load(REPO / "tests" / "golden" / "flat_scene_renders.npz")
-    gsc = scenes.flat_test_scene(dim=8)
-    xs, zs = np.meshgrid(np.arange(6, 16), np.arange(6, 16), indexing="ij")
-    gsc.grid.insert_batch(xs.ravel(), np.full(xs.size, 4), zs.ravel(),
-                          np.zeros(xs.size, dtype=np.uint8))
-    ys = np.arange(4, 12)
-    gsc.grid.insert_batch(np.full(ys.size, 20), ys, np.full(ys.size, 20),
-                          np.full(ys.size, 7, dtype=np.uint8))
+    gsc = parity_scene()
     garr = gsc.grid.arrays.to_device(dev)
     gtab = trace.build_trace_tables(gsc.grid.static, garr)
     gmats = trace.materials_to_device(gsc.materials, dev)
@@ -758,6 +1292,21 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 11. the fly-through harness ----------------------------------------------
     flythrough(rt)
 
+    # -- 12. oracle parity on the card, kernel A's NO_SKIP build --------------------
+    t0 = time.perf_counter()
+    exact = oracle_parity(dev, scene, rt, poses)
+    log("oracle", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 13. the app ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    app_phase(app_args)
+    log("app", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 14. host I/O ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    host_io(dev, scene, edit["engine"], cfg)
+    log("io", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
     src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
         dict(name="traverse (kernel A, default build)", route="cuda",
@@ -773,11 +1322,15 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         dict(name="traverse (kernel A, stats build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:377",
              **edit["stats"]),
+        dict(name="traverse (kernel A, NO_SKIP build: the exact DDA of "
+             "TraceConfig(empty_skip=False))", route="cuda", source=src_a,
+             replaces="zig_vulkan_tpu/ops/trace.py:388", **exact),
         dict(name="table_lookup (kernel B)", route="cuda",
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",
              launches=launches["B"], **results["B"]),
     ]
+    log("done", script_seconds=f"{time.perf_counter() - t_start:.2f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

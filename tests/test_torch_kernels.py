@@ -7,7 +7,9 @@ suite's conftest.py imports JAX). The tests marked
 default, shadow and stats builds) and kernel B (material lookup) with their
 plain versions on the card, and the voxel edits on the card with the same
 edits on the CPU; where `torch.cuda.is_available()` is False they skip.
-The build helpers are tested everywhere.
+Kernel A's NO_SKIP builds (`use_skip=False`, the exact DDA) are held against
+their twin and against the port's numpy oracle. The build helpers are
+tested everywhere.
 """
 
 import ctypes
@@ -35,6 +37,7 @@ def test_trace_params_layout_matches_c_struct():
     P = _build.TraceParams
     assert P.scale.offset == 24 and P.t_off.offset == 40
     assert P.dims.offset == 44 and P.max_steps.offset == 64
+    assert P.use_skip.offset == 68
     assert P.n.offset == 72 and ctypes.sizeof(P) == 80
 
 
@@ -180,7 +183,9 @@ def _targets(rays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("build", ["shadow", "stats", "shadow+stats"])
+@pytest.mark.parametrize("build", ["shadow", "stats", "shadow+stats", "exact",
+                                   "exact+shadow", "exact+stats",
+                                   "exact+shadow+stats"])
 def test_kernel_a_builds_match_plain(scene_on_card, card, build):
     rt = scene_on_card
     rays, active = _primary(rt, card)
@@ -189,6 +194,8 @@ def test_kernel_a_builds_match_plain(scene_on_card, card, build):
         kw["shadow_targets"] = _targets(rays)
     if "stats" in build:
         kw["stats"] = True
+    if "exact" in build:
+        kw["use_skip"] = False
     args = (rt.grid_static, rt.tables(), rt.arrays.material_indices, *rays,
             active)
     want = tile_tracer.grid_hit_plain(*args, **kw)
@@ -288,3 +295,60 @@ def test_frame_with_sun_in_kernel(scene_on_card):
     assert after["shadow"] - before["shadow"] == 3
     assert after["default"] == before["default"]
     assert torch.equal(img, separate)
+
+
+@pytest.mark.cuda
+def test_exact_build_gives_the_oracles_hits(card):
+    """The NO_SKIP build on a small default scene: the numpy oracle's found
+    set and material indices, t within rtol 1e-5 / atol 1e-4
+    (tests/test_parity_at_scale.py:67-82), and its twin's answer bit for
+    bit."""
+    from zig_vulkan_tpu_torch.core.materials import MAT_NONE
+    from zig_vulkan_tpu_torch.oracle import cpu_tracer as oracle
+
+    sc = scenes.default_scene(dims=(32, 16, 32))
+    st = sc.grid.static
+    arrays = sc.grid.arrays.to_device(card)
+    tables = trace.build_trace_tables(st, arrays,
+                                      trace.no_skip_field(st, arrays))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=96, internal_resolution_height=54),
+        device=card)
+    cam = trace.camera_vectors(rt.camera.d_camera, card)
+    r = trace._camera_rays_soa(cam, 96, 54, 0)
+    rays = tuple(a.contiguous() for a in (*r[:3], *trace._norm3(*r[3:])))
+    n = rays[0].shape[0]
+    on = torch.ones(n, dtype=torch.bool, device=card)
+    args = (st, tables, arrays.material_indices, *rays, on)
+    got = tile_tracer.grid_hit_tiles(*args, use_skip=False)
+    want = tile_tracer.grid_hit_plain(*args, use_skip=False)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    ro = torch.stack(rays[:3], -1).cpu().numpy()
+    rd = torch.stack(rays[3:], -1).cpu().numpy()
+    o = oracle.grid_hit(oracle.OracleScene(st, sc.grid.arrays, sc.materials),
+                        ro, rd, np.float32(1e-5), np.float32(np.inf),
+                        np.full(n, MAT_NONE, np.int32),
+                        np.ones(n, np.float32), np.ones(n, bool))
+    found = got["found"].cpu().numpy()
+    assert (found == o.found).all() and found.sum() > 100
+    np.testing.assert_allclose(got["t"].cpu().numpy()[found], o.t[found],
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(got["index"].cpu().numpy()[found],
+                                  o.index[found])
+
+
+@pytest.mark.cuda
+def test_exact_frame_launches_the_exact_build(card):
+    sc = scenes.default_scene(dims=(32, 16, 32))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=96, internal_resolution_height=54,
+        trace=TraceConfig(empty_skip=False)), device=card)
+    before = dict(tile_tracer.grid_hit_tiles.build_launches)
+    img = rt.draw()
+    after = tile_tracer.grid_hit_tiles.build_launches
+    assert after["exact"] - before["exact"] == 6
+    assert after["default"] == before["default"]
+    assert bool(torch.isfinite(img).all())
+    assert not rt.tables()[:, 3].any()

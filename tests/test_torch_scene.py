@@ -172,5 +172,7 @@ def test_config_defaults_match_reference():
                  "camera", "sun", "denoiser"):
         assert dataclasses.asdict(r)[name] == dataclasses.asdict(t)[name]
     assert t.trace.max_steps == r.trace.max_steps
-    with pytest.raises(NotImplementedError):
-        tconfig.TraceConfig(empty_skip=False)
+    assert t.trace.empty_skip == r.trace.empty_skip
+    assert t.debug_validation == r.debug_validation
+    # the exact cell-by-cell DDA is a valid configuration in both packages
+    assert not tconfig.TraceConfig(empty_skip=False).empty_skip

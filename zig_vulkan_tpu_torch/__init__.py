@@ -4,7 +4,8 @@ A port of `zig_vulkan_tpu` (the JAX/Pallas package beside it, which stays
 the reference) to PyTorch for an NVIDIA H100. Module paths and function
 names follow the reference's, so each counterpart is found at once:
 `ops/trace.py:render_rows`, `ops/lookup.py:table_lookup`,
-`engine/engine.py:VoxelRT`, and so on.
+`engine/engine.py:VoxelRT`, and so on. The app starts as
+`python -m zig_vulkan_tpu_torch.app.run`.
 
 The reference's two Pallas kernels are hand-written CUDA here
 (`csrc/traverse.cu`, `csrc/lookup.cu`, built by `_build.py`); every
@@ -26,6 +27,7 @@ from .core.camera import Camera, CameraDevice
 from .core.grid import BrickGrid, GridArrays, GridStatic
 from .core.materials import MaterialTable, terrain_materials
 from .core.sun import Sun, SunDevice
+from .engine.engine import VoxelRT
 
 __all__ = [
     "BrickGrid",
@@ -42,5 +44,6 @@ __all__ = [
     "SunConfig",
     "SunDevice",
     "TraceConfig",
+    "VoxelRT",
     "terrain_materials",
 ]

@@ -48,6 +48,7 @@ class TraceParams(ctypes.Structure):
         ("cells", ctypes.c_int),
         ("mat_cap", ctypes.c_int),
         ("max_steps", ctypes.c_int),
+        ("use_skip", ctypes.c_int),
         ("n", ctypes.c_int64),
     ]
 

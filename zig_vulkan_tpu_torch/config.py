@@ -57,8 +57,9 @@ class DenoiserConfig:
 class GridConfig:
     """Reference BrickGrid.Config (brick/Grid.zig:13-20).
 
-    `workers_count` is kept for API parity; the host scene builder is
-    vectorized numpy and does not use it.
+    `workers_count` is kept for API parity: the vectorized numpy builder
+    does not use it; it sets the threads of the native C++ builder
+    (`io.native_builder.NativeGridBuilder`).
     """
 
     brick_alloc: Optional[int] = None
@@ -77,7 +78,9 @@ class TraceConfig:
     voxel steps), counted exactly as `zig_vulkan_tpu.ops.trace._grid_hit_soa`
     counts its while-loop iterations. A ray that exhausts it is a miss.
     `empty_skip` selects the Chebyshev distance-field leap over empty
-    cells; only the skipping traversal is implemented.
+    cells; False runs the exact cell-by-cell DDA
+    (`zig_vulkan_tpu.ops.trace.grid_hit(use_skip=False)`, kernel A's
+    `NO_SKIP` builds), which gives the numpy oracle's hits.
 
     `sun_in_kernel` traces each bounce level's sun-shadow ray inside the
     same kernel A launch (the shadow build: one thread traces its own sun
@@ -97,12 +100,6 @@ class TraceConfig:
     sun_in_kernel: Optional[bool] = None
     degraded_nonempty_fraction: float = 0.5
 
-    def __post_init__(self):
-        if not self.empty_skip:
-            raise NotImplementedError(
-                "empty_skip=False (the cell-by-cell DDA) is not implemented "
-                "in zig_vulkan_tpu_torch; only the distance-field skip is")
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -111,6 +108,11 @@ class EngineConfig:
     `internal_resolution_*` decouples render resolution from output
     resolution exactly like the reference (main.zig:23, Pipeline.zig:103-127);
     the denoiser pass resamples internal -> output.
+
+    `debug_validation` is the "Debug build with validation layers" analog
+    (SURVEY.md §5.2): the engine validates the scene at init and checks
+    every frame it returns for non-finite or out-of-range pixels
+    (`utils.validation`).
     """
 
     internal_resolution_width: int = 1024
@@ -121,6 +123,7 @@ class EngineConfig:
     sun: SunConfig = dataclasses.field(default_factory=SunConfig)
     denoiser: DenoiserConfig = dataclasses.field(default_factory=DenoiserConfig)
     trace: TraceConfig = dataclasses.field(default_factory=TraceConfig)
+    debug_validation: bool = False
 
 
 # Brick geometry constants (reference brick/State.zig:5-11; Vulkan

@@ -300,6 +300,40 @@ class BrickGrid:
         if not_d.any():
             np.bitwise_and.at(a.diel_mask, word[not_d], ~bit[not_d])
 
+    def rebuild_dielectric_masks(self) -> None:
+        """Recompute diel_mask/brick_ir from material_indices + occupancy
+        (used after external builds, e.g. the native builder)."""
+        a = self.arrays
+        a.diel_mask[:] = 0
+        a.brick_ir[:] = np.nan
+        active = int(a.active_bricks)
+        if active == 0:
+            return
+        slots = np.arange(active * BRICK_BITS)
+        bricks = slots // BRICK_BITS
+        starts = (a.start_indices[bricks] & np.uint32(0x7FFFFFFF)).astype(np.int64)
+        addr = starts + (slots % BRICK_BITS)
+        occ_w = bricks * BRICK_WORDS + (slots % BRICK_BITS) // 32
+        occ_b = ((a.occupancy[occ_w] >> ((slots % BRICK_BITS) % 32).astype(np.uint32))
+                 & 1) == 1
+        mats = a.material_indices[np.clip(addr, 0, a.material_indices.size - 1)]
+        is_d = self._mat_is_diel[mats] & occ_b
+        word = bricks * BRICK_WORDS + (slots % BRICK_BITS) // 32
+        bit = np.uint32(1) << ((slots % BRICK_BITS) % 32).astype(np.uint32)
+        np.bitwise_or.at(a.diel_mask, word[is_d], bit[is_d])
+        d_bricks = bricks[is_d]
+        d_ir = self._mat_ir[mats[is_d]]
+        if d_bricks.size == 0:
+            return
+        # first-write wins; conflicts poison to NaN
+        order = np.argsort(d_bricks, kind="stable")
+        db, di = d_bricks[order], d_ir[order]
+        first = np.concatenate([[True], db[1:] != db[:-1]])
+        a.brick_ir[db[first]] = di[first]
+        conflict = ~first & (di != a.brick_ir[db])
+        if conflict.any():
+            a.brick_ir[db[conflict]] = np.nan
+
     # -- queries (for tests / host logic) --------------------------------------
     def voxel_material(self, x: int, y: int, z: int) -> Optional[int]:
         """Material index at a voxel, or None if empty."""

@@ -4,8 +4,10 @@
 // Replaces the TPU kernel zig_vulkan_tpu/ops/tile_tracer.py:_tile_kernel
 // (launched by trace_tiles_regions, wrapped by grid_hit_tiles) and computes
 // what zig_vulkan_tpu/ops/trace.py:_grid_hit_soa computes with
-// use_skip=True, bounded_t=False and the per-ray dielectric key. The plain
-// torch version is zig_vulkan_tpu_torch/ops/trace.py:_grid_hit_soa.
+// use_skip=True, bounded_t=False and the per-ray dielectric key; its
+// NO_SKIP builds compute the same with use_skip=False (the exact DDA, an
+// XLA wavefront in the JAX package). The plain torch version is
+// zig_vulkan_tpu_torch/ops/trace.py:_grid_hit_soa.
 //
 // What bounds it on an H100: random 32-byte record reads (one per grid
 // step) and warp divergence (lanes of a warp take different numbers of
@@ -24,9 +26,12 @@
 // Builds (template flags, one instantiation each): the default; SHADOW, the
 // TPU kernel's sun-shadow probe, where a thread that hits traces its own
 // sun ray as the GLSL reference does (brick_raytracer.comp:240-249); STATS,
-// per-ray loop iterations. The TPU kernel's sparse_roam build changes only
-// its region park schedule; on a sprayed scene this kernel computes the
-// same first hits as everywhere else.
+// per-ray loop iterations; NO_SKIP (SKIP=false), the exact cell-by-cell
+// DDA: the empty-space leap is compiled out, so every empty cell costs one
+// loop iteration and the records' distance lane is never read. Each of the
+// four skip builds has its NO_SKIP twin. The TPU kernel's sparse_roam build
+// changes only its region park schedule; on a sprayed scene this kernel
+// computes the same first hits as everywhere else.
 //
 // Step bound: one loop iteration is one iteration of the reference's
 // while loop (one grid-level action, then up to BRICK_UNROLL brick steps),
@@ -53,6 +58,7 @@ struct TraceParams {
   int cells;
   int mat_cap;        // material_indices length - 1
   int max_steps;
+  int use_skip;       // 0: the NO_SKIP builds
   int64_t n;
 };
 
@@ -96,8 +102,9 @@ struct Hit {
 };
 
 // One ray through the two-level DDA. `has_key` selects the dielectric key
-// (the second record read); STATS counts the loop iterations.
-template <bool STATS>
+// (the second record read); STATS counts the loop iterations; SKIP leaps
+// empty space by the records' distance lane.
+template <bool STATS, bool SKIP>
 __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
                                          const int4* __restrict__ tables,
                                          float ox, float oy, float oz,
@@ -201,7 +208,7 @@ __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
         b_t = 0.0f;
         local_t_max = grid_t_max - entry_t;
         in_brick = true;
-      } else if (rec.w >= 2) {
+      } else if (SKIP && rec.w >= 2) {
         // empty-space skip: leap dist-1 cells, re-derive the DDA cursor
         do_skip = true;
         const float cur_t = t_base + p.park + t_value;
@@ -300,10 +307,11 @@ struct Buffers {
 // toward its target and writes `occluded` (the TPU kernel's shadow=True
 // probe, tile_tracer.py:381-391). STATS: writes the first traversal's loop
 // iterations (the TPU kernel's stats=True n_step). Both are compile-time
-// flags, so the default build carries neither. The launch bounds hold the
-// default and stats builds to 64 registers, so 8 blocks of 128 threads
-// (half the SM's warps) stay resident.
-template <bool SHADOW, bool STATS>
+// flags, so the default build carries neither; SKIP=false is the NO_SKIP
+// build. The launch bounds hold the default and stats builds to 64
+// registers, so 8 blocks of 128 threads (half the SM's warps) stay
+// resident.
+template <bool SHADOW, bool STATS, bool SKIP>
 __global__ void __launch_bounds__(128, SHADOW ? 7 : 8)
 traverse_kernel(TraceParams p, Buffers b) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -312,7 +320,7 @@ traverse_kernel(TraceParams p, Buffers b) {
   const float dx = b.dx[i], dy = b.dy[i], dz = b.dz[i];
   const bool has_key = b.ray_key != nullptr;
   const float nan = __int_as_float(0x7fc00000);
-  const Hit h = trace_ray<STATS>(p, b.tables, ox, oy, oz, dx, dy, dz,
+  const Hit h = trace_ray<STATS, SKIP>(p, b.tables, ox, oy, oz, dx, dy, dz,
                                  b.active[i], has_key,
                                  has_key ? b.ray_key[i] : nan);
 
@@ -342,12 +350,25 @@ traverse_kernel(TraceParams p, Buffers b) {
       // it; no dielectric key, as the separate shadow launch has none
       const float sx = b.tx[i] - px, sy = b.ty[i] - py, sz = b.tz[i] - pz;
       const float inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz);
-      occluded = trace_ray<false>(p, b.tables, px, py, pz, sx * inv,
+      occluded = trace_ray<false, SKIP>(p, b.tables, px, py, pz, sx * inv,
                                   sy * inv, sz * inv, true, false, nan)
                      .found;
     }
     b.occluded[i] = occluded;
   }
+}
+
+template <bool SKIP>
+void launch(const TraceParams& p, const Buffers& b, bool shadow, bool stats,
+            unsigned blocks, int threads, cudaStream_t s) {
+  if (shadow && stats)
+    traverse_kernel<true, true, SKIP><<<blocks, threads, 0, s>>>(p, b);
+  else if (shadow)
+    traverse_kernel<true, false, SKIP><<<blocks, threads, 0, s>>>(p, b);
+  else if (stats)
+    traverse_kernel<false, true, SKIP><<<blocks, threads, 0, s>>>(p, b);
+  else
+    traverse_kernel<false, false, SKIP><<<blocks, threads, 0, s>>>(p, b);
 }
 
 }  // namespace
@@ -379,14 +400,10 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
     const int threads = 128;
     const unsigned blocks = (unsigned)((p.n + threads - 1) / threads);
     cudaStream_t s = (cudaStream_t)stream;
-    if (shadow && stats)
-      traverse_kernel<true, true><<<blocks, threads, 0, s>>>(p, b);
-    else if (shadow)
-      traverse_kernel<true, false><<<blocks, threads, 0, s>>>(p, b);
-    else if (stats)
-      traverse_kernel<false, true><<<blocks, threads, 0, s>>>(p, b);
+    if (p.use_skip)
+      launch<true>(p, b, shadow, stats, blocks, threads, s);
     else
-      traverse_kernel<false, false><<<blocks, threads, 0, s>>>(p, b);
+      launch<false>(p, b, shadow, stats, blocks, threads, s);
   }
   return (int)cudaGetLastError();
 }

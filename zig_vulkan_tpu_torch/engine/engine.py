@@ -13,9 +13,15 @@ The scene's per-cell traversal records are built once, on the first frame,
 with the exact distance field, and cached. Voxel edits (`insert_voxels`,
 `remove_voxels`) update the scene arrays on the device and bring the cached
 records up to date in place, with the fast conservative field (the
-reference's dirty-range uploads, VoxelRT.zig:107-172). Host-side mutable
-state is the camera and sun (the reference's push constants), the
-roamability mirror, the brick-count bound and the metrics ring.
+reference's dirty-range uploads, VoxelRT.zig:107-172). With
+`TraceConfig(empty_skip=False)` the frame runs the exact DDA and the records
+carry no distance field. Host-side mutable state is the camera and sun (the
+reference's push constants), the roamability mirror, the brick-count bound
+and the metrics ring.
+
+The profiling zones (`utils.profiling.zone`) carry the JAX engine's names:
+draw, device_sync, render_step, build_tables, edit_insert,
+refresh_tables_insert, edit_remove.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..core.sun import Sun
 from ..ops import denoise as denoise_mod
 from ..ops import trace as trace_mod
 from ..ops.tile_tracer import REGION_CELLS, region_grid
+from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
 
@@ -76,8 +83,14 @@ class VoxelRT:
 
         self.metrics = FrameMetrics()
         self.metrics.rays_per_frame = iw * ih * int(config.camera.samples_per_pixel)
+
+        if config.debug_validation:
+            validation.enable_debug_mode()
+            validation.validate_scene(self.grid_static, grid.arrays)
+
         self._tables = None
         self._dist = None
+        self._tables_skip = None  # the empty_skip the records were built for
         self._track_host_grid(grid)
 
         # temporal accumulation (BASELINE config 4): running mean of traced
@@ -100,17 +113,36 @@ class VoxelRT:
     def tables(self):
         """The scene's per-cell traversal records, built on first use with
         the exact distance field (ops.trace.build_trace_tables) and kept up
-        to date by the edits."""
+        to date by the edits. With `empty_skip=False` the distance lane is
+        never read and no field is built (ops.trace.no_skip_field)."""
+        skip = bool(self.trace_config.empty_skip)
+        if self._tables_skip != skip:
+            self._tables = None
+            self._dist = None
         if self._tables is None:
-            if self._dist is None:
-                self._dist = trace_mod.distance_field(
-                    self.grid_static, self.arrays, exact=True)
-            self._tables = trace_mod.build_trace_tables(
-                self.grid_static, self.arrays, self._dist)
+            with profiling.zone("build_tables"):
+                if self._dist is None:
+                    self._dist = (trace_mod.distance_field(
+                        self.grid_static, self.arrays, exact=True) if skip
+                        else trace_mod.no_skip_field(self.grid_static,
+                                                     self.arrays))
+                self._tables = trace_mod.build_trace_tables(
+                    self.grid_static, self.arrays, self._dist)
+            self._tables_skip = skip
         return self._tables
 
     def render(self):
-        """Render one frame; returns the device image f32[out_h, out_w, 3]."""
+        """Render one frame; returns the device image f32[out_h, out_w, 3].
+        In debug mode (`utils.validation.enable_debug_mode`) a frame with
+        non-finite or out-of-range pixels raises SceneValidationError."""
+        tables = self.tables()
+        with profiling.zone("render_step"):
+            image = self._render(tables)
+        if validation.debug_mode_enabled():
+            validation.check_image(image)
+        return image
+
+    def _render(self, tables):
         iw, ih = self.internal_resolution
         ow, oh = self.output_resolution
         d = self.camera.d_camera
@@ -128,12 +160,13 @@ class VoxelRT:
             self._pose_key = pose
         sample_base = self._accum_count * spp if self.temporal_enabled else 0
         img = trace_mod.render_rows(
-            self.grid_static, self.tables(), self.arrays.material_indices,
+            self.grid_static, tables, self.arrays.material_indices,
             self.mats, trace_mod.camera_vectors(d, self.device), iw, ih,
             spp, int(d.max_bounce), sun.position, sun.color, sun.radius,
             bool(sun.enabled), max_steps=int(self.trace_config.max_steps),
             sample_base=sample_base,
-            shadow_probe=bool(self.trace_config.sun_in_kernel))
+            shadow_probe=bool(self.trace_config.sun_in_kernel),
+            use_skip=bool(self.trace_config.empty_skip))
         if self.temporal_enabled:
             self._accum = self._accum + trace_mod._div(
                 img - self._accum, self._accum_count + 1)
@@ -145,8 +178,10 @@ class VoxelRT:
         """Render + record frame metrics (Pipeline.draw analog). Waits for
         the device so the recorded frame time is the frame's."""
         t0 = time.perf_counter()
-        image = self.render()
-        self._sync()
+        with profiling.zone("draw"):
+            image = self.render()
+            with profiling.zone("device_sync"):
+                self._sync()
         elapsed = time.perf_counter() - t0
         self.metrics.record(dt if dt is not None else elapsed)
         return image
@@ -266,16 +301,21 @@ class VoxelRT:
         dev = self.device
         valid = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
         table = self.materials_host
-        self.arrays = apply_edits(
-            st, self.arrays, torch.from_numpy(xyz).to(dev),
-            torch.from_numpy(mats).to(dev), valid,
-            torch.from_numpy(np.asarray(table.mtype) == MAT_DIELECTRIC).to(dev),
-            torch.from_numpy(np.asarray(table.type_data,
-                                        dtype=np.float32)).to(dev))
+        with profiling.zone("edit_insert"):
+            self.arrays = apply_edits(
+                st, self.arrays, torch.from_numpy(xyz).to(dev),
+                torch.from_numpy(mats).to(dev), valid,
+                torch.from_numpy(np.asarray(table.mtype)
+                                 == MAT_DIELECTRIC).to(dev),
+                torch.from_numpy(np.asarray(table.type_data,
+                                            dtype=np.float32)).to(dev))
         if self._tables is not None:
-            self._tables, self._dist = trace_mod.refresh_tables_after_insert(
-                st, self.arrays, self._tables,
-                torch.from_numpy(cells).to(dev), valid)
+            with profiling.zone("refresh_tables_insert"):
+                self._tables, self._dist = (
+                    trace_mod.refresh_tables_after_insert(
+                        st, self.arrays, self._tables,
+                        torch.from_numpy(cells).to(dev), valid,
+                        use_skip=self._tables_skip))
 
     def remove_voxels(self, xyz) -> None:
         """Remove voxels on the device (BASELINE config 3):
@@ -284,8 +324,9 @@ class VoxelRT:
         xyz = self._edit_batch(xyz)
         dev = self.device
         valid = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
-        self.arrays = remove_edits(self.grid_static, self.arrays,
-                                   torch.from_numpy(xyz).to(dev), valid)
+        with profiling.zone("edit_remove"):
+            self.arrays = remove_edits(self.grid_static, self.arrays,
+                                       torch.from_numpy(xyz).to(dev), valid)
         if self._tables is not None:
             self._tables = trace_mod.refresh_tables_after_remove(
                 self.grid_static, self.arrays, self._tables, self._dist,
@@ -342,6 +383,15 @@ class VoxelRT:
         if verbose:
             bench.print_report(device_name(self.device))
         return bench
+
+    # -- scene save/load (superset feature; SURVEY.md §5.4) ----------------------
+
+    def save_scene(self, path: str) -> None:
+        """Write the scene as it stands on the device, with the material
+        table, in the JAX package's .npz format (io.scene_io)."""
+        from ..io.scene_io import save_scene
+
+        save_scene(path, self.grid_static, self.arrays, self.materials_host)
 
     def device_image_to_host(self, image) -> np.ndarray:
         return image.cpu().numpy()

@@ -107,6 +107,45 @@ def default_scene(vox_path: Optional[str] = None,
     return Scene(grid=grid, materials=materials)
 
 
+SCENE_CACHE_VERSION = 3  # bump when default_scene() or GridArrays change
+
+
+def cached_default_scene(cache_path: str,
+                         version: int = SCENE_CACHE_VERSION) -> Scene:
+    """default_scene() with a host-side .npz cache (io.scene_io's format,
+    shared with `zig_vulkan_tpu.models.scenes.cached_default_scene`, so
+    either package reads the other's cache). Rebuilds on a miss, a version
+    mismatch or an unreadable file, and never fails on a cache-write
+    error."""
+    import os
+    import sys
+    import zipfile
+
+    from ..io import scene_io
+
+    if os.path.exists(cache_path):
+        try:
+            with np.load(cache_path) as z:
+                ver = int(z["cache_version"]) if "cache_version" in z.files else 0
+            if ver == version:
+                grid, materials = scene_io.load_scene(cache_path)
+                return Scene(grid=grid, materials=materials)
+            print(f"# scene cache stale (v{ver} != v{version}); rebuilding",
+                  file=sys.stderr)
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            print(f"# scene cache unreadable ({e!r}); rebuilding",
+                  file=sys.stderr)
+    sc = default_scene()
+    try:
+        scene_io.save_scene(cache_path, sc.grid.static, sc.grid.arrays,
+                            sc.materials, cache_version=np.int64(version))
+    except OSError as e:
+        print(f"# scene cache write failed ({e!r}); continuing",
+              file=sys.stderr)
+    return sc
+
+
 def flat_test_scene(dim: int = 16, fill_material: int = 1,
                     scale: float = 1.0) -> Scene:
     """A small dense slab scene for oracle/parity tests (BASELINE config 1)."""

@@ -22,6 +22,12 @@ The TPU kernel's builds map onto kernel A's compile-time variants:
   only the TPU kernel's park schedule, not its answer: kernel A computes
   that answer on any scene.
 
+Kernel A has one build more than the TPU kernel: `use_skip=False`, the
+exact cell-by-cell DDA of `zig_vulkan_tpu.ops.trace.grid_hit(
+use_skip=False)` (an XLA wavefront in the JAX package, where the Pallas
+kernel always skips), as the `NO_SKIP` variant of each build above
+("exact", "exact+shadow", "exact+stats", "exact+shadow+stats").
+
 For tensors on the CPU the wrapper runs the plain torch version,
 `grid_hit_plain`. For CUDA tensors it launches kernel A or raises.
 """
@@ -54,27 +60,31 @@ def region_grid(static: GridStatic):
             _cdiv(static.dim_x, rx))
 
 
-def _build_name(shadow: bool, stats: bool) -> str:
-    return {(False, False): "default", (True, False): "shadow",
-            (False, True): "stats", (True, True): "shadow+stats"}[
-                (shadow, stats)]
+_BUILDS = ("default", "shadow", "stats", "shadow+stats", "exact",
+           "exact+shadow", "exact+stats", "exact+shadow+stats")
+
+
+def _build_name(shadow: bool, stats: bool, use_skip: bool = True) -> str:
+    flags = (("exact", not use_skip), ("shadow", shadow), ("stats", stats))
+    return "+".join(name for name, on in flags if on) or "default"
 
 
 def grid_hit_plain(static: GridStatic, tables, material_indices,
                    ox, oy, oz, dx, dy, dz, active, ray_key=None,
                    max_steps: int = 768, shadow_targets=None,
-                   stats: bool = False):
+                   stats: bool = False, use_skip: bool = True):
     """The plain torch version of every build of kernel A: the traversal
     twin `ops.trace._grid_hit_soa`, run a second time for the sun rays of
     the lanes that hit when `shadow_targets` is given."""
     out = _grid_hit_soa(static, tables, material_indices, ox, oy, oz,
                         dx, dy, dz, active, ray_key=ray_key,
-                        max_steps=max_steps, stats=stats)
+                        max_steps=max_steps, stats=stats, use_skip=use_skip)
     if shadow_targets is not None:
         sdx, sdy, sdz = shadow_dirs(out, shadow_targets)
         sh = _grid_hit_soa(static, tables, material_indices, out["px"],
                            out["py"], out["pz"], sdx, sdy, sdz,
-                           active & out["found"], max_steps=max_steps)
+                           active & out["found"], max_steps=max_steps,
+                           use_skip=use_skip)
         out["occluded"] = sh["found"]
     return out
 
@@ -82,7 +92,7 @@ def grid_hit_plain(static: GridStatic, tables, material_indices,
 def grid_hit_tiles(static: GridStatic, tables, material_indices,
                    ox, oy, oz, dx, dy, dz, active, ray_key=None,
                    max_steps: int = 768, shadow_targets=None,
-                   stats: bool = False):
+                   stats: bool = False, use_skip: bool = True):
     """First voxel hit for a wavefront of rays.
 
     Args:
@@ -98,6 +108,8 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
         result gains `occluded`, bool[N].
       stats: the result gains `n_step`, int32[N] loop iterations of the
         first traversal.
+      use_skip: False traces the exact cell-by-cell DDA (the `exact`
+        builds), which never reads the records' distance lane.
 
     Returns dict(found bool, t, px, py, pz, nx, ny, nz f32, index int32),
     each of shape [N].
@@ -106,18 +118,18 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
     if tables.device.type == "cpu":
         return grid_hit_plain(static, tables, material_indices, *rays,
                               active, ray_key=ray_key, max_steps=max_steps,
-                              shadow_targets=shadow_targets, stats=stats)
+                              shadow_targets=shadow_targets, stats=stats,
+                              use_skip=use_skip)
     if tables.device.type != "cuda":
         raise ValueError(f"grid_hit_tiles: unsupported device {tables.device}")
     return _launch(static, tables, material_indices, rays, active, ray_key,
-                   max_steps, shadow_targets, stats)
+                   max_steps, shadow_targets, stats, use_skip)
 
 
-# kernel A launches, in all and per build ("default", "shadow", "stats",
-# "shadow+stats"); counted only where the kernel is launched
+# kernel A launches, in all and per build (_BUILDS); counted only where the
+# kernel is launched
 grid_hit_tiles.launches = 0
-grid_hit_tiles.build_launches = dict.fromkeys(
-    ("default", "shadow", "stats", "shadow+stats"), 0)
+grid_hit_tiles.build_launches = dict.fromkeys(_BUILDS, 0)
 
 
 def reset_launch_counts() -> None:
@@ -136,7 +148,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def _launch(static, tables, material_indices, rays, active, ray_key,
-            max_steps, shadow_targets, stats):
+            max_steps, shadow_targets, stats, use_skip):
     dev = tables.device
     n = rays[0].shape[0]
     _check("tables", tables, torch.int32, (static.cells, 8), dev)
@@ -170,6 +182,7 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
     p.cells = static.cells
     p.mat_cap = material_indices.numel() - 1
     p.max_steps = int(max_steps)
+    p.use_skip = int(bool(use_skip))
     p.n = n
 
     out = {name: torch.empty(n, dtype=torch.float32, device=dev)
@@ -195,5 +208,5 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
             ptr(out.get("occluded")), ptr(out.get("n_step")), stream)
     _build.check(status, "zvt_traverse")
     grid_hit_tiles.launches += 1
-    grid_hit_tiles.build_launches[_build_name(shadow, stats)] += 1
+    grid_hit_tiles.build_launches[_build_name(shadow, stats, use_skip)] += 1
     return out

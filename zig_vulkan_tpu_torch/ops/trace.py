@@ -165,6 +165,13 @@ def distance_field(static: GridStatic, arrays: GridArrays,
     return _distance_field(static, _loaded_cells(static, arrays), exact=exact)
 
 
+def no_skip_field(static: GridStatic, arrays: GridArrays):
+    """The distance lane of the exact DDA's records: all 0 (no leap). The
+    exact traversal never reads it, so no distance field is built."""
+    return torch.zeros(static.cells, dtype=torch.int32,
+                       device=arrays.statuses.device)
+
+
 def _rows_for_cells(static: GridStatic, arrays: GridArrays, cells,
                     dist_rows):
     """The traversal records of `cells` (int64[K], in range), with skip
@@ -202,7 +209,7 @@ def build_trace_tables(static: GridStatic, arrays: GridArrays, dist=None):
 
 
 def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
-                                tables, cells, valid):
+                                tables, cells, valid, use_skip: bool = True):
     """Bring cached tables up to date after an insert batch
     (zig_vulkan_tpu/ops/trace.py:354-373), in place: the conservative
     skip field is rebuilt whole (inserts can load new cells, lowering
@@ -212,9 +219,16 @@ def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
     `build_trace_tables(static, arrays, distance_field(static, arrays))`
     on every lane the traversal reads. (An empty cell's row also carries
     brick 0's words, which stay as they were when an edit changes brick 0,
-    as in the reference; no traversal reads them.)"""
-    dist = distance_field(static, arrays)
-    tables[:, 3] = dist
+    as in the reference; no traversal reads them.)
+
+    With `use_skip=False` (the exact DDA, which never reads lane 3) no
+    field is built: the touched rows get distance 0, as
+    `no_skip_field` builds the whole table."""
+    if use_skip:
+        dist = distance_field(static, arrays)
+        tables[:, 3] = dist
+    else:
+        dist = no_skip_field(static, arrays)
     _refresh_rows(static, arrays, tables, dist, cells, valid)
     return tables, dist
 
@@ -259,15 +273,17 @@ BRICK_UNROLL = 4
 
 def _grid_hit_soa(static: GridStatic, tables, material_indices,
                   ox, oy, oz, dx, dy, dz, active, ray_key=None,
-                  max_steps: int = 768, stats: bool = False):
-    """First voxel hit of the two-level grid+brick DDA with Chebyshev empty
-    skip (GLSL GridHit + BrickHit, brick_raytracer.comp:271-471) for a
-    wavefront of rays: the plain torch version of kernel A
-    (csrc/traverse.cu).
+                  max_steps: int = 768, stats: bool = False,
+                  use_skip: bool = True):
+    """First voxel hit of the two-level grid+brick DDA (GLSL GridHit +
+    BrickHit, brick_raytracer.comp:271-471) for a wavefront of rays: the
+    plain torch version of kernel A (csrc/traverse.cu).
 
     The semantics are those of `zig_vulkan_tpu.ops.trace._grid_hit_soa`
-    with `use_skip=True`, `bounded_t=False` (t_max = +inf, as every RayColor
-    call has it) and the per-ray dielectric key: `ray_key` is the ir of a
+    with `use_skip` (True: the Chebyshev empty-space leap over the records'
+    distance lane; False: the exact cell-by-cell DDA, which never reads
+    that lane), `bounded_t=False` (t_max = +inf, as every RayColor call has
+    it) and the per-ray dielectric key: `ray_key` is the ir of a
     refracted ray and NaN otherwise; a voxel of the brick's dielectric mask
     is skipped when the brick's ir equals the key (brick_raytracer.comp:427).
     NaN never compares equal, so `ray_key=None` skips nothing.
@@ -399,13 +415,16 @@ def _grid_hit_soa(static: GridStatic, tables, material_indices,
                                 brick_key)
 
         # empty-space skip: leap dist-1 cells and re-derive the DDA cursor
-        dist = rec[:, 3]
-        do_skip = g_act & ~enter & (dist >= 2)
-        cur_t = t_base + park + t_value
-        new_base = cur_t + (dist.to(F32) - 1.0) * scale * inv_max_abs_d
         t_base_old = t_base
-        t_base = torch.where(do_skip, new_base, t_base)
-        rsx, rsy, rsz, rlx, rly, rlz = grid_init(t_base)
+        if use_skip:
+            dist = rec[:, 3]
+            do_skip = g_act & ~enter & (dist >= 2)
+            cur_t = t_base + park + t_value
+            new_base = cur_t + (dist.to(F32) - 1.0) * scale * inv_max_abs_d
+            t_base = torch.where(do_skip, new_base, t_base)
+            rsx, rsy, rsz, rlx, rly, rlz = grid_init(t_base)
+        else:
+            do_skip = zb
 
         bminx = torch.where(enter, lx.to(F32) * scale + gx0, bminx)
         bminy = torch.where(enter, ly.to(F32) * scale + gy0, bminy)
@@ -480,14 +499,19 @@ def _grid_hit_soa(static: GridStatic, tables, material_indices,
         gaz = ~(gax | gay)
         gt_new = sel3(gax, gay, gaz, sx, sy, sz) * scale
         mx, my, mz = grid_steps & gax, grid_steps & gay, grid_steps & gaz
-        sx = torch.where(do_skip, rsx, torch.where(mx, sx + adx, sx))
-        lx = torch.where(do_skip, rlx, torch.where(mx, lx + stx, lx))
-        sy = torch.where(do_skip, rsy, torch.where(my, sy + ady, sy))
-        ly = torch.where(do_skip, rly, torch.where(my, ly + sty, ly))
-        sz = torch.where(do_skip, rsz, torch.where(mz, sz + adz, sz))
-        lz = torch.where(do_skip, rlz, torch.where(mz, lz + stz, lz))
-        t_value = torch.where(do_skip, zf,
-                              torch.where(grid_steps, gt_new, t_value))
+        sx = torch.where(mx, sx + adx, sx)
+        lx = torch.where(mx, lx + stx, lx)
+        sy = torch.where(my, sy + ady, sy)
+        ly = torch.where(my, ly + sty, ly)
+        sz = torch.where(mz, sz + adz, sz)
+        lz = torch.where(mz, lz + stz, lz)
+        t_value = torch.where(grid_steps, gt_new, t_value)
+        if use_skip:
+            sx, sy, sz = (torch.where(do_skip, r, v)
+                          for r, v in ((rsx, sx), (rsy, sy), (rsz, sz)))
+            lx, ly, lz = (torch.where(do_skip, r, v)
+                          for r, v in ((rlx, lx), (rly, ly), (rlz, lz)))
+            t_value = torch.where(do_skip, zf, t_value)
         ncode = torch.where(
             grid_steps,
             sel3(gax, gay, gaz, step_code_x, step_code_y, step_code_z), ncode)
@@ -538,7 +562,7 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
                    mats, ox, oy, oz, dx, dy, dz,
                    max_bounce: int, sun_position, sun_enabled: bool,
                    sun_color, sun_radius, max_steps: int = 768,
-                   shadow_probe: bool = False):
+                   shadow_probe: bool = False, use_skip: bool = True):
     """Path-traced, tone-mapped radiance for a wavefront (RayColor,
     brick_raytracer.comp:203-265; zig_vulkan_tpu/ops/trace.py:867-1325).
 
@@ -547,7 +571,9 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
     scalar (the per-frame push constants). With `shadow_probe` (and the
     sun on) each bounce level's sun ray is traced inside its scatter
     traversal (kernel A's shadow build) instead of a second traversal; the
-    colours are the same.
+    colours are the same. `use_skip=False` traces every ray with the exact
+    cell-by-cell DDA (kernel A's NO_SKIP builds; the records' distance lane
+    is then never read).
     Returns (r, g, b) f32[N] each, in lane order."""
     from .tile_tracer import grid_hit_tiles  # imports this module
 
@@ -555,7 +581,7 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
         return grid_hit_tiles(static, tables, material_indices,
                               hox, hoy, hoz, hdx, hdy, hdz, mask,
                               ray_key=ray_key, max_steps=max_steps,
-                              shadow_targets=targets)
+                              shadow_targets=targets, use_skip=use_skip)
 
     n = ox.shape[0]
     dev = ox.device
@@ -743,7 +769,8 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
                 cam: dict, width: int, height: int, spp: int,
                 max_bounce: int, sun_position, sun_color, sun_radius,
                 sun_enabled: bool, max_steps: int = 768,
-                sample_base: float = 0.0, shadow_probe: bool = False):
+                sample_base: float = 0.0, shadow_probe: bool = False,
+                use_skip: bool = True):
     """Render a frame: f32[height, width, 3], tone-mapped and gamma'd
     (brick_raytracer.comp:153-178; zig_vulkan_tpu/ops/trace.py:1382-1470).
 
@@ -755,7 +782,8 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
 
     `sample_base` offsets the per-sample jitter seed (sample s uses
     sample_base + s, in float32); temporal accumulation passes
-    frame_index * spp so every frame draws fresh sub-pixel samples."""
+    frame_index * spp so every frame draws fresh sub-pixel samples.
+    `use_skip=False` runs the exact DDA (TraceConfig.empty_skip=False)."""
     w, h = int(width), int(height)
     samples = [_camera_rays_soa(cam, w, h, _F(_F(sample_base) + _F(s)))
                for s in range(spp)]
@@ -764,7 +792,7 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     cr, cg, cb = _ray_color_soa(
         static, tables, material_indices, mats, oxs, oys, ozs,
         rdx, rdy, rdz, max_bounce, sun_position, sun_enabled, sun_color,
-        sun_radius, max_steps, shadow_probe=shadow_probe)
+        sun_radius, max_steps, shadow_probe=shadow_probe, use_skip=use_skip)
     color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, h * w, 3).sum(dim=0)
     color = torch.sqrt(_div(color, spp))
     return color.reshape(h, w, 3)
