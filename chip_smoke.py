@@ -12,13 +12,21 @@ non-zero if any phase fails:
 3. kernel A (traversal) against its plain torch version on the card, on
    the default 512x256x512 scene: the frame's primary wavefront,
    bounce-like rays from its hit points, and the same rays with a
-   dielectric key;
+   dielectric key; the builds that divide (a cell size that is no power
+   of two) on the primary and keyed rays, bit for bit;
 4. kernel B (material lookup) against its plain torch version;
 5. golden parity: the 48x48 flat-scene renders of
    tests/golden/flat_scene_renders.npz rendered on the card;
 6. the main path: `VoxelRT(...).draw()` at the default EngineConfig
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
    with the kernels' launch counts;
+6b. the frame's 6 kernel A and 3 kernel B launches, captured from one
+   `draw()` and replayed one by one (`frame_kernels`): each bit for bit
+   against its plain version, its device time warm and after an L2
+   flush, its bound, kernel A's steps, warp-use shares and its time with
+   no lane live, with only its slowest 1% of rays live and through the
+   builds that divide (at a 0.3 cell, also bit for bit), kernel B's
+   `torch.index_select` time;
 7. headline analogue: 1920x1080 primary rays through kernel A over the
    fly-through path's points (three passes), in Mray/s;
 8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148):
@@ -53,13 +61,16 @@ non-zero if any phase fails:
     `stream_into_engine(terrain_regions(...))` into an empty engine against
     the host terrain build, and the native C++ builder where g++ exists.
 
-The line before the last is a JSON object with one entry per kernel build;
-the last line is {"ok": true, "device": {...}}. Imports no JAX.
+The line before the last is a JSON object with one entry per kernel build
+(its launches, launches per frame, time, plain time, bound, share of the
+bound and, for kernel B, `index_select`'s time); the last line is
+{"ok": true, "device": {...}}. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import struct
@@ -97,6 +108,10 @@ RGB_RES = (64, 36)         # the full-RGB oracle frames
 # tests/test_trace_parity.py:75-77.
 RGB_REFERENCE = {0: (0.1094, 0.01528), 3: (0.1536, 0.01935)}
 STREAM_BATCH = 262144      # io.streaming.stream_into_engine's max_batch
+SLEEP_CYCLES = 20_000_000  # about 10 ms of the card's clock: the host
+                           # enqueues the timed calls meanwhile
+FLUSH_BYTES = 128 << 20    # written between timed calls: evicts the 50 MB L2
+FRAME_REPS = 10            # timed replays of each captured frame launch
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
 # 24-46, core/materials.py:MaterialTable)
 SCENE_FILE_DTYPES = {
@@ -121,18 +136,45 @@ def log(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` calls, by CUDA events."""
+    """Mean device time of `fn` over `reps` back-to-back calls, by CUDA
+    events. A sleep kernel holds the card while the host enqueues the
+    calls, so a kernel shorter than its host-side launch is timed by the
+    card, not by the host."""
     import torch
 
     fn()  # warm
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, flush=None) -> float:
+    """Median device time of one call of `fn`, each of `reps` calls between
+    its own CUDA events, with the host kept ahead of the card as in
+    `cuda_ms`. With `flush` (a buffer larger than the L2), the buffer is
+    written before each call, as the frame's glue evicts the L2 between
+    kernel launches."""
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    pairs = [frame_events()[:2] for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in pairs:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def compare_hits(name, got, want, mask):
@@ -193,12 +235,28 @@ def host_remove(grid, xyz):
     np.bitwise_and.at(a.diel_mask, word, keep)
 
 
+def warp_share(out):
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    return roofline.warp_use_share(out["n_step"].cpu().numpy())
+
+
 def step_stats(n_step):
     """Mean and p99 of per-ray loop iterations."""
     import torch
 
     s = n_step.float()
     return s.mean().item(), torch.quantile(s, 0.99).item()
+
+
+def a_bound(n, out, n_step, **flags):
+    """bound_ms and bound_by of a kernel A launch over `n` lanes with
+    results `out` and the stats build's `n_step` on the same inputs."""
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    ms, by = roofline.traverse_bound_ms(n, int(out["found"].sum()),
+                                        int(n_step.sum()), **flags)
+    return dict(bound_ms=ms, bound_by=by)
 
 
 def compare_exact(name, got, want, keys):
@@ -387,7 +445,8 @@ def edit_flythrough(dev, scene, res, frames):
         f"p99 {steps_conservative[1]:.0f}",
         steps_per_primary_ray_after=f"mean {steps_after[0]:.2f} "
         f"p99 {steps_after[1]:.0f}", stats_launches=stats_launches,
-        max_steps=max_steps)
+        max_steps=max_steps, warp_use_share_before=f"{warp_share(before):.4f}",
+        warp_use_share_after=f"{warp_share(after):.4f}")
     compare_exact("stats build", after, hit(prim, on, plain=True, stats=True),
                   ("found", "t", "index", "n_step"))
     want_p = hit(prim, on, plain=True)
@@ -413,11 +472,14 @@ def edit_flythrough(dev, scene, res, frames):
         kernel_a_primary_ms_sprayed=f"{sprayed_ms:.3f}",
         plain_ms_sprayed=f"{sprayed_plain_ms:.1f}",
         stats_build_ms=f"{stats_ms:.3f}", stats_plain_ms=f"{stats_plain_ms:.1f}")
+    n = w * h
     return dict(
         sprayed=dict(launches=launches["A"], max_abs_err=0.0, ms=sprayed_ms,
-                     plain_ms=sprayed_plain_ms),
+                     plain_ms=sprayed_plain_ms,
+                     **a_bound(n, after, after["n_step"])),
         stats=dict(launches=stats_launches, max_abs_err=0.0, ms=stats_ms,
-                   plain_ms=stats_plain_ms),
+                   plain_ms=stats_plain_ms,
+                   **a_bound(n, after, after["n_step"], stats=True)),
         engine=rt)
 
 
@@ -453,6 +515,8 @@ def shadow_probe(rt, rays, active, key):
                   hit(krays, kactive, ray_key=kkey, shadow_targets=ktg),
                   hit(krays, kactive, plain=True, ray_key=kkey,
                       shadow_targets=ktg), keys)
+    first = hit(rays, active, shadow_targets=tg, stats=True)
+    bound = a_bound(int(active.numel()), first, first["n_step"], shadow=True)
     ms = cuda_ms(lambda: hit(rays, active, shadow_targets=tg), reps=5)
     plain_ms = cuda_ms(lambda: hit(rays, active, plain=True,
                                    shadow_targets=tg), reps=1)
@@ -500,6 +564,7 @@ def shadow_probe(rt, rays, active, key):
             or counts[True]["B"] != 3 * f):
         raise AssertionError(f"unexpected launch counts {counts}")
     return dict(launches=counts[True]["shadow"], max_abs_err=0.0, ms=ms,
+                **bound,
                 plain_ms=plain_ms)
 
 
@@ -594,6 +659,153 @@ def frame_launches_per_level(rt):
     """Kernel A launches per bounce level of a frame: the scatter ray, and
     the sun ray unless it is off."""
     return 2 if rt.sun.device_data.enabled else 1
+
+
+def _clone(v):
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return tuple(_clone(a) for a in v)
+    return v
+
+
+@contextlib.contextmanager
+def capturing(module, name, store, keep=()):
+    """Replace `module.name` with a wrapper that appends (args, kwargs) of
+    each call to `store`, tensors cloned except the positional arguments in
+    `keep`, and calls the original. The wrapper shares the original's
+    attributes (its launch counts)."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        store.append(([a if i in keep else _clone(a)
+                       for i, a in enumerate(args)],
+                      {k: _clone(v) for k, v in kw.items()}))
+        return real(*args, **kw)
+
+    wrapper.__dict__ = real.__dict__
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def frame_kernels(rt, reps: int = FRAME_REPS):
+    """Phase 6b: the kernel A and kernel B launches of one `rt.draw()`,
+    captured and replayed one by one: each against its plain version, bit
+    for bit; device time warm and after an L2 flush; for A, the stats
+    build's steps over the active lanes, the warp-use shares (lanes in
+    launch order, and the active lanes packed together), and the launch's
+    time with no lane live, with only its slowest 1% of rays live and
+    through the builds that divide (its own check and time); for B,
+    `torch.index_select`'s time on the same inputs; each launch's bound.
+    Returns {"A": [...], "B": [...]}, one dict per launch."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    cap_a, cap_b = [], []
+    with capturing(tile_tracer, "grid_hit_tiles", cap_a, keep=(0, 1, 2)), \
+            capturing(trace, "table_lookup", cap_b, keep=(0,)):
+        rt.draw()
+    levels = int(rt.camera.d_camera.max_bounce)
+    per = frame_launches_per_level(rt)
+    if len(cap_a) != levels * per or len(cap_b) != levels:
+        raise AssertionError(f"captured {len(cap_a)} A and {len(cap_b)} B "
+                             f"launches of one frame")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=rt.device)
+    keys = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
+    rows = {"A": [], "B": []}
+    for i, (args, kw) in enumerate(cap_a):
+        active = args[9]
+        n = int(active.numel())
+        keyed = kw.get("ray_key") is not None
+        label = (f"level {i // per} "
+                 f"{'scatter' if i % per == 0 else 'shadow'}"
+                 f"{' keyed' if keyed else ''}")
+
+        def run(plain=False, **extra):
+            fn = (tile_tracer.grid_hit_plain if plain
+                  else tile_tracer.grid_hit_tiles)
+            return fn(*args, **dict(kw, **extra))
+
+        got = run()
+        compare_exact(f"frame launch A {label}", got, run(plain=True), keys)
+        n_step = run(stats=True)["n_step"]
+        act = n_step[active].float()
+        hits = int(got["found"].sum())
+        iters = int(n_step.sum())
+        bound, by = roofline.traverse_bound_ms(n, hits, iters, has_key=keyed)
+        p99 = torch.quantile(act, 0.99).item() if act.numel() else 0.0
+        # the same launch with no ray live (the reads and writes of every
+        # lane), and with only its slowest 1% of rays live (what the longest
+        # chains of dependent steps add)
+        tail = roofline.slowest_lanes(n_step, active)
+
+        def run_live(live):
+            return tile_tracer.grid_hit_tiles(*args[:9], live, *args[10:],
+                                              **kw)
+
+        # the same launch through the builds that divide: the records at a
+        # cell size of 0.3, no power of two
+        odd = [dataclasses.replace(args[0], scale=0.3), *args[1:]]
+
+        def run_dividing(plain=False):
+            fn = (tile_tracer.grid_hit_plain if plain
+                  else tile_tracer.grid_hit_tiles)
+            return fn(*odd, **kw)
+
+        compare_exact(f"frame launch A {label}, dividing build",
+                      run_dividing(), run_dividing(plain=True), keys)
+
+        row = dict(
+            launch=label, lanes=n, active=int(active.sum()), hits=hits,
+            mean_steps=act.mean().item() if act.numel() else 0.0,
+            p99_steps=p99, max_steps=int(n_step.max()),
+            warp_use_share=roofline.warp_use_share(n_step.cpu().numpy()),
+            warp_use_share_packed=roofline.warp_use_share(
+                n_step[active].cpu().numpy()),
+            ms=device_ms(run, reps), ms_l2_flushed=device_ms(run, reps, flush),
+            ms_none_live=device_ms(
+                lambda: run_live(torch.zeros_like(active)), reps),
+            tail_lanes=int(tail.sum()),
+            ms_tail_only=device_ms(lambda: run_live(tail), reps),
+            ms_dividing=device_ms(run_dividing, reps),
+            bound_ms=bound, bound_by=by)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows["A"].append(row)
+        log("frame A", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                          for k, v in row.items()})
+    for i, (args, kw) in enumerate(cap_b):
+        mats, idx = args
+        got = torch.stack(lookup.table_lookup(mats, idx))
+        lib = torch.index_select(mats, 1, idx)
+        if not (torch.equal(got, lookup._table_lookup_plain(mats, idx))
+                and torch.equal(got, lib)):
+            raise AssertionError(f"kernel B on frame launch {i} differs from "
+                                 f"its plain version or index_select")
+        bound, by = roofline.bound_ms(roofline.lookup_bytes(
+            int(idx.numel()), *mats.shape))
+        row = dict(
+            launch=f"level {i}", lanes=int(idx.numel()),
+            ms=device_ms(lambda: lookup.table_lookup(mats, idx), reps),
+            ms_l2_flushed=device_ms(lambda: lookup.table_lookup(mats, idx),
+                                    reps, flush),
+            library_ms=device_ms(lambda: torch.index_select(mats, 1, idx),
+                                 reps),
+            library_ms_l2_flushed=device_ms(
+                lambda: torch.index_select(mats, 1, idx), reps, flush),
+            bound_ms=bound, bound_by=by)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows["B"].append(row)
+        log("frame B", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                          for k, v in row.items()})
+    return rows
 
 
 def oracle_parity(dev, scene, rt, poses_1080):
@@ -777,8 +989,9 @@ def oracle_parity(dev, scene, rt, poses_1080):
     for exact in (False, True, True, False):
         times[exact].append(pass_ms(exact))
     exact_ms, skip_ms = (float(np.mean(times[k])) for k in (True, False))
-    steps = {k: step_stats(hit(poses_1080[0], hon, k, stats=True)["n_step"])
-             for k in (True, False)}
+    counted = {k: hit(poses_1080[0], hon, k, stats=True)
+               for k in (True, False)}
+    steps = {k: step_stats(v["n_step"]) for k, v in counted.items()}
     got = hit(poses_1080[0], hon, True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -796,6 +1009,8 @@ def oracle_parity(dev, scene, rt, poses_1080):
         f"p99 {steps[False][1]:.0f}",
         no_skip_plain_ms=f"{plain_ms:.1f}")
     return dict(launches=counts["exact"], max_abs_err=0.0, ms=exact_ms,
+                **a_bound(int(hon.numel()), counted[True],
+                          counted[True]["n_step"]),
                 plain_ms=plain_ms)
 
 
@@ -1052,25 +1267,12 @@ def main() -> int:
     return smoke(torch.device("cuda"), scenes.default_scene, EngineConfig())
 
 
-def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
-          poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES,
-          app_args=()) -> int:
-    """The phases on the scene `make_scene()` builds, at `cfg` (main()
-    passes the default scene and EngineConfig); `app_args` go before the
-    app's flags in phase 13 (none: the app's defaults)."""
+def device_and_build():
+    """Phases 1 and 2; returns the card's nvidia-smi line."""
     import torch
 
-    t_start = time.perf_counter()
     from zig_vulkan_tpu_torch import _build
-    from zig_vulkan_tpu_torch.config import CameraConfig, SunConfig
-    from zig_vulkan_tpu_torch.core.camera import Camera
-    from zig_vulkan_tpu_torch.core.sun import Sun
-    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
-    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
 
-    results = {}
-
-    # -- 1. device ----------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1081,16 +1283,87 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
-
-    # -- 2. build -----------------------------------------------------------------
     t0 = time.perf_counter()
     _build.library(force_build=True)
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=f"{_build.build_seconds:.2f}")
-    for ln in ptxas:
-        print(f"[build] {ln}", flush=True)
+    for name, row in ptxas_summary(_build.build_log).items():
+        log("build", kernel=name, **row)
+    return card
+
+
+def ptxas_summary(text):
+    """{kernel build: registers, spill store bytes and, for kernel A, the
+    warps an SM holds at 128 threads a block} from nvcc's -Xptxas -v
+    output."""
+    import re
+
+    from zig_vulkan_tpu_torch.ops.tile_tracer import _build_name
+
+    rows, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"traverse_kernelILb([01])ELb([01])ELb([01])E"
+                          r"Lb([01])E", m[1])
+            name = (f"A {_build_name(t[1] == '1', t[2] == '1', t[3] == '1')}"
+                    f"{' pow2' if t[4] == '1' else ''}"
+                    if t else "B aligned" if "lookup_kernelILb1E" in m[1]
+                    else "B" if "lookup_kernel" in m[1] else m[1])
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            rows.setdefault(name, {})["spill_stores"] = int(m[1])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            regs = int(m[1])
+            rows.setdefault(name, {})["registers"] = regs
+            if name.startswith("A "):
+                # registers allocated 256 to a warp, at most 64 warps
+                per_warp = -(-regs * 32 // 256) * 256
+                rows[name]["warps_per_sm"] = min(64, 65536 // per_warp // 4 * 4)
+    return rows
+
+
+def headline_poses(dev, headline, poses_n):
+    """The 1920x1080 primary rays of the fly-through path's first points."""
+    from zig_vulkan_tpu_torch.config import CameraConfig
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.ops import trace
+
+    w, h = headline
+    hcam = Camera(75.0, w, h, CameraConfig(origin=(0.0, 0.0, 0.0)))
+    poses = []
+    for p in PATH_POINTS[:poses_n]:
+        hcam.d_camera.origin = np.asarray(p, dtype=np.float32)
+        hcam.propagate_pitch_change()
+        r = trace._camera_rays_soa(trace.camera_vectors(hcam.d_camera, dev),
+                                   w, h, 0)
+        ndx, ndy, ndz = trace._norm3(r[3], r[4], r[5])
+        poses.append(tuple(a.contiguous() for a in (*r[:3], ndx, ndy, ndz)))
+    return poses
+
+
+def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
+          poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES,
+          app_args=()) -> int:
+    """The phases on the scene `make_scene()` builds, at `cfg` (main()
+    passes the default scene and EngineConfig); `app_args` go before the
+    app's flags in phase 13 (none: the app's defaults)."""
+    import torch
+
+    t_start = time.perf_counter()
+    from zig_vulkan_tpu_torch.config import CameraConfig, SunConfig
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.core.sun import Sun
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    results = {}
+
+    # -- 1. device, 2. build -----------------------------------------------------
+    card = device_and_build()
 
     # -- 3. kernel A against its plain version -------------------------------------
     t0 = time.perf_counter()
@@ -1153,13 +1426,29 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     skipped = int((live & want_b["found"] & (want_b["index"] == 0)
                    & ~torch.isnan(key)).sum())
     log("kernel A", keyed_lanes_that_hit_water_unkeyed=skipped)
+    # the builds that divide (a cell size that is no power of two): the
+    # primary and keyed bounce rays on the same records at 0.3 a cell
+    odd = dataclasses.replace(static, scale=0.3)
+    for name, rays, act, k in (("primary", primary, all_on, None),
+                               ("bounce_keyed", bounce, live, key)):
+        got_o, want_o = (fn(odd, tables, mat_idx, *rays, act, ray_key=k,
+                            max_steps=cfg.trace.max_steps)
+                         for fn in (tile_tracer.grid_hit_tiles,
+                                    trace._grid_hit_soa))
+        compare_exact(f"kernel A dividing build, {name}", got_o, want_o,
+                      ("found", "t", "px", "py", "pz", "nx", "ny", "nz",
+                       "index"))
 
     a_ms = cuda_ms(lambda: hit(primary, all_on, None), reps=5)
     a_plain_ms = cuda_ms(lambda: hit(primary, all_on, None, plain=True),
                          reps=1)
     log("kernel A", shape=f"{n} rays (primary wavefront)",
         ms=f"{a_ms:.3f}", plain_ms=f"{a_plain_ms:.3f}")
-    results["A"] = dict(max_abs_err=max_dt, ms=a_ms, plain_ms=a_plain_ms)
+    counted = tile_tracer.grid_hit_tiles(static, tables, mat_idx, *primary,
+                                         all_on, stats=True,
+                                         max_steps=cfg.trace.max_steps)
+    results["A"] = dict(max_abs_err=max_dt, ms=a_ms, plain_ms=a_plain_ms,
+                        **a_bound(n, got_p, counted["n_step"]))
 
     # -- 4. kernel B against its plain version -------------------------------------
     lut = rt.mats
@@ -1171,12 +1460,18 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     b_err = (got - want).abs().max().item()
     b_ms = cuda_ms(lambda: lookup.table_lookup(lut, idx), reps=20)
     b_plain_ms = cuda_ms(lambda: lookup._table_lookup_plain(lut, idx), reps=20)
+    # one PyTorch call for the same function (the indices are in range);
+    # timed as a yardstick only
+    b_lib_ms = cuda_ms(lambda: torch.index_select(lut, 1, idx), reps=20)
     log("kernel B", lanes=n, tables=lut.shape[0], max_abs_err=b_err,
         exact=bool(torch.equal(got, want)), ms=f"{b_ms:.4f}",
+        index_select_ms=f"{b_lib_ms:.4f}",
         plain_ms=f"{b_plain_ms:.4f}")
     if not torch.equal(got, want):
         raise AssertionError("kernel B disagrees with its plain version")
-    results["B"] = dict(max_abs_err=b_err, ms=b_ms, plain_ms=b_plain_ms)
+    b_bound, b_by = roofline.bound_ms(roofline.lookup_bytes(n, *lut.shape))
+    results["B"] = dict(max_abs_err=b_err, ms=b_ms, plain_ms=b_plain_ms,
+                        bound_ms=b_bound, bound_by=b_by, library_ms=b_lib_ms)
 
     # -- 5. golden parity on the card ----------------------------------------------
     golden = np.load(REPO / "tests" / "golden" / "flat_scene_renders.npz")
@@ -1245,17 +1540,14 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         raise AssertionError(f"expected 6 A and 3 B launches per frame, "
                              f"got {launches} over {frames} frames")
 
+    # -- 6b. the frame's kernel launches, one by one --------------------------------
+    t0 = time.perf_counter()
+    frame_rows = frame_kernels(rt)
+    log("frame kernels", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
     # -- 7. headline analogue: primary rays at 1920x1080 ---------------------------
     w, h = headline
-    hcam = Camera(75.0, w, h, CameraConfig(origin=(0.0, 0.0, 0.0)))
-    poses = []
-    for p in PATH_POINTS[:poses_n]:
-        hcam.d_camera.origin = np.asarray(p, dtype=np.float32)
-        hcam.propagate_pitch_change()
-        r = trace._camera_rays_soa(trace.camera_vectors(hcam.d_camera, dev),
-                                   w, h, 0)
-        ndx, ndy, ndz = trace._norm3(r[3], r[4], r[5])
-        poses.append(tuple(a.contiguous() for a in (*r[:3], ndx, ndy, ndz)))
+    poses = headline_poses(dev, headline, poses_n)
     hon = torch.ones(w * h, dtype=torch.bool, device=dev)
     hit(poses[-1], hon, None)  # warm
     start = torch.cuda.Event(enable_timing=True)
@@ -1309,27 +1601,39 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
+        # launches_per_frame: of the frame that runs the build (the
+        # default frame; config 3's edit frame for the sprayed scene; a
+        # sun_in_kernel frame; none for the diagnostic stats build; an
+        # empty_skip=False frame)
         dict(name="traverse (kernel A, default build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
-             launches=launches["A"], **results["A"]),
+             launches=launches["A"], launches_per_frame=6,
+             frame_launch_ms=[r["ms"] for r in frame_rows["A"]],
+             **results["A"]),
         dict(name="traverse (kernel A, default build on the sprayed scene, "
              "for the sparse_roam build)", route="cuda", source=src_a,
              replaces="zig_vulkan_tpu/ops/tile_tracer.py:595",
-             **edit["sprayed"]),
+             launches_per_frame=4, **edit["sprayed"]),
         dict(name="traverse (kernel A, shadow build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:381",
-             **shadow),
+             launches_per_frame=3, **shadow),
         dict(name="traverse (kernel A, stats build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:377",
-             **edit["stats"]),
+             launches_per_frame=0, **edit["stats"]),
         dict(name="traverse (kernel A, NO_SKIP build: the exact DDA of "
              "TraceConfig(empty_skip=False))", route="cuda", source=src_a,
-             replaces="zig_vulkan_tpu/ops/trace.py:388", **exact),
+             replaces="zig_vulkan_tpu/ops/trace.py:388",
+             launches_per_frame=6, **exact),
         dict(name="table_lookup (kernel B)", route="cuda",
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",
-             launches=launches["B"], **results["B"]),
+             launches=launches["B"], launches_per_frame=3,
+             frame_launch_ms=[r["ms"] for r in frame_rows["B"]],
+             **results["B"]),
     ]
+    for k in kernels:
+        k.setdefault("library_ms", None)  # no PyTorch call traces a DDA
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     log("done", script_seconds=f"{time.perf_counter() - t_start:.2f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -352,3 +352,215 @@ def test_exact_frame_launches_the_exact_build(card):
     assert after["default"] == before["default"]
     assert bool(torch.isfinite(img).all())
     assert not rt.tables()[:, 3].any()
+
+
+def _random_rays(rt, n, seed, card):
+    """`n` rays from points in and around the scene's grid, in random
+    directions (numpy, from `seed`)."""
+    k = trace.trace_constants(rt.grid_static)
+    g0, g1 = np.asarray(k["g0"], np.float32), np.asarray(k["g1"], np.float32)
+    rng = np.random.default_rng(seed)
+    ext = g1 - g0
+    o = (g0 - 0.2 * ext + rng.random((n, 3)) * 1.4 * ext).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(card)
+                 for a in (o, d) for i in range(3))
+
+
+def _mixed(n, seed, card, share=0.6):
+    """Scattered `active` lanes and dielectric keys: NaN, the water's ir
+    and another ir."""
+    rng = np.random.default_rng(seed + 1)
+    active = torch.from_numpy(rng.random(n) < share).to(card)
+    key = rng.choice(np.array([np.nan, 1.333, 1.5], np.float32), n)
+    return active, torch.from_numpy(key).to(card)
+
+
+def _kernel_vs_plain(rt, rays, active, **kw):
+    args = (rt.grid_static, rt.tables(), rt.arrays.material_indices, *rays,
+            active)
+    want = tile_tracer.grid_hit_plain(*args, **kw)
+    got = tile_tracer.grid_hit_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 128 * 37 + 5])
+def test_kernel_a_ragged_wavefronts(scene_on_card, card, n):
+    """Lane counts that fill no warp, one warp and a bit, and no block."""
+    rt = scene_on_card
+    rays = _random_rays(rt, n, n, card)
+    active, key = _mixed(n, n, card)
+    before = tile_tracer.grid_hit_tiles.launches
+    _kernel_vs_plain(rt, rays, active, ray_key=key, stats=True)
+    assert tile_tracer.grid_hit_tiles.launches == before + (n > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.03, 0.6, 1.0])
+@pytest.mark.parametrize("build", ["default", "shadow+stats", "exact+shadow"])
+def test_kernel_a_scattered_masked_lanes_mixed_keys(scene_on_card, card,
+                                                    share, build):
+    """Bounce rays from the primary hits on scattered lanes, keyed with
+    NaN and two irs: a few live lanes among many masked off (the frame's
+    last bounce), most live, and all."""
+    rt = scene_on_card
+    rays, on = _primary(rt, card)
+    n = rays[0].shape[0]
+    prim = _hit(rt, rays, on, None, plain=True)
+    d = torch.stack(_random_rays(rt, n, 7, card)[3:], -1)
+    nrm = torch.stack([prim["nx"], prim["ny"], prim["nz"]], -1)
+    d = torch.where((d * nrm).sum(-1, keepdim=True) < 0, -d, d)
+    bounce = (prim["px"], prim["py"], prim["pz"],
+              *(d[:, i].contiguous() for i in range(3)))
+    scatter, key = _mixed(n, 3, card, share)
+    kw = dict(ray_key=key, use_skip="exact" not in build,
+              stats="stats" in build)
+    if "shadow" in build:
+        kw["shadow_targets"] = _targets(bounce)
+    got = _kernel_vs_plain(rt, bounce, prim["found"] & scatter, **kw)
+    assert int(got["found"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [600_000, 20_000])
+def test_kernel_a_beyond_one_resident_wave(scene_on_card, card, n):
+    """More lanes than one resident wave of blocks holds (600,000: 4,688
+    blocks of 128 against the H100's 1,056 resident), and fewer (20,000),
+    with the sun-ray build."""
+    rt = scene_on_card
+    rays = _random_rays(rt, n, 11, card)
+    active, key = _mixed(n, 11, card, share=0.8)
+    got = _kernel_vs_plain(rt, rays, active, ray_key=key,
+                           shadow_targets=_targets(rays))
+    assert int(got["found"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_a_on_two_streams(scene_on_card, card):
+    """Two launches in flight on two streams, each on its own inputs."""
+    rt = scene_on_card
+    n = 200_000
+    sets = [(_random_rays(rt, n, s, card), *_mixed(n, s, card))
+            for s in (21, 22)]
+    args = (rt.grid_static, rt.tables(), rt.arrays.material_indices)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, (rays, active, key) in zip(streams, sets):
+        with torch.cuda.stream(s):
+            got.append(tile_tracer.grid_hit_tiles(*args, *rays, active,
+                                                  ray_key=key))
+    torch.cuda.synchronize()
+    for g, (rays, active, key) in zip(got, sets):
+        want = tile_tracer.grid_hit_plain(*args, *rays, active, ray_key=key)
+        for k in want:
+            assert torch.equal(g[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 7, 4099, (1 << 20) + 3])
+def test_kernel_b_misaligned_and_ragged(card, offset, n):
+    """`idx` starting 0-3 elements past a 16-byte boundary, and lane
+    counts that leave output rows misaligned."""
+    g = torch.Generator().manual_seed(n + offset)
+    tables = torch.rand(5, 256, generator=g).to(card)
+    full = torch.randint(-8, 264, (n + offset,), generator=g,
+                         dtype=torch.int32).to(card)
+    idx = full[offset:]
+    assert idx.data_ptr() % 16 == 4 * offset % 16
+    got = lookup.table_lookup(tables, idx)
+    torch.cuda.synchronize()
+    want = lookup._table_lookup_plain(tables, idx)
+    for t in range(5):
+        assert torch.equal(got[t], want[t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tables", [1, 3, 4, 9])
+def test_kernel_b_table_counts(card, n_tables):
+    """Table counts with and without a float4 group, and a remainder."""
+    g = torch.Generator().manual_seed(n_tables)
+    tables = torch.rand(n_tables, 100, generator=g).to(card)
+    idx = torch.randint(-3, 103, (10_001,), generator=g,
+                        dtype=torch.int32).to(card)
+    got = lookup.table_lookup(tables, idx)
+    torch.cuda.synchronize()
+    want = lookup._table_lookup_plain(tables, idx)
+    assert len(got) == n_tables
+    for t in range(n_tables):
+        assert torch.equal(got[t], want[t])
+
+
+@pytest.mark.parametrize("size", [2.0 ** k for k in range(-6, 7)])
+def test_power_of_two_reciprocal_multiply_is_the_division(size):
+    """Kernel A's POW2 builds compute a DDA cursor's x / size as
+    x * (1 / size): for a power-of-two size both are the one rounding of
+    the same real number, so they agree bit for bit, on subnormal, huge,
+    infinite and NaN x too."""
+    rng = np.random.default_rng(int(np.log2(size)) + 10)
+    x = np.concatenate([
+        rng.standard_normal(20_000).astype(np.float32) * 300.0,
+        rng.integers(0, 2**32, 20_000, dtype=np.uint64).astype(
+            np.uint32).view(np.float32),  # every exponent, NaNs included
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                  1.17e-38, 3.4e38], np.float32)])
+    xt = torch.from_numpy(x)
+    s = torch.tensor(size, dtype=torch.float32)
+    quot = xt / s
+    prod = xt * (torch.tensor(1.0, dtype=torch.float32) / s)
+    nan = torch.isnan(quot)
+    assert torch.equal(nan, torch.isnan(prod))
+    assert torch.equal(quot[~nan].view(torch.int32),
+                       prod[~nan].view(torch.int32))
+
+
+def test_reciprocal_multiply_is_not_the_division_at_other_sizes():
+    """Why the builds that divide stay: at a cell size that is no power of
+    two the product rounds differently on some x."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        100_000).astype(np.float32) * 300.0)
+    s = torch.tensor(0.3, dtype=torch.float32)
+    assert bool(((x / s) != (x * (1.0 / s))).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["default", "shadow+stats", "exact",
+                                   "exact+shadow+stats"])
+@pytest.mark.parametrize("scale", [0.3, 1.5])
+def test_kernel_a_dividing_builds_match_plain(scene_on_card, card, build,
+                                              scale):
+    """A cell size that is no power of two runs the builds that divide
+    (every scene of the repo runs the POW2 builds): scattered masked lanes
+    and mixed keys, against the plain version."""
+    rt = scene_on_card
+    static = dataclasses.replace(rt.grid_static, scale=scale)
+    n = 50_000
+    k = trace.trace_constants(static)
+    g0, g1 = np.asarray(k["g0"], np.float32), np.asarray(k["g1"], np.float32)
+    rng = np.random.default_rng(int(scale * 10))
+    o = (g0 - 0.2 * (g1 - g0) + rng.random((n, 3)) * 1.4 * (g1 - g0))
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(
+        a[:, i].astype(np.float32))).to(card) for a in (o, d)
+        for i in range(3))
+    active, key = _mixed(n, 5, card)
+    args = (static, rt.tables(), rt.arrays.material_indices, *rays, active)
+    kw = dict(ray_key=key, use_skip="exact" not in build,
+              stats="stats" in build)
+    if "shadow" in build:
+        kw["shadow_targets"] = _targets(rays)
+    want = tile_tracer.grid_hit_plain(*args, **kw)
+    got = tile_tracer.grid_hit_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(want["found"].sum()) > 0
+    for name in want:
+        assert torch.equal(got[name], want[name]), name

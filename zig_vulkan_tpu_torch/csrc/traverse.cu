@@ -9,26 +9,45 @@
 // XLA wavefront in the JAX package). The plain torch version is
 // zig_vulkan_tpu_torch/ops/trace.py:_grid_hit_soa.
 //
-// What bounds it on an H100: random 32-byte record reads (one per grid
-// step) and warp divergence (lanes of a warp take different numbers of
-// grid and brick steps). The default scene's record table (1M cells x 32 B
-// = 32 MiB) and its material bytes (64 MiB) compete for the 50 MB L2.
+// What bounds it on an H100: the instructions of its loop and the latency
+// of its longest rays. The frame's primary launch keeps 88% of its lanes'
+// loop iterations busy (warp-use share) and an L2 flush costs it 1%, so
+// neither divergence nor record bytes hold it back; with 32 warps resident
+// an SM issues about one instruction a cycle a scheduler through the loop's
+// enter / leap / step / voxel paths. The launches with only their slowest
+// 1% of rays live take 55-67% of their full time (chip_smoke.py phase 6b,
+// `ms_tail_only`): a grid step is a dependent record read and a few dozen
+// dependent operations, and rays of up to 74 (primary) and 159 (keyed
+// bounce) steps end each launch.
 //
 // What the design does about it: one thread walks one ray over the
-// per-cell records, as the GLSL reference does; a record is two 16-byte
-// read-only loads, the second only when a dielectric key needs it; the
-// brick's occupancy words live in registers once the ray enters it, so
-// every voxel test is a register bit test; the material byte is read once,
-// after the traversal. The TPU kernel's region blocks, region vote, pixel
-// tiles and bin sorts existed because a TPU has no fast per-lane gather and
-// are left out. Coherence sorting and persistent blocks are later work.
+// per-cell records, as the GLSL reference does, so every ray starts as
+// soon as its block does; the hardware's block scheduler refills the SMs.
+// A record is two 16-byte read-only loads, the second only when a
+// dielectric key needs it; the brick's occupancy words live in registers
+// once the ray enters it, so every voxel test is a register bit test; the
+// material byte is read once, after the traversal. Where the cell size is
+// a power of two (every scene of the repo), the POW2 builds turn the six
+// divisions of a brick entry or an empty-space leap into multiplies by the
+// exact reciprocal, bit for bit the same quotients: the loop loses the
+// divisions' range checks and slow-path calls, the register spill around
+// those calls goes, and the frame's six launches take 12% less time on an
+// H100 (PERF.md, Findings). Persistent warps that fetch lane ids (with and
+// without refilling retired lanes, with and without queueing the live
+// lanes into full warps), a pass that queues the live lanes first, a
+// 16-byte hot record plane, prefetching the next cell's record on brick
+// entry and branch-free DDA steps were built and measured on the frame's
+// launches and lost or tied (PERF.md, Findings). The TPU kernel's region
+// blocks, region vote, pixel tiles and bin sorts existed because a TPU has
+// no fast per-lane gather and are left out.
 //
-// Builds (template flags, one instantiation each): the default; SHADOW, the
-// TPU kernel's sun-shadow probe, where a thread that hits traces its own
-// sun ray as the GLSL reference does (brick_raytracer.comp:240-249); STATS,
-// per-ray loop iterations; NO_SKIP (SKIP=false), the exact cell-by-cell
-// DDA: the empty-space leap is compiled out, so every empty cell costs one
-// loop iteration and the records' distance lane is never read. Each of the
+// Builds (template flags, one instantiation each, each in a POW2 and a
+// dividing version): the default; SHADOW, the TPU kernel's sun-shadow
+// probe, where a thread that hits traces its own sun ray as the GLSL
+// reference does (brick_raytracer.comp:240-249); STATS, per-ray loop
+// iterations; NO_SKIP (SKIP=false), the exact cell-by-cell DDA: the
+// empty-space leap is compiled out, so every empty cell costs one loop
+// iteration and the records' distance lane is never read. Each of the
 // four skip builds has its NO_SKIP twin. The TPU kernel's sparse_roam build
 // changes only its region park schedule; on a sprayed scene this kernel
 // computes the same first hits as everywhere else.
@@ -44,6 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 // The scene constants of one launch; mirrored by _build.TraceParams.
 struct TraceParams {
@@ -79,12 +100,25 @@ __device__ __forceinline__ float safe_inverse(float v) {
   return v == 0.0f ? 1e12f : 1.0f / v;
 }
 
+// 1 / scale and 1 / voxel_scale, used where both scales are powers of two
+// (the POW2 builds): there x * (1 / size) is x / size to the last bit, as
+// both are the one rounding of the same real number, and it costs one
+// multiply where an IEEE division costs a reciprocal, its refinement, a
+// range check and a slow-path call.
+struct Inverses {
+  float scale;
+  float voxel_scale;
+};
+
 // DDA cursor from the ray position at t0 (brick_raytracer.comp:287-311 at
 // grid level, :389-405 at brick level)
+template <bool POW2>
 __device__ __forceinline__ void cursor(float t0, float g0, float stf,
                                        float ad, float o, float d,
-                                       float size, float& s, int& l) {
-  float f = (o + d * t0 - g0) / size;
+                                       float size, float inv, float& s,
+                                       int& l) {
+  const float r = o + d * t0 - g0;
+  float f = POW2 ? r * inv : r / size;
   float fl = floorf(f);
   s = (stf * (fl - f) + (stf * 0.5f + 0.5f)) * ad;
   l = (int)fl;
@@ -104,8 +138,9 @@ struct Hit {
 // One ray through the two-level DDA. `has_key` selects the dielectric key
 // (the second record read); STATS counts the loop iterations; SKIP leaps
 // empty space by the records' distance lane.
-template <bool STATS, bool SKIP>
+template <bool STATS, bool SKIP, bool POW2>
 __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
+                                         const Inverses& inv,
                                          const int4* __restrict__ tables,
                                          float ox, float oy, float oz,
                                          float dx, float dy, float dz,
@@ -159,9 +194,9 @@ __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
   int lx = 0, ly = 0, lz = 0;
   if (running) {
     const float t0 = t_base + p.park;
-    cursor(t0, p.g0[0], stxf, adx, ox, dx, scale, sx, lx);
-    cursor(t0, p.g0[1], styf, ady, oy, dy, scale, sy, ly);
-    cursor(t0, p.g0[2], stzf, adz, oz, dz, scale, sz, lz);
+    cursor<POW2>(t0, p.g0[0], stxf, adx, ox, dx, scale, inv.scale, sx, lx);
+    cursor<POW2>(t0, p.g0[1], styf, ady, oy, dy, scale, inv.scale, sy, ly);
+    cursor<POW2>(t0, p.g0[2], stzf, adz, oz, dz, scale, inv.scale, sz, lz);
   }
 
   // brick-level DDA state, loaded on entry
@@ -202,9 +237,12 @@ __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
         const float bminy = (float)ly * scale + p.g0[1];
         const float bminz = (float)lz * scale + p.g0[2];
         entry_t = t_value + t_base + p.enter_eps;
-        cursor(entry_t, bminx, stxf, adx, ox, dx, voxel_scale, bsx, blx);
-        cursor(entry_t, bminy, styf, ady, oy, dy, voxel_scale, bsy, bly);
-        cursor(entry_t, bminz, stzf, adz, oz, dz, voxel_scale, bsz, blz);
+        cursor<POW2>(entry_t, bminx, stxf, adx, ox, dx, voxel_scale,
+                     inv.voxel_scale, bsx, blx);
+        cursor<POW2>(entry_t, bminy, styf, ady, oy, dy, voxel_scale,
+                     inv.voxel_scale, bsy, bly);
+        cursor<POW2>(entry_t, bminz, stzf, adz, oz, dz, voxel_scale,
+                     inv.voxel_scale, bsz, blz);
         b_t = 0.0f;
         local_t_max = grid_t_max - entry_t;
         in_brick = true;
@@ -214,9 +252,9 @@ __device__ __forceinline__ Hit trace_ray(const TraceParams& p,
         const float cur_t = t_base + p.park + t_value;
         t_base = cur_t + ((float)rec.w - 1.0f) * scale * inv_max_abs_d;
         const float t0 = t_base + p.park;
-        cursor(t0, p.g0[0], stxf, adx, ox, dx, scale, sx, lx);
-        cursor(t0, p.g0[1], styf, ady, oy, dy, scale, sy, ly);
-        cursor(t0, p.g0[2], stzf, adz, oz, dz, scale, sz, lz);
+        cursor<POW2>(t0, p.g0[0], stxf, adx, ox, dx, scale, inv.scale, sx, lx);
+        cursor<POW2>(t0, p.g0[1], styf, ady, oy, dy, scale, inv.scale, sy, ly);
+        cursor<POW2>(t0, p.g0[2], stzf, adz, oz, dz, scale, inv.scale, sz, lz);
         t_value = 0.0f;
       }
     }
@@ -303,28 +341,22 @@ struct Buffers {
   int32_t* n_step;  // STATS builds
 };
 
-// SHADOW: a thread whose ray hits traces the sun ray from the hit point
-// toward its target and writes `occluded` (the TPU kernel's shadow=True
-// probe, tile_tracer.py:381-391). STATS: writes the first traversal's loop
-// iterations (the TPU kernel's stats=True n_step). Both are compile-time
-// flags, so the default build carries neither; SKIP=false is the NO_SKIP
-// build. The launch bounds hold the default and stats builds to 64
-// registers, so 8 blocks of 128 threads (half the SM's warps) stay
-// resident.
-template <bool SHADOW, bool STATS, bool SKIP>
-__global__ void __launch_bounds__(128, SHADOW ? 7 : 8)
-traverse_kernel(TraceParams p, Buffers b) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+// Lane i from start to end: its ray, the traversal (none when !LIVE: the
+// twin's values of a masked-off lane, whose loop never runs), the epilogue
+// (normal from the face code, hit point, material byte) and, in the SHADOW
+// builds, the sun ray of a lane that hits.
+template <bool SHADOW, bool STATS, bool SKIP, bool POW2, bool LIVE>
+__device__ __forceinline__ void run_lane(const TraceParams& p,
+                                         const Inverses& inv,
+                                         const Buffers& b, int i) {
   const float ox = b.ox[i], oy = b.oy[i], oz = b.oz[i];
   const float dx = b.dx[i], dy = b.dy[i], dz = b.dz[i];
   const bool has_key = b.ray_key != nullptr;
   const float nan = __int_as_float(0x7fc00000);
-  const Hit h = trace_ray<STATS, SKIP>(p, b.tables, ox, oy, oz, dx, dy, dz,
-                                 b.active[i], has_key,
-                                 has_key ? b.ray_key[i] : nan);
+  const Hit h = trace_ray<STATS, SKIP, POW2>(
+      p, inv, b.tables, ox, oy, oz, dx, dy, dz, LIVE, has_key,
+      LIVE && has_key ? b.ray_key[i] : nan);
 
-  // epilogue: normal from the face code, hit point, material byte
   const float sign = h.ncode < 4 ? 1.0f : -1.0f;
   const int axis = h.ncode & 3;
   const float nx = axis == 0 ? sign : 0.0f;
@@ -345,30 +377,62 @@ traverse_kernel(TraceParams p, Buffers b) {
   if (STATS) b.n_step[i] = h.steps;
   if (SHADOW) {
     bool occluded = false;
-    if (h.found) {
+    if (LIVE && h.found) {
       // toward the target, normalized as ops/trace.py:shadow_dirs rounds
       // it; no dielectric key, as the separate shadow launch has none
       const float sx = b.tx[i] - px, sy = b.ty[i] - py, sz = b.tz[i] - pz;
-      const float inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz);
-      occluded = trace_ray<false, SKIP>(p, b.tables, px, py, pz, sx * inv,
-                                  sy * inv, sz * inv, true, false, nan)
+      const float r = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz);
+      occluded = trace_ray<false, SKIP, POW2>(p, inv, b.tables, px, py, pz,
+                                              sx * r, sy * r, sz * r, true,
+                                              false, nan)
                      .found;
     }
     b.occluded[i] = occluded;
   }
 }
 
-template <bool SKIP>
-void launch(const TraceParams& p, const Buffers& b, bool shadow, bool stats,
-            unsigned blocks, int threads, cudaStream_t s) {
-  if (shadow && stats)
-    traverse_kernel<true, true, SKIP><<<blocks, threads, 0, s>>>(p, b);
-  else if (shadow)
-    traverse_kernel<true, false, SKIP><<<blocks, threads, 0, s>>>(p, b);
-  else if (stats)
-    traverse_kernel<false, true, SKIP><<<blocks, threads, 0, s>>>(p, b);
+constexpr int THREADS = 128;
+
+// One thread per lane, blocks in lane order. The launch bounds cap the
+// builds without the sun ray at 64 registers (8 blocks of 128 threads,
+// half the SM's warps, resident) and the SHADOW builds at 72 (7 blocks).
+template <bool SHADOW, bool STATS, bool SKIP, bool POW2>
+__global__ void __launch_bounds__(THREADS, SHADOW ? 7 : 8)
+traverse_kernel(TraceParams p, Inverses inv, Buffers b) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= p.n) return;
+  if (b.active[i])
+    run_lane<SHADOW, STATS, SKIP, POW2, true>(p, inv, b, i);
   else
-    traverse_kernel<false, false, SKIP><<<blocks, threads, 0, s>>>(p, b);
+    run_lane<SHADOW, STATS, SKIP, POW2, false>(p, inv, b, i);
+}
+
+template <bool SHADOW, bool STATS, bool SKIP, bool POW2>
+void launch(const TraceParams& p, const Inverses& inv, const Buffers& b,
+            cudaStream_t s) {
+  const unsigned blocks = (unsigned)((p.n + THREADS - 1) / THREADS);
+  traverse_kernel<SHADOW, STATS, SKIP, POW2><<<blocks, THREADS, 0, s>>>(
+      p, inv, b);
+}
+
+template <bool SKIP, bool POW2>
+void launch(const TraceParams& p, const Inverses& inv, const Buffers& b,
+            bool shadow, bool stats, cudaStream_t s) {
+  if (shadow && stats)
+    launch<true, true, SKIP, POW2>(p, inv, b, s);
+  else if (shadow)
+    launch<true, false, SKIP, POW2>(p, inv, b, s);
+  else if (stats)
+    launch<false, true, SKIP, POW2>(p, inv, b, s);
+  else
+    launch<false, false, SKIP, POW2>(p, inv, b, s);
+}
+
+// x a power of two whose reciprocal is a normal float
+bool power_of_two(float x) {
+  int e = 0;
+  return std::isfinite(x) && x > 0.0f && std::frexp(x, &e) == 0.5f &&
+         std::isnormal(1.0f / x);
 }
 
 }  // namespace
@@ -396,14 +460,19 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
   const bool stats = n_step != nullptr;
   if (shadow && (ty == nullptr || tz == nullptr || occluded == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (p.n > INT32_MAX - THREADS) return (int)cudaErrorInvalidValue;
   if (p.n > 0) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((p.n + threads - 1) / threads);
+    const Inverses inv{1.0f / p.scale, 1.0f / p.voxel_scale};
+    const bool pow2 = power_of_two(p.scale) && power_of_two(p.voxel_scale);
     cudaStream_t s = (cudaStream_t)stream;
-    if (p.use_skip)
-      launch<true>(p, b, shadow, stats, blocks, threads, s);
+    if (p.use_skip && pow2)
+      launch<true, true>(p, inv, b, shadow, stats, s);
+    else if (p.use_skip)
+      launch<true, false>(p, inv, b, shadow, stats, s);
+    else if (pow2)
+      launch<false, true>(p, inv, b, shadow, stats, s);
     else
-      launch<false>(p, b, shadow, stats, blocks, threads, s);
+      launch<false, false>(p, inv, b, shadow, stats, s);
   }
   return (int)cudaGetLastError();
 }

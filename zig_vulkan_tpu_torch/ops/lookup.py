@@ -58,6 +58,8 @@ def _launch(tables, idx):
                          f"stage")
     n = idx.shape[0]
     out = torch.empty((n_tables, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out  # nothing to launch
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

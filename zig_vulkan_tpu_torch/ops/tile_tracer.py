@@ -197,6 +197,11 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if n == 0:
+        return out  # nothing to launch
+    if n > 2**31 - 129:
+        raise ValueError("grid_hit_tiles: kernel A takes fewer than 2^31 - "
+                         "128 lanes")
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
