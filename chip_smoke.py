@@ -60,6 +60,26 @@ non-zero if any phase fails:
     the JAX package's format, `cached_default_scene` cold and warm,
     `stream_into_engine(terrain_regions(...))` into an empty engine against
     the host terrain build, and the native C++ builder where g++ exists.
+15. the mesh (parallel/mesh.py): (a) the denoiser on 1, 2, 4 and 8 bands
+    with their halos against the whole image, a seeded random 1024x576
+    image to 1280x720 and at equal size, bit for bit; (b) the default
+    frame's configuration through `build_sharded_step` over 1, 2 and 4
+    shards of the card, each equal bit for bit to `render_image` +
+    `postprocess`, launches per shard, and the step's time beside the
+    unsharded frame's, in turns; (c) `dryrun_multichip(4)`; (d) where there
+    is more than one card, (b) over the distinct cards;
+16. BASELINE config 5 (benchmarks/configs.py:179-252): a 1024x256x1024-voxel
+    terrain streamed into an empty engine, the exact distance field and the
+    records built once, then 3840x2160 frames (1 spp, one level, no sun, no
+    denoiser) through the sharded step over every card and over 4 shards of
+    the first card; each equal to the unsharded `render_image` bit for bit;
+    kernel A on the whole 8,294,400-ray wavefront against its plain
+    version on every field, with its time and bound;
+17. BASELINE configs 1, 2 and 4 (benchmarks/configs.py:81-114, :151-176) at
+    full width: ms a frame and Mray/s over 4 frames, launches per frame,
+    each frame's shape, range and finiteness; for config 4 the
+    accumulated frame moves, and from a pose that looks at the emissive
+    block its lanes hit it.
 
 The line before the last is a JSON object with one entry per kernel build
 (its launches, launches per frame, time, plain time, bound, share of the
@@ -112,6 +132,13 @@ SLEEP_CYCLES = 20_000_000  # about 10 ms of the card's clock: the host
                            # enqueues the timed calls meanwhile
 FLUSH_BYTES = 128 << 20    # written between timed calls: evicts the 50 MB L2
 FRAME_REPS = 10            # timed replays of each captured frame launch
+HALO_BANDS = (1, 2, 4, 8)  # phase 15a
+MESH_SIZES = (1, 2, 4)     # shards of one card, phase 15b
+MESH_FRAMES = 6            # timed steps per mesh size and round (2 rounds)
+THREAD_FRAMES = 3          # the same for the thread-a-shard scheme (slow)
+CONFIG_FRAMES = 4          # timed frames of configs 1, 2 and 4
+CONFIG5_FRAMES = 3         # benchmarks/configs.py:179
+EMISSIVE = 40              # config 4's emissive material index
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
 # 24-46, core/materials.py:MaterialTable)
 SCENE_FILE_DTYPES = {
@@ -481,6 +508,500 @@ def edit_flythrough(dev, scene, res, frames):
                    plain_ms=stats_plain_ms,
                    **a_bound(n, after, after["n_step"], stats=True)),
         engine=rt)
+
+
+def step_times(fn, frames):
+    """[(device ms, wall ms)] of `frames` calls of `fn`, each between CUDA
+    events on the current stream and ending in a synchronize, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(frames):
+        e0, e1, _ = frame_events()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def reset_counts():
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer
+
+    tile_tracer.reset_launch_counts()
+    lookup.table_lookup.launches = 0
+
+
+def read_counts():
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer
+
+    a = tile_tracer.grid_hit_tiles
+    return {"A": a.build_launches["default"], "A_all": a.launches,
+            "B": lookup.table_lookup.launches}
+
+
+def halo_check(dev, width, height):
+    """Phase 15a: the banded denoiser against the whole image."""
+    import torch
+
+    from zig_vulkan_tpu_torch.config import DenoiserConfig
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    img = torch.from_numpy(np.random.default_rng(15).random(
+        (height, width, 3), dtype=np.float32)).to(dev)
+    dn = DenoiserConfig(enabled=True)
+    for out_h, out_w in ((height, width), (height * 5 // 4, width * 5 // 4)):
+        whole = denoise.postprocess(img, dn, out_h, out_w)
+        equal, halos = {}, {}
+        for n in HALO_BANDS:
+            rows = out_h // n
+            bands = []
+            for i in range(n):
+                r0, r1 = i * rows, (i + 1) * rows if i < n - 1 else out_h
+                a, b = denoise.band_input_rows(r0, r1, out_h, height, dn)
+                bands.append(denoise.postprocess(
+                    img[a:b].clone(), dn, out_h, out_w,
+                    band=denoise.Band(r0, r1, a, height)))
+                if i == n // 2:
+                    halos[n] = [a, b]
+            equal[n] = bool(torch.equal(torch.cat(bands), whole))
+        log("mesh halo", image=f"{width}x{height}", out=f"{out_w}x{out_h}",
+            bands=list(HALO_BANDS),
+            equal=json.dumps(equal, separators=(",", ":")),
+            middle_band_input_rows=json.dumps(halos, separators=(",", ":")))
+        if not all(equal.values()):
+            raise AssertionError("the banded denoiser differs from the whole "
+                                 "image")
+
+
+def sharded_default_frame(rt, devices, label, sizes):
+    """Phase 15b/d: the default frame's configuration (the engine `rt`'s)
+    through `build_sharded_step` over meshes of `devices[:n]` for n in
+    `sizes`. Each image is held to the unsharded `render_image` +
+    `postprocess` bit for bit, each step's launches are counted, and the
+    steps are timed in turns with the unsharded frame: the shards run in
+    turn on this thread (the package's way) and, for more than one shard,
+    each on a thread of its own. Returns the kernel launches
+    counted over the timed steps."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import denoise, trace
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    st = rt.grid_static
+    d, sun = rt.camera.d_camera, rt.sun.device_data
+    iw, ih = rt.internal_resolution
+    ow, oh = rt.output_resolution
+    levels = int(d.max_bounce)
+    cam = trace.camera_vectors(d, rt.device)
+
+    def unsharded():
+        img = trace.render_image(st, rt.arrays, rt.mats, d, sun.position,
+                                 sun.color, sun.radius, bool(sun.enabled),
+                                 rt.trace_config, tables=rt.tables())
+        return denoise.postprocess(img, rt.denoiser, oh, ow)
+
+    want = unsharded()
+    runs = {"unsharded": unsharded}
+    with ThreadPoolExecutor(max_workers=max(sizes)) as pool:
+        for n in sizes:
+            m = pmesh.make_mesh(devices[:n])
+            arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+            tables = pmesh.map_replicas(
+                m, lambda a: trace.build_trace_tables(
+                    st, a, trace.distance_field(st, a, exact=True)),
+                arrays_r)
+            for threads in ((False,) if n == 1 else (False, True)):
+                step = pmesh.build_sharded_step(
+                    m, st, width=iw, height=ih,
+                    spp=int(d.samples_per_pixel), max_bounce=levels,
+                    sun_enabled=bool(sun.enabled), out_width=ow,
+                    out_height=oh, denoiser=rt.denoiser,
+                    trace_config=rt.trace_config,
+                    dispatch=pool.map if threads else map)
+
+                def run(step=step, arrays_r=arrays_r, mats_r=mats_r,
+                        tables=tables):
+                    return step(arrays_r, mats_r, cam, sun.position,
+                                sun.color, sun.radius, tables=tables)
+
+                reset_counts()
+                got = run()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                same = bool(torch.equal(got, want))
+                name = f"x{n}{' threads' if threads else ''}"
+                log("mesh", mesh=label, shards=n, threads=threads,
+                    replicas=len(m.distinct), equals_unsharded=same,
+                    launches_A=counts["A"], launches_B=counts["B"],
+                    per_shard=f"{counts['A'] // n} A + {counts['B'] // n} B",
+                    shape=list(got.shape), device=str(got.device))
+                per = levels * frame_launches_per_level(rt)
+                if not same or got.device != want.device:
+                    raise AssertionError(f"the {n}-shard frame differs from "
+                                         f"the unsharded one")
+                if counts != {"A": per * n, "A_all": per * n,
+                              "B": levels * n}:
+                    raise AssertionError(f"expected {per} A and {levels} B "
+                                         f"launches a shard, got {counts}")
+                runs[name] = run
+        # timed in turns, forward then backward: host-bound times drift
+        reset_counts()
+        times = {name: [] for name in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                times[name] += step_times(
+                    runs[name], THREAD_FRAMES if "threads" in name
+                    else MESH_FRAMES)
+        counts = read_counts()
+    for name, t in times.items():
+        dev_ms, wall_ms = zip(*t)
+        log("mesh", mesh=label, step=name, frames=len(t),
+            median_device_ms=f"{np.median(dev_ms):.3f}",
+            median_wall_ms=f"{np.median(wall_ms):.3f}",
+            min_wall_ms=f"{min(wall_ms):.3f}", max_wall_ms=f"{max(wall_ms):.3f}")
+    return counts
+
+
+def mesh_phase(dev, rt):
+    """Phase 15."""
+    import torch
+
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    iw, ih = rt.internal_resolution
+    halo_check(dev, iw, ih)
+    one = pmesh.make_mesh([dev]).devices[0]
+    counts = sharded_default_frame(rt, [one] * max(MESH_SIZES), "one card",
+                                   MESH_SIZES)
+    reset_counts()
+    pmesh.dryrun_multichip(4, device=None if dev.type == "cuda" else dev)
+    dry = read_counts()
+    log("mesh", dryrun_shards=4, launches_A=dry["A_all"],
+        launches_B=dry["B"])
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    log("mesh", cards=cards,
+        note="the frame over distinct cards runs where there are several")
+    if cards > 1:
+        many = sharded_default_frame(
+            rt, list(pmesh.make_mesh().devices), f"{cards} cards", (cards,))
+        counts = {k: counts[k] + many[k] for k in counts}
+    return counts
+
+
+def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
+    """Phase 16: BASELINE config 5 (benchmarks/configs.py:179-252)."""
+    import torch
+
+    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
+                                             EngineConfig, GridConfig,
+                                             SunConfig, TraceConfig)
+    from zig_vulkan_tpu_torch.core.grid import BrickGrid
+    from zig_vulkan_tpu_torch.core.materials import terrain_materials
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.io import streaming
+    from zig_vulkan_tpu_torch.ops import tile_tracer, trace
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    dims = (max(8, int(256 * scale)), max(4, int(64 * scale)),
+            max(8, int(256 * scale)))
+    w = max(128, int(3840 * scale))
+    h = max(32, int(2160 * scale) // 4 * 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grid = BrickGrid(*dims, GridConfig(min_point=(-64, -16, -64), scale=0.5))
+    rt = VoxelRT(grid, terrain_materials(), EngineConfig(
+        internal_resolution_width=w, internal_resolution_height=h,
+        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
+                            max_bounce=0),
+        sun=SunConfig(enabled=False), denoiser=DenoiserConfig(enabled=False)),
+        device=dev)
+    st = rt.grid_static
+    t0 = time.perf_counter()
+    streamed = streaming.stream_into_engine(
+        rt, streaming.terrain_regions(grid, region_x=dims[0]))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = trace.build_trace_tables(
+        st, rt.arrays, trace.distance_field(st, rt.arrays, True))
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    log("config 5", voxels="x".join(map(str, st.voxel_dims)), cells=st.cells,
+        streamed_voxels=streamed, stream_seconds=f"{stream_s:.2f}",
+        voxels_per_s=f"{streamed / stream_s:.0f}",
+        active_bricks=int(rt.arrays.active_bricks),
+        exact_field_and_tables_seconds=f"{tables_s:.2f}")
+    if streamed <= 0 or int(rt.arrays.active_bricks) <= 0:
+        raise AssertionError("config 5 streamed no voxel")
+
+    d = rt.camera.d_camera
+    cam = trace.camera_vectors(d, dev)
+    zeros3, ones3 = np.zeros(3, np.float32), np.ones(3, np.float32)
+    one = np.float32(1.0)
+    want = trace.render_image(st, rt.arrays, rt.mats, d, zeros3, ones3, one,
+                              False, TraceConfig(), tables=tables)
+    torch.cuda.synchronize()
+    host = want.cpu().numpy()
+    colours = len(np.unique((host[::8, ::8] * 255).astype(np.uint8)
+                            .reshape(-1, 3), axis=0))
+    log("config 5", unsharded_frame=list(want.shape), min=float(host.min()),
+        max=float(host.max()), finite=bool(np.isfinite(host).all()),
+        distinct_colours_subsampled=colours)
+    if (host.shape != (h, w, 3) or not np.isfinite(host).all()
+            or host.min() < 0.0 or host.max() > 1.0 or colours <= 16):
+        raise AssertionError("config 5's frame has the wrong shape or range")
+
+    first = pmesh.make_mesh([dev]).devices[0]
+    cards = (pmesh.make_mesh() if dev.type == "cuda"
+             else pmesh.make_mesh([dev]))
+    meshes = [(f"{cards.size} card(s)", cards),
+              ("4 shards of one card", pmesh.make_mesh([first] * 4))]
+    total = {"A": 0, "A_all": 0, "B": 0}
+    for label, m in meshes:
+        step = pmesh.build_sharded_step(
+            m, st, width=w, height=h, spp=1, max_bounce=1, sun_enabled=False,
+            denoiser=DenoiserConfig(enabled=False))
+        arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+        tables_r = pmesh.map_replicas(
+            m, lambda a: tables.to(a.statuses.device), arrays_r)
+
+        def run():
+            return step(arrays_r, mats_r, cam, zeros3, ones3, one,
+                        tables=tables_r)
+
+        got = run()  # warm-up, synced
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            got = run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / frames
+        counts = read_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        log("config 5", mesh=label, shards=m.size, replicas=len(m.distinct),
+            resolution=f"{w}x{h}", frames=frames,
+            ms_per_frame=f"{dt * 1e3:.3f}",
+            mrays_per_s=f"{w * h / dt / 1e6:.1f}",
+            launches_A=counts["A"], launches_B=counts["B"],
+            equals_unsharded=same,
+            peak_bytes=torch.cuda.max_memory_allocated())
+        if not same or not torch.equal(got, want):
+            raise AssertionError(f"config 5 over {label} differs from the "
+                                 f"unsharded frame")
+        if counts != {"A": m.size * frames, "A_all": m.size * frames,
+                      "B": m.size * frames}:
+            raise AssertionError(f"expected one A and one B launch a shard "
+                                 f"a frame, got {counts}")
+        del arrays_r, mats_r, tables_r, step
+
+    # kernel A on the whole wavefront against its plain version
+    r = trace._camera_rays_soa(cam, w, h, 0.0)
+    rays = tuple(a.contiguous() for a in (*r[:3], *trace._norm3(*r[3:])))
+    on = torch.ones(w * h, dtype=torch.bool, device=dev)
+    args = (st, tables, rt.arrays.material_indices, *rays, on)
+    got = tile_tracer.grid_hit_tiles(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = tile_tracer.grid_hit_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    compare_exact("config 5 wavefront", got, plain, tuple(plain))
+    counted = tile_tracer.grid_hit_tiles(*args, stats=True)
+    ms = cuda_ms(lambda: tile_tracer.grid_hit_tiles(*args), reps=5)
+    mean, p99 = step_stats(counted["n_step"])
+    bound = a_bound(w * h, got, counted["n_step"])
+    log("config 5", kernel_a_lanes=w * h, kernel_a_ms=f"{ms:.3f}",
+        plain_ms=f"{plain_ms:.1f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        bound_by=bound["bound_by"],
+        steps_per_ray=f"mean {mean:.2f} p99 {p99:.0f}",
+        warp_use_share=f"{warp_share(counted):.4f}",
+        mrays_per_s=f"{w * h / ms / 1e3:.1f}",
+        peak_bytes=torch.cuda.max_memory_allocated())
+    return dict(launches=total["A"], max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, launches_B=total["B"], **bound)
+
+
+def baseline_engine(dev, number, scene, scale=1.0):
+    """The engine of BASELINE config 1, 2 or 4 (benchmarks/configs.py:81-114,
+    :151-176); `scene` is the default scene (config 2 renders it)."""
+    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
+                                             EngineConfig, GridConfig,
+                                             SunConfig, TraceConfig)
+    from zig_vulkan_tpu_torch.core.grid import BrickGrid
+    from zig_vulkan_tpu_torch.core.materials import (MAT_EMISSIVE,
+                                                     terrain_materials)
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.models import scenes
+
+    if number == 1:
+        dim = max(2, int(16 * scale))
+        res = max(32, int(256 * scale))
+        grid = BrickGrid(dim, dim, dim, GridConfig(scale=1.0))
+        vx, vy, vz = grid.static.voxel_dims
+        xs, ys, zs = np.meshgrid(np.arange(vx), np.arange(vy // 2),
+                                 np.arange(vz), indexing="ij")
+        grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
+                          np.full(xs.size, 1, dtype=np.uint8))
+        return VoxelRT(grid, terrain_materials(), EngineConfig(
+            internal_resolution_width=res, internal_resolution_height=res,
+            camera=CameraConfig(origin=(dim / 2, dim * 0.9, dim * 2.5),
+                                samples_per_pixel=1, max_bounce=0),
+            sun=SunConfig(enabled=False),
+            denoiser=DenoiserConfig(enabled=False)), device=dev)
+    if number == 2:
+        w, h = max(64, int(1280 * scale)), max(36, int(720 * scale))
+        return VoxelRT(scene.grid, scene.materials, EngineConfig(
+            internal_resolution_width=w, internal_resolution_height=h,
+            camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
+                                max_bounce=0),
+            sun=SunConfig(enabled=True, animate=False),
+            denoiser=DenoiserConfig(enabled=False),
+            trace=TraceConfig(max_steps=160)), device=dev)
+    if number != 4:
+        raise ValueError(f"no engine for config {number}")
+    dims = (max(4, int(64 * scale)), max(2, int(32 * scale)),
+            max(4, int(64 * scale)))
+    w, h = max(64, int(1920 * scale)), max(36, int(1080 * scale))
+    sc = scenes.default_scene(dims=dims, with_model=False)
+    sc.materials.set(EMISSIVE, MAT_EMISSIVE, (1.0, 0.85, 0.4), 8.0)
+    vx, vy, vz = sc.grid.static.voxel_dims
+    xs, ys, zs = np.meshgrid(
+        np.arange(max(0, vx // 2 - 4), vx // 2 + 4),
+        np.arange(max(0, vy - 8), max(1, vy - 4)),
+        np.arange(max(0, vz // 2 - 4), vz // 2 + 4), indexing="ij")
+    sc.grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
+                         np.full(xs.size, EMISSIVE, dtype=np.uint8))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=w, internal_resolution_height=h,
+        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=2,
+                            max_bounce=3),
+        sun=SunConfig(enabled=True, animate=False),
+        denoiser=DenoiserConfig(enabled=True),
+        trace=TraceConfig(max_steps=160)), device=dev)
+    rt.set_temporal(True)
+    return rt
+
+
+def emissive_lanes(rt):
+    """One frame of `rt`: per kernel A launch, the lanes that hit an
+    emissive voxel (the scatter launches are the even ones)."""
+    from zig_vulkan_tpu_torch.ops import tile_tracer
+
+    real = tile_tracer.grid_hit_tiles
+    seen = []
+
+    def counting(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(int((out["found"] & (out["index"] == EMISSIVE)).sum()))
+        return out
+
+    counting.__dict__ = real.__dict__
+    tile_tracer.grid_hit_tiles = counting
+    try:
+        rt.render()
+    finally:
+        tile_tracer.grid_hit_tiles = real
+    return seen
+
+
+def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
+    """Phase 17: BASELINE configs 1, 2 and 4 at full width, timed as
+    benchmarks/configs.py:_timed_frames times them (a synced warm-up, the
+    frames chained, one sync). Returns the kernel launches counted."""
+    import torch
+
+    total = {"A": 0, "A_all": 0, "B": 0}
+    for number in (1, 2, 4):
+        t0 = time.perf_counter()
+        rt = baseline_engine(dev, number, scene, scale)
+        rt.tables()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        first = rt.render().clone()  # warm-up, synced
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            image = rt.render()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / frames
+        counts = read_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        w, h = rt.internal_resolution
+        d = rt.camera.d_camera
+        spp, levels = int(d.samples_per_pixel), int(d.max_bounce)
+        per = levels * frame_launches_per_level(rt)
+        img = image.cpu().numpy()
+        log(f"config {number}",
+            voxels="x".join(map(str, rt.grid_static.voxel_dims)),
+            cell_size=rt.grid_static.scale, resolution=f"{w}x{h}", spp=spp,
+            bounce_levels=levels, sun=bool(rt.sun.device_data.enabled),
+            denoiser=bool(rt.denoiser.enabled), temporal=rt.temporal_enabled,
+            max_steps=rt.trace_config.max_steps, frames=frames,
+            ms_per_frame=f"{dt * 1e3:.3f}",
+            mrays_per_s=f"{w * h * spp / dt / 1e6:.1f}",
+            launches_A_per_frame=counts["A"] / frames,
+            launches_B_per_frame=counts["B"] / frames,
+            shape=list(img.shape), min=float(img.min()),
+            max=float(img.max()), finite=bool(np.isfinite(img).all()),
+            setup_seconds=f"{setup_s:.2f}",
+            peak_bytes=torch.cuda.max_memory_allocated())
+        ow, oh = rt.output_resolution
+        if (img.shape != (oh, ow, 3) or not np.isfinite(img).all()
+                or img.min() < 0.0 or img.max() > 1.0):
+            raise AssertionError(f"config {number}: wrong shape or range")
+        if counts != {"A": per * frames, "A_all": per * frames,
+                      "B": levels * frames}:
+            raise AssertionError(f"config {number}: expected {per} A and "
+                                 f"{levels} B launches a frame, got {counts}")
+        if number != 4:
+            continue
+        moved = (image - first).abs().mean().item()
+        seen = emissive_lanes(rt)
+        log("config 4", accum_count=rt._accum_count,
+            mean_abs_accumulated_minus_first=f"{moved:.3e}",
+            emissive_lanes_per_launch=seen)
+        if rt._accum_count != frames + 2 or not moved > 0:
+            raise AssertionError("config 4: the accumulated frame did not "
+                                 "move")
+        # The benchmark's camera sits at the grid's corner, inside the
+        # terrain, and may see no emissive voxel. So the same engine also
+        # renders from a pose that looks at the block: in front of it (+z)
+        # and below it (world y grows downwards).
+        st = rt.grid_static
+        vs = st.voxel_scale
+        vx, vy, vz = st.voxel_dims
+        centre = (st.min_point[0] + vx // 2 * vs, st.min_point[1] + 6 * vs,
+                  st.min_point[2] + vz // 2 * vs)
+        rt.camera.set_origin((centre[0],
+                              centre[1] + 0.2 * st.dim_y * st.scale,
+                              centre[2] + 0.375 * st.dim_z * st.scale))
+        seen = emissive_lanes(rt)
+        view = rt.render()
+        torch.cuda.synchronize()
+        red = float(view[..., 0].max())
+        log("config 4", pose="the block in view",
+            origin=np.round(rt.camera.d_camera.origin, 3).tolist(),
+            emissive_lanes_per_launch=seen, accum_count=rt._accum_count,
+            max_red=f"{red:.4f}", finite=bool(torch.isfinite(view).all()))
+        # albedo 1.0 x strength 8 tone-maps to 8/9, gamma 0.943; the sun
+        # lights no albedo beyond 0.5, gamma 0.707
+        if (seen[0] <= 0 or sum(seen[2::2]) <= 0 or not red > 0.9
+                or rt._accum_count != 2 or not torch.isfinite(view).all()):
+            raise AssertionError("config 4: the emissive block is not in "
+                                 "the frame that looks at it")
+    return total
 
 
 def shadow_probe(rt, rays, active, key):
@@ -1346,10 +1867,12 @@ def headline_poses(dev, headline, poses_n):
 
 def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
           poses_n: int = HEADLINE_POSES, edit_frames: int = EDIT_FRAMES,
-          app_args=()) -> int:
+          app_args=(), scale: float = 1.0) -> int:
     """The phases on the scene `make_scene()` builds, at `cfg` (main()
     passes the default scene and EngineConfig); `app_args` go before the
-    app's flags in phase 13 (none: the app's defaults)."""
+    app's flags in phase 13 (none: the app's defaults); `scale` sizes the
+    BASELINE configs of phases 16 and 17 as benchmarks/configs.py's does
+    (1.0: their full widths)."""
     import torch
 
     t_start = time.perf_counter()
@@ -1599,6 +2122,24 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     host_io(dev, scene, edit["engine"], cfg)
     log("io", phase_seconds=f"{time.perf_counter() - t0:.2f}")
 
+    # -- 15. the mesh ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    mesh_counts = mesh_phase(dev, rt)
+    log("mesh", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 16. BASELINE config 5 ------------------------------------------------------
+    t0 = time.perf_counter()
+    big = config5(dev, scale)
+    log("config 5", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 17. BASELINE configs 1, 2 and 4 --------------------------------------------
+    t0 = time.perf_counter()
+    config_counts = baseline_configs(dev, scene, scale)
+    log("configs", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+    # the default build's and kernel B's launches of phases 15-17
+    later = {k: mesh_counts[k] + config_counts[k] for k in ("A", "B")}
+    later["B"] += big.pop("launches_B")
+
     src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
         # launches_per_frame: of the frame that runs the build (the
@@ -1607,9 +2148,15 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         # empty_skip=False frame)
         dict(name="traverse (kernel A, default build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
-             launches=launches["A"], launches_per_frame=6,
+             launches=launches["A"] + later["A"], launches_per_frame=6,
+             launches_per_sharded_frame="6 a shard",
+             launches_per_frame_configs_1_2_4=[1, 2, 8],
              frame_launch_ms=[r["ms"] for r in frame_rows["A"]],
              **results["A"]),
+        dict(name="traverse (kernel A, default build on config 5's 4K "
+             "wavefront)", route="cuda", source=src_a,
+             replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
+             launches_per_frame="1 a shard", **big),
         dict(name="traverse (kernel A, default build on the sprayed scene, "
              "for the sparse_roam build)", route="cuda", source=src_a,
              replaces="zig_vulkan_tpu/ops/tile_tracer.py:595",
@@ -1627,7 +2174,9 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         dict(name="table_lookup (kernel B)", route="cuda",
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",
-             launches=launches["B"], launches_per_frame=3,
+             launches=launches["B"] + later["B"], launches_per_frame=3,
+             launches_per_sharded_frame="3 a shard",
+             launches_per_frame_configs_1_2_4_5=[1, 1, 4, "1 a shard"],
              frame_launch_ms=[r["ms"] for r in frame_rows["B"]],
              **results["B"]),
     ]

@@ -564,3 +564,86 @@ def test_kernel_a_dividing_builds_match_plain(scene_on_card, card, build,
     assert int(want["found"].sum()) > 0
     for name in want:
         assert torch.equal(got[name], want[name]), name
+
+
+# -- row sharding on the card (parallel.mesh) ------------------------------------
+
+def _sharded_inputs(rt, card):
+    d, sun = rt.camera.d_camera, rt.sun.device_data
+    iw, ih = rt.internal_resolution
+    kw = dict(width=iw, height=ih, spp=int(d.samples_per_pixel),
+              max_bounce=int(d.max_bounce), sun_enabled=bool(sun.enabled),
+              out_width=rt.output_resolution[0],
+              out_height=rt.output_resolution[1], denoiser=rt.denoiser,
+              trace_config=rt.trace_config)
+    args = (trace.camera_vectors(d, card), sun.position, sun.color,
+            sun.radius)
+    return kw, args
+
+
+@pytest.mark.cuda
+def test_two_shards_on_two_streams_equal_one_stream(scene_on_card, card):
+    """Two shards of one card, each on its own stream, give the one-stream
+    result bit for bit: the unsharded frame on the default stream, and the
+    one-shard mesh."""
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    rt = scene_on_card
+    kw, args = _sharded_inputs(rt, card)
+    want = rt.render()
+    tile_tracer.reset_launch_counts()
+    lookup.table_lookup.launches = 0
+    images = {}
+    for n in (1, 2):
+        m = pmesh.make_mesh([card] * n)
+        assert len(m.distinct) == 1
+        step = pmesh.build_sharded_step(m, rt.grid_static, **kw)
+        arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+        assert arrays_r[0] is arrays_r[-1]
+        assert arrays_r[0].indices.data_ptr() != rt.arrays.indices.data_ptr()
+        tables = pmesh.map_replicas(
+            m, lambda a: trace.build_trace_tables(
+                rt.grid_static, a,
+                trace.distance_field(rt.grid_static, a, exact=True)),
+            arrays_r)
+        images[n] = step(arrays_r, mats_r, *args, tables=tables)
+    torch.cuda.synchronize()
+    assert images[2].device == want.device
+    assert torch.equal(images[1], want)
+    assert torch.equal(images[2], want)
+    # 3 levels a shard: scatter + shadow launches of A, one of B
+    assert tile_tracer.grid_hit_tiles.launches == 6 * 3
+    assert lookup.table_lookup.launches == 3 * 3
+
+
+@pytest.mark.cuda
+def test_kernel_a_under_a_non_default_stream_and_on_a_second_card(
+        scene_on_card, card):
+    """Kernel A launched under a stream that is not the default one and,
+    where there is a second card, on `cuda:1` with the scene copied there."""
+    rt = scene_on_card
+    n = 100_000
+    rays = _random_rays(rt, n, 31, card)
+    active, key = _mixed(n, 31, card)
+    args = (rt.grid_static, rt.tables(), rt.arrays.material_indices)
+    want = tile_tracer.grid_hit_plain(*args, *rays, active, ray_key=key)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert torch.cuda.current_stream() == side
+        got = tile_tracer.grid_hit_tiles(*args, *rays, active, ray_key=key)
+    side.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if torch.cuda.device_count() < 2:
+        return
+    other = torch.device("cuda:1")
+    moved = [args[0], args[1].to(other), args[2].to(other),
+             *(r.to(other) for r in rays), active.to(other)]
+    before = tile_tracer.grid_hit_tiles.launches
+    got = tile_tracer.grid_hit_tiles(*moved, ray_key=key.to(other))
+    torch.cuda.synchronize(other)
+    assert tile_tracer.grid_hit_tiles.launches == before + 1
+    for k in want:
+        assert got[k].device == other
+        assert torch.equal(got[k].to(card), want[k]), k

@@ -65,8 +65,8 @@ def test_sample_base_camera_rays_bit_exact(monkeypatch, sample_base):
     seen = []
     real = ttrace._camera_rays_soa
 
-    def spy(c, w, h, sample_index):
-        out = real(c, w, h, sample_index)
+    def spy(c, w, h, sample_index, **band):
+        out = real(c, w, h, sample_index, **band)
         seen.append((sample_index, out))
         return out
 

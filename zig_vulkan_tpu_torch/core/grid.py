@@ -300,6 +300,30 @@ class BrickGrid:
         if not_d.any():
             np.bitwise_and.at(a.diel_mask, word[not_d], ~bit[not_d])
 
+    def remove_batch(self, x, y, z) -> None:
+        """Clear voxels (superset feature: the reference only inserts;
+        BASELINE.json config 3 exercises insert/remove). Occupancy bits
+        only, as `zig_vulkan_tpu.core.grid.BrickGrid.remove_batch`: bricks
+        are never freed."""
+        st = self.static
+        a = self.arrays
+        x = np.asarray(x, dtype=np.int64)
+        y = np.asarray(y, dtype=np.int64)
+        z = np.asarray(z, dtype=np.int64)
+        fy = (st.voxel_dims[1] - 1) - y
+        cell = grid_at(st, x, fy, z)
+        nth_bit = voxel_at(x, fy, z)
+        loaded = (a.statuses[cell // 32] >> (cell % 32).astype(np.uint32)) & 1
+        keep = loaded == 1
+        if not keep.any():
+            return
+        brick = a.indices[cell[keep]].astype(np.int64)
+        word = brick * BRICK_WORDS + nth_bit[keep] // 32
+        np.bitwise_and.at(
+            a.occupancy, word,
+            ~(np.uint32(1) << (nth_bit[keep] % 32).astype(np.uint32)),
+        )
+
     def rebuild_dielectric_masks(self) -> None:
         """Recompute diel_mask/brick_ir from material_indices + occupancy
         (used after external builds, e.g. the native builder)."""

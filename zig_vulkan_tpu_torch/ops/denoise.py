@@ -10,9 +10,18 @@ so each tap is a uniformly shifted bilinear resample of the whole image:
 at equal input and output resolution a shift is four clamped row/column
 reorders and two lerps. Plain tensor operations; no kernel of the
 reference's is here (the JAX version is XLA, not Pallas).
+
+Every function also works on a band of output rows from a slab of input
+rows (`Band`): the row-sharded step (parallel.mesh) denoises each shard's
+band from its own rows plus a halo of its neighbours' (`band_input_rows`).
+Tap indices are computed in whole-image coordinates, clamped at the true
+image edges only, then shifted into the slab, and everything else is per
+pixel, so the bands equal the rows of the whole image's result bit for bit.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,6 +58,21 @@ def spiral_offsets(samples: int, pixel_multiplier: float):
     return offs
 
 
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """Output rows [r0, r1) of a whole image, computed from a slab that
+    holds the input rows from `a` on of the image's `height` input rows."""
+
+    r0: int
+    r1: int
+    a: int
+    height: int
+
+
+def _whole(img, out_h: int) -> Band:
+    return Band(0, out_h, 0, img.shape[0])
+
+
 def _one_minus(f):
     return 1.0 - f if torch.is_tensor(f) else float(_F(1.0) - _F(f))
 
@@ -60,27 +84,34 @@ def _lerp2d(i00, i01, i10, i11, fx, fy):
     return top * gy + bot * fy
 
 
-def bilinear_sample_shifted(img, dx: float, dy: float):
+def bilinear_sample_shifted(img, dx: float, dy: float, band: Band = None):
     """Sample `img` [H, W, 3] at every pixel centre offset by (dx, dy)
-    pixels, clamp-to-edge bilinear filtering."""
-    h, w, _ = img.shape
+    pixels, clamp-to-edge bilinear filtering. With `band`, `img` is the
+    band's slab and the result its output rows."""
+    w = img.shape[1]
+    band = band or _whole(img, img.shape[0])
+    h = band.height
     x0 = int(np.floor(dx))
     y0 = int(np.floor(dy))
     fx = float(_F(dx - x0))
     fy = float(_F(dy - y0))
     dev = img.device
-    ys = torch.clamp(torch.arange(h, device=dev) + y0, 0, h - 1)
+    rows = torch.arange(band.r0, band.r1, device=dev)
+    ys = torch.clamp(rows + y0, 0, h - 1) - band.a
     xs = torch.clamp(torch.arange(w, device=dev) + x0, 0, w - 1)
-    ys1 = torch.clamp(torch.arange(h, device=dev) + y0 + 1, 0, h - 1)
+    ys1 = torch.clamp(rows + y0 + 1, 0, h - 1) - band.a
     xs1 = torch.clamp(torch.arange(w, device=dev) + x0 + 1, 0, w - 1)
     r0, r1 = img[ys], img[ys1]
     return _lerp2d(r0[:, xs], r0[:, xs1], r1[:, xs], r1[:, xs1], fx, fy)
 
 
-def _sample_coords(n_out: int, n_in: int, offset, dev):
-    """Clamped integer taps and fractions of output pixel centres sampled
-    over an `n_in`-pixel texture, shifted by `offset` input pixels."""
-    u = (torch.arange(n_out, dtype=F32, device=dev) + 0.5) \
+def _sample_coords(n_out: int, n_in: int, offset, dev, first: int = 0,
+                   last: int = None):
+    """Clamped integer taps and fractions of the output pixel centres
+    `first`..`last`-1 (all `n_out` by default) sampled over an `n_in`-pixel
+    texture, shifted by `offset` input pixels."""
+    last = n_out if last is None else last
+    u = (torch.arange(first, last, dtype=F32, device=dev) + 0.5) \
         / torch.tensor(_F(n_out), device=dev)
     if offset is not None:
         u = u + float(_F(offset) / _F(n_in))
@@ -92,21 +123,49 @@ def _sample_coords(n_out: int, n_in: int, offset, dev):
     return i0, i1, f
 
 
-def _resample_taps(img, out_h: int, out_w: int, ox=None, oy=None):
-    h, w, _ = img.shape
+def _resample_taps(img, out_h: int, out_w: int, ox=None, oy=None,
+                   band: Band = None):
+    w = img.shape[1]
+    band = band or _whole(img, out_h)
     x0i, x1i, fx = _sample_coords(out_w, w, ox, img.device)
-    y0i, y1i, fy = _sample_coords(out_h, h, oy, img.device)
-    r0, r1 = img[y0i], img[y1i]
+    y0i, y1i, fy = _sample_coords(out_h, band.height, oy, img.device,
+                                  band.r0, band.r1)
+    r0, r1 = img[y0i - band.a], img[y1i - band.a]
     return _lerp2d(r0[:, x0i], r0[:, x1i], r1[:, x0i], r1[:, x1i],
                    fx[None, :, None], fy[:, None, None])
 
 
-def bilinear_resample(img, out_h: int, out_w: int):
+def bilinear_resample(img, out_h: int, out_w: int, band: Band = None):
     """Clamp-to-edge bilinear resample (the GraphicsPipeline blit analog)."""
-    h, w, _ = img.shape
-    if (out_h, out_w) == (h, w):
-        return img
-    return _resample_taps(img, out_h, out_w)
+    w = img.shape[1]
+    band = band or _whole(img, out_h)
+    if (out_h, out_w) == (band.height, w):
+        return img[band.r0 - band.a:band.r1 - band.a]
+    return _resample_taps(img, out_h, out_w, band=band)
+
+
+def band_input_rows(r0: int, r1: int, out_h: int, in_h: int,
+                    config: DenoiserConfig):
+    """The input rows [a, b) that output rows [r0, r1) of `postprocess`
+    read: the band's own rows, widened by the spiral's largest vertical
+    offsets (1.5 * sqrt(20) * 0.5, about 3.35 pixels, at the defaults) and
+    the bilinear neighbour, clamped to the image."""
+    offsets = ([oy for _, oy in spiral_offsets(int(config.samples),
+                                               config.pixel_multiplier)]
+               if config.enabled else [])
+    # the taps of the resampling path (output and input sizes differ) ...
+    taps = [_sample_coords(out_h, in_h, oy, "cpu", r0, r1)
+            for oy in [None, *offsets]]
+    a = min(int(i0.min()) for i0, _, _ in taps)
+    b = max(int(i1.max()) for _, i1, _ in taps) + 1
+    if out_h == in_h:
+        # ... and of the shifted path (equal sizes), whichever the widths
+        # select
+        shifts = [int(np.floor(oy)) for oy in offsets] or [0]
+        near = int(bool(offsets))  # a shifted tap's bilinear neighbour
+        a = min(a, min(max(r0 + min(shifts), 0), in_h - 1))
+        b = max(b, min(max(r1 - 1 + max(shifts) + near, 0), in_h - 1) + 1)
+    return a, b
 
 
 def _pow_clamped(a, b):
@@ -121,7 +180,8 @@ def _length3(v):
 
 def denoise(img, samples=20, distribution_bias=0.6,
             pixel_multiplier: float = 1.5, inverse_hue_tolerance=20.0,
-            out_shape=None, max_samples: int | None = None):
+            out_shape=None, max_samples: int | None = None,
+            band: Band = None):
     """sirBirdDenoise (image.frag:31-71) on an f32[H, W, 3] image.
 
     If `out_shape` = (out_h, out_w) differs from the input, the filter
@@ -133,24 +193,30 @@ def denoise(img, samples=20, distribution_bias=0.6,
     constant (image.frag:18-23): the spiral runs max_samples+1 taps
     (default MAX_RUNTIME_SAMPLES) and taps past `samples` add zero
     influence, which gives the same output bit for bit.
+
+    With `band`, `img` is the band's slab (`band_input_rows`) and the result
+    the band's rows of the whole image's result.
     """
     if max_samples is None and isinstance(samples, (int, np.integer)):
         return _sir_bird(img, int(samples) + 1, float(samples),
                          distribution_bias, float(pixel_multiplier),
-                         inverse_hue_tolerance, out_shape)
+                         inverse_hue_tolerance, out_shape, band=band)
     return _sir_bird(img, int(max_samples or MAX_RUNTIME_SAMPLES) + 1,
                      float(samples), distribution_bias,
                      float(pixel_multiplier), inverse_hue_tolerance,
-                     out_shape, mask_taps=True)
+                     out_shape, mask_taps=True, band=band)
 
 
 def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
               pixel_multiplier, inverse_hue_tolerance, out_shape,
-              mask_taps: bool = False):
+              mask_taps: bool = False, band: Band = None):
     """The filter body: `n_taps` spiral taps; when `mask_taps`, taps with
     index > `samples_f` get zero influence."""
-    h, w, _ = img.shape
+    w = img.shape[1]
+    h = img.shape[0] if band is None else band.height
     out_h, out_w = out_shape if out_shape is not None else (h, w)
+    band = band or _whole(img, out_h)
+    rows = band.r1 - band.r0
     same_res = (out_h, out_w) == (h, w)
     distribution_bias = float(_F(distribution_bias))
     inverse_hue_tolerance = float(_F(inverse_hue_tolerance))
@@ -161,12 +227,12 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
     sample_radius = np.sqrt(samples_f, dtype=np.float32)
     sample_true_radius = _F(0.5) / (sample_radius * sample_radius)
 
-    center = img if same_res else bilinear_resample(img, out_h, out_w)
+    center = bilinear_resample(img, out_h, out_w, band)
     center_len = _length3(center)
     center_norm = center / torch.clamp(center_len, min=_F(1e-12).item())
 
-    influence_sum = torch.zeros((out_h, out_w, 1), dtype=F32, device=img.device)
-    denoised = torch.zeros((out_h, out_w, 3), dtype=F32, device=img.device)
+    influence_sum = torch.zeros((rows, out_w, 1), dtype=F32, device=img.device)
+    denoised = torch.zeros((rows, out_w, 3), dtype=F32, device=img.device)
 
     for tap_i, (ox, oy) in enumerate(spiral_offsets(n_taps - 1,
                                                     pixel_multiplier)):
@@ -180,9 +246,9 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
                            _F(distribution_bias), dtype=np.float32)
         pixel_influence = _F(1.0) - sample_true_radius * radius2
         if same_res:
-            tap = bilinear_sample_shifted(img, float(ox), float(oy))
+            tap = bilinear_sample_shifted(img, float(ox), float(oy), band)
         else:
-            tap = _resample_taps(img, out_h, out_w, ox, oy)
+            tap = _resample_taps(img, out_h, out_w, ox, oy, band)
         tap_len = _length3(tap)
         tap_norm = tap / torch.clamp(tap_len, min=_F(1e-12).item())
 
@@ -199,8 +265,10 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
     return denoised / influence_sum
 
 
-def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int):
-    """The full presentation pass: denoise (if enabled) + resample."""
+def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int,
+                band: Band = None):
+    """The full presentation pass: denoise (if enabled) + resample. With
+    `band`, `img` is the band's slab and the result the band's rows."""
     if config.enabled:
         return denoise(
             img,
@@ -208,6 +276,6 @@ def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int):
             distribution_bias=config.distribution_bias,
             pixel_multiplier=config.pixel_multiplier,
             inverse_hue_tolerance=config.inverse_hue_tolerance,
-            out_shape=(out_h, out_w),
+            out_shape=(out_h, out_w), band=band,
         )
-    return bilinear_resample(img, out_h, out_w)
+    return bilinear_resample(img, out_h, out_w, band)

@@ -11,6 +11,8 @@ tensors it launches kernel B (csrc/lookup.cu) or raises.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .. import _build
@@ -43,6 +45,7 @@ def table_lookup(tables, idx):
 
 
 table_lookup.launches = 0
+_COUNT_LOCK = threading.Lock()  # shards may launch from several threads
 
 
 def _launch(tables, idx):
@@ -67,5 +70,6 @@ def _launch(tables, idx):
                                       idx.data_ptr(), n, out.data_ptr(),
                                       stream)
     _build.check(status, "zvt_table_lookup")
-    table_lookup.launches += 1
+    with _COUNT_LOCK:
+        table_lookup.launches += 1
     return out

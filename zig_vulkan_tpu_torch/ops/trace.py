@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import BRICK_DIMENSION, BRICK_WORDS
+from ..config import BRICK_DIMENSION, BRICK_WORDS, TraceConfig
 from ..core.grid import GridArrays, GridStatic
 from ..core.materials import (
     MAT_DIELECTRIC,
@@ -206,6 +206,15 @@ def build_trace_tables(static: GridStatic, arrays: GridArrays, dist=None):
     cells = torch.arange(static.cells, dtype=torch.int64,
                          device=arrays.statuses.device)
     return _rows_for_cells(static, arrays, cells, dist)
+
+
+def one_shot_tables(static: GridStatic, arrays: GridArrays,
+                    use_skip: bool = True):
+    """The records a one-shot render builds for itself: the fast
+    conservative field, or none for the exact DDA (the engine caches
+    records built with the exact field instead)."""
+    dist = None if use_skip else no_skip_field(static, arrays)
+    return build_trace_tables(static, arrays, dist)
 
 
 def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
@@ -738,16 +747,21 @@ def camera_vectors(camera_device, device) -> dict:
                          "origin")}
 
 
-def _camera_rays_soa(cam: dict, width: int, height: int, sample_index):
+def _camera_rays_soa(cam: dict, width: int, height: int, sample_index,
+                     row0=0, rows=None):
     """Per-pixel jittered camera rays (brick_raytracer.comp:162-171 +
-    CameraGetRay :474-477), row-major, as six f32[height*width] arrays."""
+    CameraGetRay :474-477) of the `rows` image rows from `row0` on (the
+    whole frame by default), row-major, as six f32[rows*width] arrays.
+    Pixel y is row0 + its row in the band, in float32; u and v divide by the
+    whole frame's width - 1 and height - 1."""
     w, h = int(width), int(height)
+    rows = h if rows is None else int(rows)
     dev = cam["origin"].device
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=F32, device=dev),
+    ys, xs = torch.meshgrid(torch.arange(rows, dtype=F32, device=dev),
                             torch.arange(w, dtype=F32, device=dev),
                             indexing="ij")
     xs = xs.reshape(-1)
-    ys = ys.reshape(-1)
+    ys = ys.reshape(-1) + torch.tensor(_F(row0), dtype=F32, device=dev)
     s = torch.tensor(_F(sample_index), dtype=F32, device=dev)
     sf = _c(0.2) * (s > 0).to(F32)
     noise_x = rng.hash12(torch.stack([(xs + s) * sf, ys * sf], dim=-1))
@@ -761,7 +775,7 @@ def _camera_rays_soa(cam: dict, width: int, height: int, sample_index):
     rdx = hvec[0] * u + ll[0] + vvec[0] * v - o[0]
     rdy = hvec[1] * u + ll[1] + vvec[1] * v - o[1]
     rdz = hvec[2] * u + ll[2] + vvec[2] * v - o[2]
-    n = h * w
+    n = rows * w
     return (o[0].expand(n), o[1].expand(n), o[2].expand(n), rdx, rdy, rdz)
 
 
@@ -770,22 +784,27 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
                 max_bounce: int, sun_position, sun_color, sun_radius,
                 sun_enabled: bool, max_steps: int = 768,
                 sample_base: float = 0.0, shadow_probe: bool = False,
-                use_skip: bool = True):
-    """Render a frame: f32[height, width, 3], tone-mapped and gamma'd
+                use_skip: bool = True, row0=0, rows=None):
+    """Render a band of image rows (the sharding unit; the whole frame by
+    default): f32[rows, width, 3], tone-mapped and gamma'd
     (brick_raytracer.comp:153-178; zig_vulkan_tpu/ops/trace.py:1382-1470).
 
-    All `spp` samples ride one wavefront of spp*height*width lanes, so each
+    All `spp` samples ride one wavefront of spp*rows*width lanes, so each
     bounce level is one traversal launch (plus one for its shadows, unless
     `shadow_probe`) and one lookup launch, whatever spp is. Per-lane
     results equal a loop over samples: the RNG keys off hit positions and
-    the per-sample jitter seed, not lane position.
+    the per-sample jitter seed, not lane position. For the same reason, and
+    because every operation rounds once, the rows `row0 .. row0 + rows - 1`
+    rendered as a band equal those rows of the whole frame bit for bit.
 
     `sample_base` offsets the per-sample jitter seed (sample s uses
     sample_base + s, in float32); temporal accumulation passes
     frame_index * spp so every frame draws fresh sub-pixel samples.
     `use_skip=False` runs the exact DDA (TraceConfig.empty_skip=False)."""
     w, h = int(width), int(height)
-    samples = [_camera_rays_soa(cam, w, h, _F(_F(sample_base) + _F(s)))
+    rows = h if rows is None else int(rows)
+    samples = [_camera_rays_soa(cam, w, h, _F(_F(sample_base) + _F(s)),
+                                row0=row0, rows=rows)
                for s in range(spp)]
     oxs, oys, ozs, rdx, rdy, rdz = (
         torch.cat([sm[i] for sm in samples]) for i in range(6))
@@ -793,6 +812,28 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
         static, tables, material_indices, mats, oxs, oys, ozs,
         rdx, rdy, rdz, max_bounce, sun_position, sun_enabled, sun_color,
         sun_radius, max_steps, shadow_probe=shadow_probe, use_skip=use_skip)
-    color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, h * w, 3).sum(dim=0)
+    color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, rows * w, 3)
+    color = color.sum(dim=0)
     color = torch.sqrt(_div(color, spp))
-    return color.reshape(h, w, 3)
+    return color.reshape(rows, w, 3)
+
+
+def render_image(static: GridStatic, arrays, mats, camera_device,
+                 sun_position, sun_color, sun_radius, sun_enabled: bool,
+                 trace_config: TraceConfig = TraceConfig(), tables=None):
+    """Render a full frame from a host CameraDevice on the device the scene
+    `arrays` live on (zig_vulkan_tpu/ops/trace.py:1473-1484; the engine
+    calls `render_rows` directly). The records are built here
+    (`one_shot_tables`) unless `tables` brings them."""
+    d = camera_device
+    if tables is None:
+        tables = one_shot_tables(static, arrays, trace_config.empty_skip)
+    return render_rows(
+        static, tables, arrays.material_indices, mats,
+        camera_vectors(d, tables.device),
+        int(d.image_width), int(d.image_height),
+        int(d.samples_per_pixel), int(d.max_bounce),
+        sun_position, sun_color, sun_radius, sun_enabled,
+        max_steps=trace_config.max_steps,
+        shadow_probe=bool(trace_config.sun_in_kernel),
+        use_skip=trace_config.empty_skip)
