@@ -65,25 +65,35 @@ non-zero if any phase fails:
     image to 1280x720 and at equal size, bit for bit; (b) the default
     frame's configuration through `build_sharded_step` over 1, 2 and 4
     shards of the card, each equal bit for bit to `render_image` +
-    `postprocess`, launches per shard, and the step's time beside the
-    unsharded frame's, in turns; (c) `dryrun_multichip(4)`; (d) where there
+    `postprocess`, launches per shard, the 4-shard step's kernel launches
+    (a band's lanes each) bit for bit against their plain versions, and
+    the step's time beside the unsharded frame's, in turns; (c)
+    `dryrun_multichip(4)`; (d) where there
     is more than one card, (b) over the distinct cards;
 16. BASELINE config 5 (benchmarks/configs.py:179-252): a 1024x256x1024-voxel
     terrain streamed into an empty engine, the exact distance field and the
     records built once, then 3840x2160 frames (1 spp, one level, no sun, no
     denoiser) through the sharded step over every card and over 4 shards of
-    the first card; each equal to the unsharded `render_image` bit for bit;
-    kernel A on the whole 8,294,400-ray wavefront against its plain
-    version on every field, with its time and bound;
+    the first card; each equal to the unsharded `render_image` bit for bit,
+    with its device ms between events, wall ms and device-busy ms (a
+    `torch.profiler` trace) and the idle share they give; the kernel A and
+    kernel B launches of the unsharded frame (8,294,400 lanes) and of the
+    4-shard step (2,073,600 lanes a shard), captured and held bit for bit
+    against their plain versions; kernel A and kernel B on the whole frame
+    with their times, plain times and bounds;
 17. BASELINE configs 1, 2 and 4 (benchmarks/configs.py:81-114, :151-176) at
     full width: ms a frame and Mray/s over 4 frames, launches per frame,
-    each frame's shape, range and finiteness; for config 4 the
-    accumulated frame moves, and from a pose that looks at the emissive
-    block its lanes hit it.
+    each frame's shape, range and finiteness, and every kernel launch of
+    one more frame of each (config 1's 1.0 cells, config 2's shadow
+    launch, config 4's keyed bounces) captured and held bit for bit
+    against its plain version; for config 4 the accumulated frame moves,
+    and from a pose that looks at the emissive block its lanes hit it
+    (those launches held against their plain versions too).
 
 The line before the last is a JSON object with one entry per kernel build
-(its launches, launches per frame, time, plain time, bound, share of the
-bound and, for kernel B, `index_select`'s time); the last line is
+(its launches and launches per frame as counted in this run, time, plain
+time, bound, share of the bound and, for kernel B, `index_select`'s
+time); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -135,7 +145,6 @@ FRAME_REPS = 10            # timed replays of each captured frame launch
 HALO_BANDS = (1, 2, 4, 8)  # phase 15a
 MESH_SIZES = (1, 2, 4)     # shards of one card, phase 15b
 MESH_FRAMES = 6            # timed steps per mesh size and round (2 rounds)
-THREAD_FRAMES = 3          # the same for the thread-a-shard scheme (slow)
 CONFIG_FRAMES = 4          # timed frames of configs 1, 2 and 4
 CONFIG5_FRAMES = 3         # benchmarks/configs.py:179
 EMISSIVE = 40              # config 4's emissive material index
@@ -286,18 +295,34 @@ def a_bound(n, out, n_step, **flags):
     return dict(bound_ms=ms, bound_by=by)
 
 
-def compare_exact(name, got, want, keys):
-    """A kernel build against its plain version, bit for bit."""
+def mismatches(got, want, keys):
+    """({field: lanes that differ}, the largest difference in a float
+    field, whether every field is equal bit for bit) of two results."""
     import torch
 
-    bad = {k: int((got[k] != want[k]).sum()) for k in keys}
+    bad, err = {}, 0.0
+    for k in keys:
+        differs = got[k] != want[k]
+        bad[k] = int(differs.sum())
+        if bad[k] and got[k].is_floating_point():
+            err = max(err, (got[k][differs] - want[k][differs])
+                      .abs().max().item())
+    same = not any(bad.values()) and all(torch.equal(got[k], want[k])
+                                         for k in keys)
+    return bad, err, same
+
+
+def compare_exact(name, got, want, keys):
+    """A kernel build against its plain version, bit for bit. Returns the
+    largest difference found in a float field (0.0 when it passes)."""
+    bad, err, same = mismatches(got, want, keys)
     log(name, lanes=int(want["found"].numel()),
-        hits=int(want["found"].sum()),
+        hits=int(want["found"].sum()), max_abs_err=err,
         mismatches=json.dumps(bad, separators=(",", ":")))
-    if any(bad.values()) or not all(torch.equal(got[k], want[k])
-                                    for k in keys):
+    if not same:
         raise AssertionError(f"{name}: the kernel disagrees with its plain "
                              f"version")
+    return err
 
 
 def edit_flythrough(dev, scene, res, frames):
@@ -474,11 +499,12 @@ def edit_flythrough(dev, scene, res, frames):
         f"p99 {steps_after[1]:.0f}", stats_launches=stats_launches,
         max_steps=max_steps, warp_use_share_before=f"{warp_share(before):.4f}",
         warp_use_share_after=f"{warp_share(after):.4f}")
-    compare_exact("stats build", after, hit(prim, on, plain=True, stats=True),
-                  ("found", "t", "index", "n_step"))
+    stats_err = compare_exact("stats build", after,
+                              hit(prim, on, plain=True, stats=True),
+                              ("found", "t", "index", "n_step"))
     want_p = hit(prim, on, plain=True)
-    compare_exact("sprayed primary", hit(prim, on), want_p,
-                  tuple(want_p))
+    sprayed_err = compare_exact("sprayed primary", hit(prim, on), want_p,
+                                tuple(want_p))
     brng = np.random.default_rng(1)
     d = torch.from_numpy(brng.standard_normal((w * h, 3)).astype(
         np.float32)).to(dev)
@@ -489,7 +515,8 @@ def edit_flythrough(dev, scene, res, frames):
               *(d[:, i].contiguous() for i in range(3)))
     live = want_p["found"].contiguous()
     want_b = hit(bounce, live, plain=True)
-    compare_exact("sprayed bounce", hit(bounce, live), want_b, tuple(want_b))
+    sprayed_err = max(sprayed_err, compare_exact(
+        "sprayed bounce", hit(bounce, live), want_b, tuple(want_b)))
     sprayed_ms = cuda_ms(lambda: hit(prim, on), reps=5)
     sprayed_plain_ms = cuda_ms(lambda: hit(prim, on, plain=True), reps=1)
     stats_ms = cuda_ms(lambda: hit(prim, on, stats=True), reps=5)
@@ -501,10 +528,16 @@ def edit_flythrough(dev, scene, res, frames):
         stats_build_ms=f"{stats_ms:.3f}", stats_plain_ms=f"{stats_plain_ms:.1f}")
     n = w * h
     return dict(
-        sprayed=dict(launches=launches["A"], max_abs_err=0.0, ms=sprayed_ms,
+        sprayed=dict(launches=launches["A"],
+                     launches_per_frame=launches["A"] / frames,
+                     max_abs_err=sprayed_err, ms=sprayed_ms,
                      plain_ms=sprayed_plain_ms,
                      **a_bound(n, after, after["n_step"])),
-        stats=dict(launches=stats_launches, max_abs_err=0.0, ms=stats_ms,
+        stats=dict(launches=stats_launches,
+                   # no frame runs it: the frames' launches of other builds
+                   launches_per_frame=(launches["A_all"] - launches["A"])
+                   / frames,
+                   max_abs_err=stats_err, ms=stats_ms,
                    plain_ms=stats_plain_ms,
                    **a_bound(n, after, after["n_step"], stats=True)),
         engine=rt)
@@ -584,12 +617,10 @@ def sharded_default_frame(rt, devices, label, sizes):
     through `build_sharded_step` over meshes of `devices[:n]` for n in
     `sizes`. Each image is held to the unsharded `render_image` +
     `postprocess` bit for bit, each step's launches are counted, and the
-    steps are timed in turns with the unsharded frame: the shards run in
-    turn on this thread (the package's way) and, for more than one shard,
-    each on a thread of its own. Returns the kernel launches
-    counted over the timed steps."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    steps are timed in turns with the unsharded frame. The largest mesh's
+    launches are also held against their plain versions. Returns the
+    kernel launches counted over the timed steps, with the launches a
+    shard of one step as counted ("per_shard")."""
     import torch
 
     from zig_vulkan_tpu_torch.ops import denoise, trace
@@ -610,57 +641,58 @@ def sharded_default_frame(rt, devices, label, sizes):
 
     want = unsharded()
     runs = {"unsharded": unsharded}
-    with ThreadPoolExecutor(max_workers=max(sizes)) as pool:
-        for n in sizes:
-            m = pmesh.make_mesh(devices[:n])
-            arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
-            tables = pmesh.map_replicas(
-                m, lambda a: trace.build_trace_tables(
-                    st, a, trace.distance_field(st, a, exact=True)),
-                arrays_r)
-            for threads in ((False,) if n == 1 else (False, True)):
-                step = pmesh.build_sharded_step(
-                    m, st, width=iw, height=ih,
-                    spp=int(d.samples_per_pixel), max_bounce=levels,
-                    sun_enabled=bool(sun.enabled), out_width=ow,
-                    out_height=oh, denoiser=rt.denoiser,
-                    trace_config=rt.trace_config,
-                    dispatch=pool.map if threads else map)
+    per_shard = None
+    for n in sizes:
+        m = pmesh.make_mesh(devices[:n])
+        arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+        tables = pmesh.map_replicas(
+            m, lambda a: trace.build_trace_tables(
+                st, a, trace.distance_field(st, a, exact=True)),
+            arrays_r)
+        step = pmesh.build_sharded_step(
+            m, st, width=iw, height=ih, spp=int(d.samples_per_pixel),
+            max_bounce=levels, sun_enabled=bool(sun.enabled), out_width=ow,
+            out_height=oh, denoiser=rt.denoiser,
+            trace_config=rt.trace_config)
 
-                def run(step=step, arrays_r=arrays_r, mats_r=mats_r,
-                        tables=tables):
-                    return step(arrays_r, mats_r, cam, sun.position,
-                                sun.color, sun.radius, tables=tables)
+        def run(step=step, arrays_r=arrays_r, mats_r=mats_r, tables=tables):
+            return step(arrays_r, mats_r, cam, sun.position, sun.color,
+                        sun.radius, tables=tables)
 
-                reset_counts()
-                got = run()
-                torch.cuda.synchronize()
-                counts = read_counts()
-                same = bool(torch.equal(got, want))
-                name = f"x{n}{' threads' if threads else ''}"
-                log("mesh", mesh=label, shards=n, threads=threads,
-                    replicas=len(m.distinct), equals_unsharded=same,
-                    launches_A=counts["A"], launches_B=counts["B"],
-                    per_shard=f"{counts['A'] // n} A + {counts['B'] // n} B",
-                    shape=list(got.shape), device=str(got.device))
-                per = levels * frame_launches_per_level(rt)
-                if not same or got.device != want.device:
-                    raise AssertionError(f"the {n}-shard frame differs from "
-                                         f"the unsharded one")
-                if counts != {"A": per * n, "A_all": per * n,
-                              "B": levels * n}:
-                    raise AssertionError(f"expected {per} A and {levels} B "
-                                         f"launches a shard, got {counts}")
-                runs[name] = run
-        # timed in turns, forward then backward: host-bound times drift
         reset_counts()
-        times = {name: [] for name in runs}
-        for order in (list(runs), list(runs)[::-1]):
-            for name in order:
-                times[name] += step_times(
-                    runs[name], THREAD_FRAMES if "threads" in name
-                    else MESH_FRAMES)
+        got = run()
+        torch.cuda.synchronize()
         counts = read_counts()
+        same = bool(torch.equal(got, want))
+        shard = {k: counts[k] / n for k in ("A", "B")}
+        log("mesh", mesh=label, shards=n, replicas=len(m.distinct),
+            equals_unsharded=same, launches_A=counts["A"],
+            launches_B=counts["B"],
+            per_shard=f"{shard['A']} A + {shard['B']} B",
+            shape=list(got.shape), device=str(got.device))
+        per = levels * frame_launches_per_level(rt)
+        if not same or got.device != want.device:
+            raise AssertionError(f"the {n}-shard frame differs from the "
+                                 f"unsharded one")
+        if counts != {"A": per * n, "A_all": per * n, "B": levels * n}:
+            raise AssertionError(f"expected {per} A and {levels} B launches "
+                                 f"a shard, got {counts}")
+        if per_shard not in (None, shard):
+            raise AssertionError(f"launches a shard vary with the mesh: "
+                                 f"{per_shard}, {shard}")
+        per_shard = shard
+        runs[f"x{n}"] = run
+    # the bands' launches (a band's lanes, each shard's replica) against
+    # their plain versions
+    check_frame_launches(f"mesh {label} x{max(sizes)}", run,
+                         per * max(sizes), levels * max(sizes))
+    # timed in turns, forward then backward: host-bound times drift
+    reset_counts()
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            times[name] += step_times(runs[name], MESH_FRAMES)
+    counts = dict(read_counts(), per_shard=per_shard)
     for name, t in times.items():
         dev_ms, wall_ms = zip(*t)
         log("mesh", mesh=label, step=name, frames=len(t),
@@ -692,7 +724,8 @@ def mesh_phase(dev, rt):
     if cards > 1:
         many = sharded_default_frame(
             rt, list(pmesh.make_mesh().devices), f"{cards} cards", (cards,))
-        counts = {k: counts[k] + many[k] for k in counts}
+        counts = dict({k: counts[k] + many[k] for k in ("A", "A_all", "B")},
+                      per_shard=counts["per_shard"])
     return counts
 
 
@@ -707,8 +740,9 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
     from zig_vulkan_tpu_torch.core.materials import terrain_materials
     from zig_vulkan_tpu_torch.engine.engine import VoxelRT
     from zig_vulkan_tpu_torch.io import streaming
-    from zig_vulkan_tpu_torch.ops import tile_tracer, trace
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
     from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+    from zig_vulkan_tpu_torch.utils import roofline
 
     dims = (max(8, int(256 * scale)), max(4, int(64 * scale)),
             max(8, int(256 * scale)))
@@ -746,9 +780,29 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
     cam = trace.camera_vectors(d, dev)
     zeros3, ones3 = np.zeros(3, np.float32), np.ones(3, np.float32)
     one = np.float32(1.0)
-    want = trace.render_image(st, rt.arrays, rt.mats, d, zeros3, ones3, one,
-                              False, TraceConfig(), tables=tables)
+
+    def unsharded():
+        return trace.render_image(st, rt.arrays, rt.mats, d, zeros3, ones3,
+                                  one, False, TraceConfig(), tables=tables)
+
+    # the whole frame's launches (one lane a pixel) against their plain
+    # versions, then counted and timed as the sharded steps are
+    want, err, _, b_inputs = check_frame_launches(
+        "config 5 unsharded", unsharded, 1, 1)
     torch.cuda.synchronize()
+    reset_counts()
+    whole_ms = step_times(unsharded, frames)
+    whole = read_counts()
+    busy_ms, busy_events = device_busy_ms(unsharded, frames)
+    dev_ms, wall_ms = (float(np.median(v)) for v in zip(*whole_ms))
+    log("config 5", step="unsharded render_image", frames=frames,
+        median_device_ms=f"{dev_ms:.3f}", median_wall_ms=f"{wall_ms:.3f}",
+        device_busy_ms=f"{busy_ms:.3f}", device_events=busy_events,
+        idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+        launches_A=whole["A"], launches_B=whole["B"])
+    if whole != {"A": frames + 1, "A_all": frames + 1, "B": frames + 1}:
+        raise AssertionError(f"expected one A and one B launch a frame, got "
+                             f"{whole}")
     host = want.cpu().numpy()
     colours = len(np.unique((host[::8, ::8] * 255).astype(np.uint8)
                             .reshape(-1, 3), axis=0))
@@ -765,6 +819,7 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
     meshes = [(f"{cards.size} card(s)", cards),
               ("4 shards of one card", pmesh.make_mesh([first] * 4))]
     total = {"A": 0, "A_all": 0, "B": 0}
+    per_shard = None
     for label, m in meshes:
         step = pmesh.build_sharded_step(
             m, st, width=w, height=h, spp=1, max_bounce=1, sun_enabled=False,
@@ -786,23 +841,42 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
             got = run()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / frames
+        # and each step between events of its own, ending in a synchronize
+        dev_ms, wall_ms = (float(np.median(v))
+                           for v in zip(*step_times(run, frames)))
         counts = read_counts()
+        steps = 2 * frames + 1
+        busy_ms, busy_events = device_busy_ms(run, frames)
+        shard = {k: counts[k] / (m.size * steps) for k in ("A", "B")}
         total = {k: total[k] + counts[k] for k in total}
         log("config 5", mesh=label, shards=m.size, replicas=len(m.distinct),
             resolution=f"{w}x{h}", frames=frames,
             ms_per_frame=f"{dt * 1e3:.3f}",
             mrays_per_s=f"{w * h / dt / 1e6:.1f}",
+            median_device_ms=f"{dev_ms:.3f}", median_wall_ms=f"{wall_ms:.3f}",
+            device_busy_ms=f"{busy_ms:.3f}", device_events=busy_events,
+            idle_share=f"{1 - busy_ms / wall_ms:.4f}",
             launches_A=counts["A"], launches_B=counts["B"],
+            per_shard_per_step=f"{shard['A']} A + {shard['B']} B",
             equals_unsharded=same,
             peak_bytes=torch.cuda.max_memory_allocated())
         if not same or not torch.equal(got, want):
             raise AssertionError(f"config 5 over {label} differs from the "
                                  f"unsharded frame")
-        if counts != {"A": m.size * frames, "A_all": m.size * frames,
-                      "B": m.size * frames}:
+        if counts != {"A": m.size * steps, "A_all": m.size * steps,
+                      "B": m.size * steps}:
             raise AssertionError(f"expected one A and one B launch a shard "
-                                 f"a frame, got {counts}")
-        del arrays_r, mats_r, tables_r, step
+                                 f"a step, got {counts}")
+        if per_shard not in (None, shard):
+            raise AssertionError(f"launches a shard vary with the mesh: "
+                                 f"{per_shard}, {shard}")
+        per_shard = shard
+    # the last mesh's launches (a band of rows a shard) against their plain
+    # versions
+    _, band_err, _, _ = check_frame_launches(f"config 5 {label}", run,
+                                             m.size, m.size)
+    err = max(err, band_err)
+    del arrays_r, mats_r, tables_r, step, run
 
     # kernel A on the whole wavefront against its plain version
     r = trace._camera_rays_soa(cam, w, h, 0.0)
@@ -815,7 +889,8 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
     plain = tile_tracer.grid_hit_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    compare_exact("config 5 wavefront", got, plain, tuple(plain))
+    err = max(err, compare_exact("config 5 wavefront", got, plain,
+                                 tuple(plain)))
     counted = tile_tracer.grid_hit_tiles(*args, stats=True)
     ms = cuda_ms(lambda: tile_tracer.grid_hit_tiles(*args), reps=5)
     mean, p99 = step_stats(counted["n_step"])
@@ -827,8 +902,36 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
         warp_use_share=f"{warp_share(counted):.4f}",
         mrays_per_s=f"{w * h / ms / 1e3:.1f}",
         peak_bytes=torch.cuda.max_memory_allocated())
-    return dict(launches=total["A"], max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, launches_B=total["B"], **bound)
+    # kernel B on the whole frame's material indices
+    mats, idx = b_inputs[0]
+    nb = int(idx.numel())
+    b_ms = cuda_ms(lambda: lookup.table_lookup(mats, idx), reps=10)
+    b_plain_ms = cuda_ms(lambda: lookup._table_lookup_plain(mats, idx),
+                         reps=5)
+    b_lib_ms = cuda_ms(lambda: torch.index_select(mats, 1, idx), reps=10)
+    b_bound, b_by = roofline.bound_ms(roofline.lookup_bytes(nb, *mats.shape))
+    b_got = torch.stack(lookup.table_lookup(mats, idx))
+    b_err = (b_got - lookup._table_lookup_plain(mats, idx)).abs().max().item()
+    log("config 5", kernel_b_lanes=nb, tables=list(mats.shape),
+        kernel_b_ms=f"{b_ms:.4f}", plain_ms=f"{b_plain_ms:.4f}",
+        index_select_ms=f"{b_lib_ms:.4f}", bound_ms=f"{b_bound:.4f}",
+        bound_by=b_by, max_abs_err=b_err)
+    if b_err != 0.0:
+        raise AssertionError("kernel B differs from its plain version on "
+                             "config 5's frame")
+    # launches: the whole-frame launches the main path made (the unsharded
+    # frames: the shape that is timed here); the sharded steps' launches
+    # stand beside them, in all and a shard a step, as counted
+
+    def row(k, **measured):
+        return dict(lanes=w * h, launches=whole[k],
+                    launches_sharded_steps=total[k],
+                    launches_per_shard_per_step=per_shard[k], **measured)
+
+    return dict(
+        A=row("A", max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound),
+        B=row("B", max_abs_err=b_err, ms=b_ms, plain_ms=b_plain_ms,
+              bound_ms=b_bound, bound_by=b_by, library_ms=b_lib_ms))
 
 
 def baseline_engine(dev, number, scene, scale=1.0):
@@ -892,35 +995,17 @@ def baseline_engine(dev, number, scene, scale=1.0):
     return rt
 
 
-def emissive_lanes(rt):
-    """One frame of `rt`: per kernel A launch, the lanes that hit an
-    emissive voxel (the scatter launches are the even ones)."""
-    from zig_vulkan_tpu_torch.ops import tile_tracer
-
-    real = tile_tracer.grid_hit_tiles
-    seen = []
-
-    def counting(*args, **kw):
-        out = real(*args, **kw)
-        seen.append(int((out["found"] & (out["index"] == EMISSIVE)).sum()))
-        return out
-
-    counting.__dict__ = real.__dict__
-    tile_tracer.grid_hit_tiles = counting
-    try:
-        rt.render()
-    finally:
-        tile_tracer.grid_hit_tiles = real
-    return seen
-
-
 def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
     """Phase 17: BASELINE configs 1, 2 and 4 at full width, timed as
     benchmarks/configs.py:_timed_frames times them (a synced warm-up, the
-    frames chained, one sync). Returns the kernel launches counted."""
+    frames chained, one sync); then one more frame of each has its kernel
+    launches held against their plain versions. Returns the kernel launches
+    counted, with the launches a frame of each config ("per_frame") and the
+    largest difference from a plain version ("max_abs_err")."""
     import torch
 
     total = {"A": 0, "A_all": 0, "B": 0}
+    per_frame, err = {}, 0.0
     for number in (1, 2, 4):
         t0 = time.perf_counter()
         rt = baseline_engine(dev, number, scene, scale)
@@ -938,6 +1023,7 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
         dt = (time.perf_counter() - t0) / frames
         counts = read_counts()
         total = {k: total[k] + counts[k] for k in total}
+        per_frame[number] = {k: counts[k] / frames for k in ("A", "B")}
         w, h = rt.internal_resolution
         d = rt.camera.d_camera
         spp, levels = int(d.samples_per_pixel), int(d.max_bounce)
@@ -951,8 +1037,8 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
             max_steps=rt.trace_config.max_steps, frames=frames,
             ms_per_frame=f"{dt * 1e3:.3f}",
             mrays_per_s=f"{w * h * spp / dt / 1e6:.1f}",
-            launches_A_per_frame=counts["A"] / frames,
-            launches_B_per_frame=counts["B"] / frames,
+            launches_A_per_frame=per_frame[number]["A"],
+            launches_B_per_frame=per_frame[number]["B"],
             shape=list(img.shape), min=float(img.min()),
             max=float(img.max()), finite=bool(np.isfinite(img).all()),
             setup_seconds=f"{setup_s:.2f}",
@@ -965,10 +1051,16 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
                       "B": levels * frames}:
             raise AssertionError(f"config {number}: expected {per} A and "
                                  f"{levels} B launches a frame, got {counts}")
+        moved = (image - first).abs().mean().item()
+        # one more frame, its launches against their plain versions
+        _, e, rows, _ = check_frame_launches(f"config {number}", rt.render,
+                                             per, levels)
+        err = max(err, e)
+        log(f"config {number}", frame_launches=json.dumps(
+            rows, separators=(",", ":")))
         if number != 4:
             continue
-        moved = (image - first).abs().mean().item()
-        seen = emissive_lanes(rt)
+        seen = [r["emissive"] for r in rows]
         log("config 4", accum_count=rt._accum_count,
             mean_abs_accumulated_minus_first=f"{moved:.3e}",
             emissive_lanes_per_launch=seen)
@@ -987,7 +1079,12 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
         rt.camera.set_origin((centre[0],
                               centre[1] + 0.2 * st.dim_y * st.scale,
                               centre[2] + 0.375 * st.dim_z * st.scale))
-        seen = emissive_lanes(rt)
+        _, e, rows, _ = check_frame_launches(
+            "config 4, the block in view", rt.render, per, levels)
+        err = max(err, e)
+        seen = [r["emissive"] for r in rows]
+        log("config 4", pose="the block in view", frame_launches=json.dumps(
+            rows, separators=(",", ":")))
         view = rt.render()
         torch.cuda.synchronize()
         red = float(view[..., 0].max())
@@ -1001,7 +1098,7 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
                 or rt._accum_count != 2 or not torch.isfinite(view).all()):
             raise AssertionError("config 4: the emissive block is not in "
                                  "the frame that looks at it")
-    return total
+    return dict(total, per_frame=per_frame, max_abs_err=err)
 
 
 def shadow_probe(rt, rays, active, key):
@@ -1027,15 +1124,16 @@ def shadow_probe(rt, rays, active, key):
             "nz")
     tg = trace.sun_targets(rays[3], rays[4], rays[5], sun.position, radius)
     want = hit(rays, active, plain=True, shadow_targets=tg)
-    compare_exact("shadow build primary", hit(rays, active, shadow_targets=tg),
-                  want, keys)
+    err = compare_exact("shadow build primary",
+                        hit(rays, active, shadow_targets=tg), want, keys)
     occ_share = want["occluded"][want["found"]].float().mean().item()
     krays, kactive, kkey = key
     ktg = trace.sun_targets(krays[3], krays[4], krays[5], sun.position, radius)
-    compare_exact("shadow build keyed bounce",
-                  hit(krays, kactive, ray_key=kkey, shadow_targets=ktg),
-                  hit(krays, kactive, plain=True, ray_key=kkey,
-                      shadow_targets=ktg), keys)
+    err = max(err, compare_exact(
+        "shadow build keyed bounce",
+        hit(krays, kactive, ray_key=kkey, shadow_targets=ktg),
+        hit(krays, kactive, plain=True, ray_key=kkey, shadow_targets=ktg),
+        keys))
     first = hit(rays, active, shadow_targets=tg, stats=True)
     bound = a_bound(int(active.numel()), first, first["n_step"], shadow=True)
     ms = cuda_ms(lambda: hit(rays, active, shadow_targets=tg), reps=5)
@@ -1084,8 +1182,9 @@ def shadow_probe(rt, rays, active, key):
             or counts[False]["default"] != 6 * f or counts[False]["shadow"]
             or counts[True]["B"] != 3 * f):
         raise AssertionError(f"unexpected launch counts {counts}")
-    return dict(launches=counts[True]["shadow"], max_abs_err=0.0, ms=ms,
-                **bound,
+    return dict(launches=counts[True]["shadow"],
+                launches_per_frame=counts[True]["shadow"] / f,
+                max_abs_err=err, ms=ms, **bound,
                 plain_ms=plain_ms)
 
 
@@ -1212,6 +1311,93 @@ def capturing(module, name, store, keep=()):
         yield
     finally:
         setattr(module, name, real)
+
+
+HIT_KEYS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
+
+
+def check_frame_launches(label, frame, want_a, want_b):
+    """One call of `frame()` with its launches of kernels A and B captured;
+    each launch is then replayed on its own inputs, on its own device, and
+    held bit for bit against its plain version (kernel B also against
+    `torch.index_select`). `want_a` and `want_b` are the launches the frame
+    must make. The replays move the launch counts: call it outside a
+    counted run. Returns (the frame, the largest difference found, one
+    dict per kernel A launch, the captured kernel B inputs)."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+
+    cap_a, cap_b = [], []
+    with capturing(tile_tracer, "grid_hit_tiles", cap_a, keep=(0, 1, 2)), \
+            capturing(trace, "table_lookup", cap_b, keep=(0,)):
+        image = frame()
+    if len(cap_a) != want_a or len(cap_b) != want_b:
+        raise AssertionError(f"{label}: captured {len(cap_a)} A and "
+                             f"{len(cap_b)} B launches, expected {want_a} "
+                             f"and {want_b}")
+    err, rows, differ = 0.0, [], []
+    for i, (args, kw) in enumerate(cap_a):
+        keys = HIT_KEYS + (("occluded",) if kw.get("shadow_targets") else ())
+        got = tile_tracer.grid_hit_tiles(*args, **kw)
+        bad, e, same = mismatches(
+            got, tile_tracer.grid_hit_plain(*args, **kw), keys)
+        err = max(err, e)
+        if not same:
+            differ.append({f"A launch {i}": bad})
+        rows.append(dict(
+            lanes=int(args[9].numel()), active=int(args[9].sum()),
+            keyed=kw.get("ray_key") is not None, device=str(args[9].device),
+            hits=int(got["found"].sum()),
+            emissive=int((got["found"] & (got["index"] == EMISSIVE)).sum())))
+    for i, (args, kw) in enumerate(cap_b):
+        mats, idx = args
+        got = torch.stack(lookup.table_lookup(mats, idx))
+        plain = lookup._table_lookup_plain(mats, idx)
+        err = max(err, (got - plain).abs().max().item())
+        if not (torch.equal(got, plain)
+                and torch.equal(got, torch.index_select(mats, 1, idx))):
+            differ.append({f"B launch {i}": int((got != plain).sum())})
+    log(f"{label}: launches against plain", A=len(cap_a), B=len(cap_b),
+        lanes_A=json.dumps(sorted({r["lanes"] for r in rows})),
+        lanes_B=json.dumps(sorted({int(a[1].numel()) for a, _ in cap_b})),
+        max_abs_err=err, differ=json.dumps(differ, separators=(",", ":")))
+    if differ:
+        raise AssertionError(f"{label}: a kernel launch differs from its "
+                             f"plain version")
+    return image, err, rows, [args for args, _ in cap_b]
+
+
+def device_busy_ms(fn, frames):
+    """(device-busy ms, device events) per call of `fn`: the union of the
+    kernel, copy and memset intervals in a `torch.profiler` trace of
+    `frames` calls. The intervals are the card's own; the host runs slower
+    under the profiler, so an idle share is taken against wall time that
+    was measured without it."""
+    import torch
+
+    from zig_vulkan_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace_session(tmp):
+            for _ in range(frames):
+                fn()
+            torch.cuda.synchronize()
+        events = json.loads(Path(tmp, profiling.TRACE_FILE)
+                            .read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        raise AssertionError("the trace shows no activity on the card")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1e3 / frames, len(spans) / frames
 
 
 def frame_kernels(rt, reps: int = FRAME_REPS):
@@ -1458,6 +1644,8 @@ def oracle_parity(dev, scene, rt, poses_1080):
             torch.cuda.synchronize()
             a = tile_tracer.grid_hit_tiles
             counts["exact"] += a.build_launches["exact"]
+            if not primary:
+                path_frame_launches = a.build_launches["exact"]
             counts["other_A"] += a.launches - a.build_launches["exact"]
             counts["B"] += lookup.table_lookup.launches
             levels = int(ert.camera.d_camera.max_bounce)
@@ -1519,7 +1707,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     want = hit(poses_1080[0], hon, True, plain=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    compare_exact("NO_SKIP build 1080p pose 0", got, want, keys)
+    err = compare_exact("NO_SKIP build 1080p pose 0", got, want, keys)
     log("oracle", rays=int(hon.numel()), poses=len(poses_1080),
         no_skip_ms_per_pose=f"{exact_ms:.3f}",
         default_ms_per_pose=f"{skip_ms:.3f}",
@@ -1529,7 +1717,9 @@ def oracle_parity(dev, scene, rt, poses_1080):
         steps_per_ray_default=f"mean {steps[False][0]:.2f} "
         f"p99 {steps[False][1]:.0f}",
         no_skip_plain_ms=f"{plain_ms:.1f}")
-    return dict(launches=counts["exact"], max_abs_err=0.0, ms=exact_ms,
+    return dict(launches=counts["exact"],
+                launches_per_frame=path_frame_launches,  # a path-traced one
+                max_abs_err=err, ms=exact_ms,
                 **a_bound(int(hon.numel()), counted[True],
                           counted[True]["n_step"]),
                 plain_ms=plain_ms)
@@ -2136,49 +2326,62 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     t0 = time.perf_counter()
     config_counts = baseline_configs(dev, scene, scale)
     log("configs", phase_seconds=f"{time.perf_counter() - t0:.2f}")
-    # the default build's and kernel B's launches of phases 15-17
+    # the default build's and kernel B's launches of phases 15-17 (config
+    # 5's stand in rows of their own)
     later = {k: mesh_counts[k] + config_counts[k] for k in ("A", "B")}
-    later["B"] += big.pop("launches_B")
+    for name in ("A", "B"):
+        # phase 17 held launches of its shapes against the plain versions
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           config_counts["max_abs_err"])
+    per_frame = {k: [config_counts["per_frame"][c][k] for c in (1, 2, 4)]
+                 for k in ("A", "B")}
 
     src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
-        # launches_per_frame: of the frame that runs the build (the
+        # launches_per_frame: counted in the frame that runs the build (the
         # default frame; config 3's edit frame for the sprayed scene; a
-        # sun_in_kernel frame; none for the diagnostic stats build; an
-        # empty_skip=False frame)
+        # sun_in_kernel frame; none for the diagnostic stats build; a
+        # path-traced empty_skip=False frame)
         dict(name="traverse (kernel A, default build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
-             launches=launches["A"] + later["A"], launches_per_frame=6,
-             launches_per_sharded_frame="6 a shard",
-             launches_per_frame_configs_1_2_4=[1, 2, 8],
+             launches=launches["A"] + later["A"],
+             launches_per_frame=launches["A"] / frames,
+             launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
+                 "A"],
+             launches_per_frame_configs_1_2_4=per_frame["A"],
              frame_launch_ms=[r["ms"] for r in frame_rows["A"]],
              **results["A"]),
         dict(name="traverse (kernel A, default build on config 5's 4K "
              "wavefront)", route="cuda", source=src_a,
              replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
-             launches_per_frame="1 a shard", **big),
+             **big["A"]),
         dict(name="traverse (kernel A, default build on the sprayed scene, "
              "for the sparse_roam build)", route="cuda", source=src_a,
              replaces="zig_vulkan_tpu/ops/tile_tracer.py:595",
-             launches_per_frame=4, **edit["sprayed"]),
+             **edit["sprayed"]),
         dict(name="traverse (kernel A, shadow build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:381",
-             launches_per_frame=3, **shadow),
+             **shadow),
         dict(name="traverse (kernel A, stats build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:377",
-             launches_per_frame=0, **edit["stats"]),
+             **edit["stats"]),
         dict(name="traverse (kernel A, NO_SKIP build: the exact DDA of "
              "TraceConfig(empty_skip=False))", route="cuda", source=src_a,
              replaces="zig_vulkan_tpu/ops/trace.py:388",
-             launches_per_frame=6, **exact),
+             **exact),
         dict(name="table_lookup (kernel B)", route="cuda",
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",
-             launches=launches["B"] + later["B"], launches_per_frame=3,
-             launches_per_sharded_frame="3 a shard",
-             launches_per_frame_configs_1_2_4_5=[1, 1, 4, "1 a shard"],
+             launches=launches["B"] + later["B"],
+             launches_per_frame=launches["B"] / frames,
+             launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
+                 "B"],
+             launches_per_frame_configs_1_2_4=per_frame["B"],
              frame_launch_ms=[r["ms"] for r in frame_rows["B"]],
              **results["B"]),
+        dict(name="table_lookup (kernel B on config 5's 4K frame)",
+             route="cuda", source="zig_vulkan_tpu_torch/csrc/lookup.cu",
+             replaces="zig_vulkan_tpu/ops/lookup.py:29", **big["B"]),
     ]
     for k in kernels:
         k.setdefault("library_ms", None)  # no PyTorch call traces a DDA

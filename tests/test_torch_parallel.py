@@ -8,14 +8,18 @@ frame through a mesh, equal the unsharded frame bit for bit (the JAX test's
 atol=1e-6 is XLA fusion noise). The same holds for the denoiser on bands
 with a halo. Against the JAX reference run op by op (`jax.disable_jit`) the
 sharded frame is bit-equal once the two CPU backends' inexact square roots
-are made exact for the run: XLA:CPU's `rsqrt` is an approximation (within
-1 ULP, 29% of random inputs) also when it runs alone, and
-`zig_vulkan_tpu.ops.trace._norm3` normalizes every ray with it; torch's
-vectorized CPU `sqrt` is off by one ULP on 0.6% of random inputs (on CUDA
-it is correctly rounded). The test gives `jax.lax.rsqrt` the correctly
+are made exact for the run: XLA:CPU's `rsqrt` is an approximation also
+when it runs alone (off by one ULP on 14.7% of the 2^20 uniform inputs of
+`test_backend_square_roots_within_one_ulp`, with jax 0.9.0 and torch 2.13
+on the CPU), and `zig_vulkan_tpu.ops.trace._norm3` normalizes every ray with it; torch's
+vectorized CPU `sqrt` is off by one ULP on 0.65% of the same inputs (on
+CUDA it is correctly rounded). The test gives `jax.lax.rsqrt` the correctly
 rounded 1/sqrt(x) and `torch.sqrt` numpy's. With the backends' own
-functions the primary frame differs in the last bit of under 1% of its
-values (held to the 1e-6 of tests/test_parallel.py:34). Against the jitted
+functions, op by op, the primary and the path-traced frame differ in the
+last bit of 0.9% and 1.3% of their values and by 2^-24 at most (held to
+2^-23, `test_sharded_frame_close_to_reference_with_backend_sqrt`; the
+primary frame also to the 1e-6 of tests/test_parallel.py:34 against the
+jitted reference). Against the jitted
 reference, which also contracts multiply-adds, the frame is held to
 tests/test_parallel.py:94-124's bound: fewer than 3% of pixels further than
 1e-3.
@@ -166,6 +170,28 @@ def test_sharded_primary_frame_close_to_reference_with_backend_sqrt():
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
     np.testing.assert_allclose(got, _reference_image(jit=True, **PRIMARY),
                                atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("frame", [PRIMARY, PATH], ids=["primary", "path"])
+def test_sharded_frame_close_to_reference_with_backend_sqrt(frame):
+    """The reference as shipped, op by op, with neither package's square
+    root replaced: every value within 2^-23 (one ULP of a colour in
+    [0.5, 1), two below) of the port's sharded frame."""
+    want = _reference_image(jit=False, **frame)
+    got = Frame(**frame).sharded(8).numpy()
+    np.testing.assert_allclose(got, want, atol=2.0 ** -23, rtol=0)
+
+
+def test_backend_square_roots_within_one_ulp():
+    """The two functions the bit-equality tests replace are each within one
+    ULP of the correctly rounded result (and not always equal to it, which
+    is why those tests replace them)."""
+    x = np.random.default_rng(0).random(1 << 20, dtype=np.float32) * 100 + 1e-3
+    exact = (1.0 / np.sqrt(x.astype(np.float64))).astype(np.float32)
+    got = np.asarray(jax.lax.rsqrt(jnp.asarray(x)))
+    assert np.abs(got.view(np.int32) - exact.view(np.int32)).max() <= 1
+    got = torch.sqrt(torch.from_numpy(x)).numpy()
+    assert np.abs(got.view(np.int32) - np.sqrt(x).view(np.int32)).max() <= 1
 
 
 def test_sharded_render_with_denoise_and_upscale():

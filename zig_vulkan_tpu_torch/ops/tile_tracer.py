@@ -34,8 +34,6 @@ For tensors on the CPU the wrapper runs the plain torch version,
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from .. import _build
@@ -132,7 +130,6 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
 # kernel is launched
 grid_hit_tiles.launches = 0
 grid_hit_tiles.build_launches = dict.fromkeys(_BUILDS, 0)
-_COUNT_LOCK = threading.Lock()  # shards may launch from several threads
 
 
 def reset_launch_counts() -> None:
@@ -215,8 +212,6 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
             *(out[name].data_ptr() for name in _OUT_FIELDS),
             ptr(out.get("occluded")), ptr(out.get("n_step")), stream)
     _build.check(status, "zvt_traverse")
-    with _COUNT_LOCK:
-        grid_hit_tiles.launches += 1
-        grid_hit_tiles.build_launches[_build_name(shadow, stats,
-                                                  use_skip)] += 1
+    grid_hit_tiles.launches += 1
+    grid_hit_tiles.build_launches[_build_name(shadow, stats, use_skip)] += 1
     return out

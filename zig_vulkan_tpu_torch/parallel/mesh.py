@@ -138,8 +138,7 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
                        out_width: Optional[int] = None,
                        out_height: Optional[int] = None,
                        denoiser: DenoiserConfig = DenoiserConfig(),
-                       trace_config: TraceConfig = TraceConfig(),
-                       dispatch=map):
+                       trace_config: TraceConfig = TraceConfig()):
     """Build a multi-device render step.
 
     Returns step(arrays_r, mats_r, cam, sun_position, sun_color, sun_radius,
@@ -156,12 +155,7 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
     for bit. `trace_config.max_steps`, `empty_skip` and `sun_in_kernel` act
     as in the engine. The JAX step's `use_pallas`, `tile_interpret`,
     `region_blocks` and `degraded` select among TPU kernel builds and
-    serves; kernel A has one build for all of them, so they are left out.
-
-    `dispatch(fn, shards)` calls `fn` for every shard and yields the
-    results in order: `map` runs the shards in turn on the calling thread; a
-    thread pool's `map` runs each on a thread of its own (measured, and
-    slower on one card: PERF.md)."""
+    serves; kernel A has one build for all of them, so they are left out."""
     n = mesh.size
     if height % n != 0:
         raise ValueError(f"internal height {height} must divide the mesh "
@@ -230,8 +224,8 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
 
         # every band is traced (its event recorded) before any shard reads
         # its neighbours' rows
-        traced, traced_at = zip(*dispatch(trace_shard, range(n)))
-        bands, done_at = zip(*dispatch(post_shard, range(n)))
+        traced, traced_at = zip(*map(trace_shard, range(n)))
+        bands, done_at = zip(*map(post_shard, range(n)))
         for i, dev in enumerate(mesh.devices):
             if streams[i] is not None:
                 callers[dev].wait_event(done_at[i])
