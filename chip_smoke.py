@@ -29,8 +29,9 @@ non-zero if any phase fails:
    `torch.index_select` time;
 7. headline analogue: 1920x1080 primary rays through kernel A over the
    fly-through path's points (three passes), in Mray/s;
-8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148):
-   1920x1080, 1 spp, max_bounce 1, animated sun, no denoiser, max_steps
+8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148,
+   built by `zig_vulkan_tpu_torch.benchmarks.configs`, as phases 16 and 17
+   are): 1920x1080, 1 spp, max_bounce 1, animated sun, no denoiser, max_steps
    160, 512 random voxels inserted (even frames) or removed (odd frames)
    on the device every frame, on a fresh copy of the default scene; frame,
    insert and remove times, the degraded fraction, peak memory and kernel
@@ -42,8 +43,10 @@ non-zero if any phase fails:
    version, and default frames with `sun_in_kernel` on and off;
 10. temporal accumulation: five frames of a static pose, then
     `set_resolutions`;
-11. the fly-through harness: `run_benchmark(fixed_dt=0.5)` prints the
-    reference's report;
+11. the whole fly-through: `benchmarks.flythrough.fly` flies all 120
+    frames of the 60 s path at the default workload and prints the
+    reference's report; its min, max and average frame time and frame
+    count, 6 A and 3 B launches a frame;
 12. oracle parity on the card: 24x24 subsampled 1080p rays from three
     fly-through poses of the default scene through kernel A's NO_SKIP build
     (the exact DDA, `TraceConfig(empty_skip=False)`) against the port's
@@ -82,13 +85,23 @@ non-zero if any phase fails:
     against their plain versions; kernel A and kernel B on the whole frame
     with their times, plain times and bounds;
 17. BASELINE configs 1, 2 and 4 (benchmarks/configs.py:81-114, :151-176) at
-    full width: ms a frame and Mray/s over 4 frames, launches per frame,
+    full width: ms a frame and Mray/s over the source's 8 / 6 / 6 frames
+    (`benchmarks.configs._timed_frames`), launches per frame,
     each frame's shape, range and finiteness, and every kernel launch of
     one more frame of each (config 1's 1.0 cells, config 2's shadow
     launch, config 4's keyed bounces) captured and held bit for bit
     against its plain version; for config 4 the accumulated frame moves,
     and from a pose that looks at the emissive block its lanes hit it
-    (those launches held against their plain versions too).
+    (those launches held against their plain versions too);
+18. the headline bench: `benchmarks.bench.main` in this process prints its
+    JSON line (primary Mray/s over 10 poses at 1920x1080, rays made and
+    traced, one kernel A launch a pose; parity with the numpy oracle on
+    48x48 subsampled rays, at least 0.995; the default frame's ms over 12
+    chained frames);
+19. the entry module: `entry.entry()`'s render step (64x48, two levels, the
+    denoiser) on the card against the same step on the CPU, where the
+    kernels' plain versions run (no pixel differs by 1e-5); its 4 A and 2 B
+    launches, each against its plain version bit for bit.
 
 The line before the last is a JSON object with one entry per kernel build
 (its launches and launches per frame as counted in this run, time, plain
@@ -118,11 +131,11 @@ FRAMES = 10
 HEADLINE_POSES = 10
 HEADLINE_PASSES = 3  # passes over the poses: one pass is too short to time
 EDIT_FRAMES = 8      # timed frames of phase 8: 4 insert and 4 remove batches
-EDIT_VOXELS = 512    # voxels per batch (benchmarks/configs.py:132)
 PROBE_FRAMES = 3     # timed default frames per group in phase 9 (2 groups
                      # per variant)
 TEMPORAL_FRAMES = 5
-BENCH_FRAMES = 12
+FLY_DT = 0.5         # phase 11: virtual seconds a frame, 120 frames of 60 s
+BENCH_POSES = 10     # phase 18: the bench's timed poses (its default)
 ORACLE_POSES = (0, 3, 7)   # PATH_POINTS indices (tests/test_parity_at_scale.py)
 ORACLE_SIDE = 24           # rays per pose: a 24x24 subgrid of 1080p
 RGB_POSES = (0, 3)
@@ -145,8 +158,6 @@ FRAME_REPS = 10            # timed replays of each captured frame launch
 HALO_BANDS = (1, 2, 4, 8)  # phase 15a
 MESH_SIZES = (1, 2, 4)     # shards of one card, phase 15b
 MESH_FRAMES = 6            # timed steps per mesh size and round (2 rounds)
-CONFIG_FRAMES = 4          # timed frames of configs 1, 2 and 4
-CONFIG5_FRAMES = 3         # benchmarks/configs.py:179
 EMISSIVE = 40              # config 4's emissive material index
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
 # 24-46, core/materials.py:MaterialTable)
@@ -325,50 +336,31 @@ def compare_exact(name, got, want, keys):
     return err
 
 
-def edit_flythrough(dev, scene, res, frames):
-    """Phase 8: BASELINE config 3 on a fresh device copy of `scene`."""
+def edit_flythrough(dev, scene, scale, frames):
+    """Phase 8: BASELINE config 3 (`benchmarks.configs.build_config3` and
+    its `EditStream`) on a fresh device copy of `scene`."""
     import copy
 
     import torch
 
-    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
-                                             EngineConfig, SunConfig,
-                                             TraceConfig)
+    from zig_vulkan_tpu_torch.benchmarks import configs
     from zig_vulkan_tpu_torch.core.grid import dense_materials
-    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
 
-    w, h = res
-    max_steps = 160
-    cfg = EngineConfig(
-        internal_resolution_width=w, internal_resolution_height=h,
-        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
-                            max_bounce=1),
-        sun=SunConfig(enabled=True, animate=True),
-        denoiser=DenoiserConfig(enabled=False),
-        trace=TraceConfig(max_steps=max_steps))
     host = copy.deepcopy(scene.grid)  # the host replay of every edit
-    rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
+    rt = configs.build_config3(scale, dev, scene=scene)
+    w, h = rt.internal_resolution
+    max_steps = rt.trace_config.max_steps
     st = rt.grid_static
     rt.tables()
-    bench = rt.create_benchmark(duration=60.0)
-    rng = np.random.default_rng(0)
-    vx, vy, vz = st.voxel_dims
+    edits = configs.EditStream(rt)
     replay = []
 
     def move(insert):
-        # benchmarks/configs.py:132-141, the same random stream
-        bench.update(0.016)
-        rt.update_sun(0.016)
-        n = EDIT_VOXELS
-        xyz = np.stack([rng.integers(0, vx, n), rng.integers(0, vy, n),
-                        rng.integers(0, vz, n)], axis=-1)
-        if insert:
-            mats = rng.integers(1, 8, n).astype(np.uint8)
-            replay.append((xyz, mats))
-            return lambda: rt.insert_voxels(xyz, mats)
-        replay.append((xyz, None))
-        return lambda: rt.remove_voxels(xyz)
+        # the pose and the batch of an even (insert) or odd (remove) frame
+        xyz, mats = edits.draw(0 if insert else 1)
+        replay.append((xyz, mats))
+        return lambda: edits.apply(xyz, mats)
 
     fractions = [rt.nonempty_region_fraction()]
 
@@ -729,61 +721,39 @@ def mesh_phase(dev, rt):
     return counts
 
 
-def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
-    """Phase 16: BASELINE config 5 (benchmarks/configs.py:179-252)."""
+def config5(dev, scale=1.0, frames=None):
+    """Phase 16: BASELINE config 5 (`benchmarks.configs.build_config5`)."""
+    import math
+
     import torch
 
-    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
-                                             EngineConfig, GridConfig,
-                                             SunConfig, TraceConfig)
-    from zig_vulkan_tpu_torch.core.grid import BrickGrid
-    from zig_vulkan_tpu_torch.core.materials import terrain_materials
-    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
-    from zig_vulkan_tpu_torch.io import streaming
+    from zig_vulkan_tpu_torch.benchmarks import configs
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
     from zig_vulkan_tpu_torch.parallel import mesh as pmesh
     from zig_vulkan_tpu_torch.utils import roofline
 
-    dims = (max(8, int(256 * scale)), max(4, int(64 * scale)),
-            max(8, int(256 * scale)))
-    w = max(128, int(3840 * scale))
-    h = max(32, int(2160 * scale) // 4 * 4)
+    frames = configs.DEFAULT_FRAMES[5] if frames is None else frames
+    first = pmesh.make_mesh([dev]).devices[0]
+    cards = (pmesh.make_mesh() if dev.type == "cuda"
+             else pmesh.make_mesh([dev]))
+    meshes = [(f"{cards.size} card(s)", cards),
+              ("4 shards of one card", pmesh.make_mesh([first] * 4))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    grid = BrickGrid(*dims, GridConfig(min_point=(-64, -16, -64), scale=0.5))
-    rt = VoxelRT(grid, terrain_materials(), EngineConfig(
-        internal_resolution_width=w, internal_resolution_height=h,
-        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
-                            max_bounce=0),
-        sun=SunConfig(enabled=False), denoiser=DenoiserConfig(enabled=False)),
-        device=dev)
+    # rows that divide over the cards and over 4 shards of one
+    c = configs.build_config5(scale, cards.devices,
+                              row_multiple=math.lcm(4, cards.size))
+    rt, tables, cam = c.rt, c.tables, c.cam
+    w, h, streamed = c.width, c.height, c.streamed
     st = rt.grid_static
-    t0 = time.perf_counter()
-    streamed = streaming.stream_into_engine(
-        rt, streaming.terrain_regions(grid, region_x=dims[0]))
-    torch.cuda.synchronize()
-    stream_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tables = trace.build_trace_tables(
-        st, rt.arrays, trace.distance_field(st, rt.arrays, True))
-    torch.cuda.synchronize()
-    tables_s = time.perf_counter() - t0
     log("config 5", voxels="x".join(map(str, st.voxel_dims)), cells=st.cells,
-        streamed_voxels=streamed, stream_seconds=f"{stream_s:.2f}",
-        voxels_per_s=f"{streamed / stream_s:.0f}",
+        streamed_voxels=streamed, stream_seconds=f"{c.stream_s:.2f}",
+        voxels_per_s=f"{streamed / c.stream_s:.0f}",
         active_bricks=int(rt.arrays.active_bricks),
-        exact_field_and_tables_seconds=f"{tables_s:.2f}")
+        exact_field_and_tables_seconds=f"{c.tables_s:.2f}")
     if streamed <= 0 or int(rt.arrays.active_bricks) <= 0:
         raise AssertionError("config 5 streamed no voxel")
-
-    d = rt.camera.d_camera
-    cam = trace.camera_vectors(d, dev)
-    zeros3, ones3 = np.zeros(3, np.float32), np.ones(3, np.float32)
-    one = np.float32(1.0)
-
-    def unsharded():
-        return trace.render_image(st, rt.arrays, rt.mats, d, zeros3, ones3,
-                                  one, False, TraceConfig(), tables=tables)
+    unsharded = c.unsharded
 
     # the whole frame's launches (one lane a pixel) against their plain
     # versions, then counted and timed as the sharded steps are
@@ -813,25 +783,10 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
             or host.min() < 0.0 or host.max() > 1.0 or colours <= 16):
         raise AssertionError("config 5's frame has the wrong shape or range")
 
-    first = pmesh.make_mesh([dev]).devices[0]
-    cards = (pmesh.make_mesh() if dev.type == "cuda"
-             else pmesh.make_mesh([dev]))
-    meshes = [(f"{cards.size} card(s)", cards),
-              ("4 shards of one card", pmesh.make_mesh([first] * 4))]
     total = {"A": 0, "A_all": 0, "B": 0}
     per_shard = None
     for label, m in meshes:
-        step = pmesh.build_sharded_step(
-            m, st, width=w, height=h, spp=1, max_bounce=1, sun_enabled=False,
-            denoiser=DenoiserConfig(enabled=False))
-        arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
-        tables_r = pmesh.map_replicas(
-            m, lambda a: tables.to(a.statuses.device), arrays_r)
-
-        def run():
-            return step(arrays_r, mats_r, cam, zeros3, ones3, one,
-                        tables=tables_r)
-
+        run = c.sharded_step(m.devices)
         got = run()  # warm-up, synced
         torch.cuda.synchronize()
         same = bool(torch.equal(got, want))
@@ -876,7 +831,7 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
     _, band_err, _, _ = check_frame_launches(f"config 5 {label}", run,
                                              m.size, m.size)
     err = max(err, band_err)
-    del arrays_r, mats_r, tables_r, step, run
+    del run
 
     # kernel A on the whole wavefront against its plain version
     r = trace._camera_rays_soa(cam, w, h, 0.0)
@@ -934,96 +889,41 @@ def config5(dev, scale=1.0, frames=CONFIG5_FRAMES):
               bound_ms=b_bound, bound_by=b_by, library_ms=b_lib_ms))
 
 
-def baseline_engine(dev, number, scene, scale=1.0):
-    """The engine of BASELINE config 1, 2 or 4 (benchmarks/configs.py:81-114,
-    :151-176); `scene` is the default scene (config 2 renders it)."""
-    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
-                                             EngineConfig, GridConfig,
-                                             SunConfig, TraceConfig)
-    from zig_vulkan_tpu_torch.core.grid import BrickGrid
-    from zig_vulkan_tpu_torch.core.materials import (MAT_EMISSIVE,
-                                                     terrain_materials)
-    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
-    from zig_vulkan_tpu_torch.models import scenes
-
-    if number == 1:
-        dim = max(2, int(16 * scale))
-        res = max(32, int(256 * scale))
-        grid = BrickGrid(dim, dim, dim, GridConfig(scale=1.0))
-        vx, vy, vz = grid.static.voxel_dims
-        xs, ys, zs = np.meshgrid(np.arange(vx), np.arange(vy // 2),
-                                 np.arange(vz), indexing="ij")
-        grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
-                          np.full(xs.size, 1, dtype=np.uint8))
-        return VoxelRT(grid, terrain_materials(), EngineConfig(
-            internal_resolution_width=res, internal_resolution_height=res,
-            camera=CameraConfig(origin=(dim / 2, dim * 0.9, dim * 2.5),
-                                samples_per_pixel=1, max_bounce=0),
-            sun=SunConfig(enabled=False),
-            denoiser=DenoiserConfig(enabled=False)), device=dev)
-    if number == 2:
-        w, h = max(64, int(1280 * scale)), max(36, int(720 * scale))
-        return VoxelRT(scene.grid, scene.materials, EngineConfig(
-            internal_resolution_width=w, internal_resolution_height=h,
-            camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
-                                max_bounce=0),
-            sun=SunConfig(enabled=True, animate=False),
-            denoiser=DenoiserConfig(enabled=False),
-            trace=TraceConfig(max_steps=160)), device=dev)
-    if number != 4:
-        raise ValueError(f"no engine for config {number}")
-    dims = (max(4, int(64 * scale)), max(2, int(32 * scale)),
-            max(4, int(64 * scale)))
-    w, h = max(64, int(1920 * scale)), max(36, int(1080 * scale))
-    sc = scenes.default_scene(dims=dims, with_model=False)
-    sc.materials.set(EMISSIVE, MAT_EMISSIVE, (1.0, 0.85, 0.4), 8.0)
-    vx, vy, vz = sc.grid.static.voxel_dims
-    xs, ys, zs = np.meshgrid(
-        np.arange(max(0, vx // 2 - 4), vx // 2 + 4),
-        np.arange(max(0, vy - 8), max(1, vy - 4)),
-        np.arange(max(0, vz // 2 - 4), vz // 2 + 4), indexing="ij")
-    sc.grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
-                         np.full(xs.size, EMISSIVE, dtype=np.uint8))
-    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
-        internal_resolution_width=w, internal_resolution_height=h,
-        camera=CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=2,
-                            max_bounce=3),
-        sun=SunConfig(enabled=True, animate=False),
-        denoiser=DenoiserConfig(enabled=True),
-        trace=TraceConfig(max_steps=160)), device=dev)
-    rt.set_temporal(True)
-    return rt
-
-
-def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
-    """Phase 17: BASELINE configs 1, 2 and 4 at full width, timed as
-    benchmarks/configs.py:_timed_frames times them (a synced warm-up, the
-    frames chained, one sync); then one more frame of each has its kernel
-    launches held against their plain versions. Returns the kernel launches
-    counted, with the launches a frame of each config ("per_frame") and the
-    largest difference from a plain version ("max_abs_err")."""
+def baseline_configs(dev, scene, scale=1.0, frames=None):
+    """Phase 17: BASELINE configs 1, 2 and 4 at full width, built by
+    `benchmarks.configs` and timed by its `_timed_frames` (a synced warm-up,
+    the frames chained, one sync) over the source's 8 / 6 / 6 frames (or
+    `frames` each); then one more frame of each has its kernel launches held
+    against their plain versions. Returns the kernel launches counted, with
+    the launches a frame of each config ("per_frame") and the largest
+    difference from a plain version ("max_abs_err")."""
     import torch
+
+    from zig_vulkan_tpu_torch.benchmarks import configs
 
     total = {"A": 0, "A_all": 0, "B": 0}
     per_frame, err = {}, 0.0
     for number in (1, 2, 4):
+        n_frames = configs.DEFAULT_FRAMES[number] if frames is None else frames
         t0 = time.perf_counter()
-        rt = baseline_engine(dev, number, scene, scale)
+        build = getattr(configs, f"build_config{number}")
+        # config 2 renders the default scene the caller has built
+        rt = (build(scale, dev, scene=scene) if number == 2
+              else build(scale, dev))
         rt.tables()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        first = rt.render().clone()  # warm-up, synced
+        first = rt.render().clone()  # a frame before the timed ones
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            image = rt.render()
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / frames
+        timed = configs._timed_frames(rt, n_frames)
         counts = read_counts()
+        rendered = n_frames + 1  # with _timed_frames' warm-up
+        image = rt.render()
+        torch.cuda.synchronize()
         total = {k: total[k] + counts[k] for k in total}
-        per_frame[number] = {k: counts[k] / frames for k in ("A", "B")}
+        per_frame[number] = {k: counts[k] / rendered for k in ("A", "B")}
         w, h = rt.internal_resolution
         d = rt.camera.d_camera
         spp, levels = int(d.samples_per_pixel), int(d.max_bounce)
@@ -1034,9 +934,10 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
             cell_size=rt.grid_static.scale, resolution=f"{w}x{h}", spp=spp,
             bounce_levels=levels, sun=bool(rt.sun.device_data.enabled),
             denoiser=bool(rt.denoiser.enabled), temporal=rt.temporal_enabled,
-            max_steps=rt.trace_config.max_steps, frames=frames,
-            ms_per_frame=f"{dt * 1e3:.3f}",
-            mrays_per_s=f"{w * h * spp / dt / 1e6:.1f}",
+            max_steps=rt.trace_config.max_steps, frames=n_frames,
+            ms_per_frame=f"{timed['ms_per_frame']:.3f}",
+            fps=f"{timed['fps']:.2f}",
+            mrays_per_s=f"{timed['mrays_per_s']:.1f}",
             launches_A_per_frame=per_frame[number]["A"],
             launches_B_per_frame=per_frame[number]["B"],
             shape=list(img.shape), min=float(img.min()),
@@ -1047,8 +948,8 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
         if (img.shape != (oh, ow, 3) or not np.isfinite(img).all()
                 or img.min() < 0.0 or img.max() > 1.0):
             raise AssertionError(f"config {number}: wrong shape or range")
-        if counts != {"A": per * frames, "A_all": per * frames,
-                      "B": levels * frames}:
+        if counts != {"A": per * rendered, "A_all": per * rendered,
+                      "B": levels * rendered}:
             raise AssertionError(f"config {number}: expected {per} A and "
                                  f"{levels} B launches a frame, got {counts}")
         moved = (image - first).abs().mean().item()
@@ -1064,21 +965,12 @@ def baseline_configs(dev, scene, scale=1.0, frames=CONFIG_FRAMES):
         log("config 4", accum_count=rt._accum_count,
             mean_abs_accumulated_minus_first=f"{moved:.3e}",
             emissive_lanes_per_launch=seen)
-        if rt._accum_count != frames + 2 or not moved > 0:
+        if rt._accum_count != n_frames + 4 or not moved > 0:
             raise AssertionError("config 4: the accumulated frame did not "
                                  "move")
-        # The benchmark's camera sits at the grid's corner, inside the
-        # terrain, and may see no emissive voxel. So the same engine also
-        # renders from a pose that looks at the block: in front of it (+z)
-        # and below it (world y grows downwards).
-        st = rt.grid_static
-        vs = st.voxel_scale
-        vx, vy, vz = st.voxel_dims
-        centre = (st.min_point[0] + vx // 2 * vs, st.min_point[1] + 6 * vs,
-                  st.min_point[2] + vz // 2 * vs)
-        rt.camera.set_origin((centre[0],
-                              centre[1] + 0.2 * st.dim_y * st.scale,
-                              centre[2] + 0.375 * st.dim_z * st.scale))
+        # The benchmark's camera may see no emissive voxel, so the same
+        # engine also renders from the pose that looks at the block.
+        configs.look_at_emissive_block(rt)
         _, e, rows, _ = check_frame_launches(
             "config 4, the block in view", rt.render, per, levels)
         err = max(err, e)
@@ -1219,32 +1111,111 @@ def temporal(rt):
     rt.set_resolutions(internal=internal, output=output)
 
 
-def flythrough(rt):
-    """Phase 11: the fly-through harness prints the reference's report."""
+def flythrough(dev, scene, width, height):
+    """Phase 11: the whole 60 s fly-through through
+    `benchmarks.flythrough.fly` (the default workload at `width` x `height`,
+    animated sun), which prints the reference's report. Returns the kernel
+    launches counted."""
+    from zig_vulkan_tpu_torch.benchmarks import flythrough as fly_mod
+
+    reset_counts()
     t0 = time.perf_counter()
-    bench = rt.run_benchmark(fixed_dt=0.5, max_frames=BENCH_FRAMES)
-    rep = bench.report
-    log("benchmark", frames=BENCH_FRAMES, samples=rep.delta_time_sum_samples,
+    rep = fly_mod.fly(FLY_DT, dev, scene=scene,
+                      config=fly_mod.default_workload(width=width,
+                                                      height=height))
+    counts = read_counts()
+    want = round(60.0 / FLY_DT)
+    # mean ms over each of the path's 11 waypoint stretches, in path order
+    stretches = [f"{np.mean(part) * 1e3:.1f}"
+                 for part in np.array_split(np.asarray(rep.samples), 11)]
+    log("benchmark", mean_ms_by_path_stretch=json.dumps(stretches))
+    log("benchmark", frames=rep.delta_time_sum_samples,
+        min_ms=f"{rep.min_delta_time * 1e3:.3f}",
+        max_ms=f"{rep.max_delta_time * 1e3:.3f}",
         avg_ms=f"{rep.average() * 1e3:.3f}",
+        launches_A=counts["A"], launches_B=counts["B"],
         seconds=f"{time.perf_counter() - t0:.2f}")
-    if rep.delta_time_sum_samples != BENCH_FRAMES - 1 or not np.isfinite(
-            rep.average()):
-        raise AssertionError("benchmark report incomplete")
+    if rep.delta_time_sum_samples != want or not np.isfinite(rep.average()):
+        raise AssertionError(f"the fly-through reported "
+                             f"{rep.delta_time_sum_samples} frames, not "
+                             f"{want}")
+    # a warm-up frame, frame 0 (no sample) and the reported frames
+    renders = want + 2
+    if counts != {"A": 6 * renders, "A_all": 6 * renders, "B": 3 * renders}:
+        raise AssertionError(f"expected 6 A and 3 B launches a frame over "
+                             f"{renders} frames, got {counts}")
+    return counts
 
 
-def parity_scene():
-    """tests/test_trace_parity.py's water pool + metal pillar scene, on
-    which the golden renders were made."""
-    from zig_vulkan_tpu_torch.models import scenes
+def headline_bench(dev, scale):
+    """Phase 18: `benchmarks.bench.main` in this process; its JSON line goes
+    out on a line of its own. Returns the kernel launches counted."""
+    from zig_vulkan_tpu_torch.benchmarks import bench
 
-    sc = scenes.flat_test_scene(dim=8)
-    xs, zs = np.meshgrid(np.arange(6, 16), np.arange(6, 16), indexing="ij")
-    sc.grid.insert_batch(xs.ravel(), np.full(xs.size, 4), zs.ravel(),
-                         np.zeros(xs.size, dtype=np.uint8))
-    ys = np.arange(4, 12)
-    sc.grid.insert_batch(np.full(ys.size, 20), ys, np.full(ys.size, 20),
-                         np.full(ys.size, 7, dtype=np.uint8))
-    return sc
+    argv = [str(BENCH_POSES), "--device", str(dev)]
+    if scale != 1.0:
+        argv += ["--scale", str(scale)]
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv)
+    counts = read_counts()
+    lines = buf.getvalue().strip().splitlines()
+    print(buf.getvalue().strip(), flush=True)
+    rec = json.loads(lines[-1])
+    log("bench", exit_code=rc, launches_A=counts["A"], launches_B=counts["B"],
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"the bench exited with {rc}")
+    if not rec["value"] > 0 or rec["parity_vs_oracle"] < 0.995:
+        raise AssertionError("the bench line has no value or too low a "
+                             "parity")
+    if dev.type == "cuda" and rec["kernel_a_launches_per_pose"] != 1:
+        raise AssertionError("the bench did not launch kernel A once a pose")
+    # a warm-up pose, the timed poses, the parity rays; 13 default frames
+    a = 1 + BENCH_POSES + 1 + 13 * 6
+    if counts != {"A": a, "A_all": a, "B": 13 * 3}:
+        raise AssertionError(f"unexpected bench launches {counts}")
+    return counts
+
+
+def entry_step(dev):
+    """Phase 19: `entry.entry()`'s render step on the card: its image
+    against the same step on the CPU (the kernels' plain versions; no pixel
+    may differ by 1e-5, where an H100 measured 1.8e-7), then each of its
+    kernel launches against its plain version, bit for bit. Returns the
+    kernel launches counted in the step, with the launches' largest
+    difference as `max_abs_err`."""
+    import torch
+
+    from zig_vulkan_tpu_torch import entry
+
+    fn, args = entry.entry(dev)
+    reset_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plain_fn, plain_args = entry.entry("cpu")
+    want = plain_fn(*plain_args)
+    diff = (got.cpu() - want).abs().amax(-1)
+    log("entry", shape=list(got.shape), device=str(got.device),
+        max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+        share_over_1e_3=float((diff > 1e-3).float().mean()),
+        finite=bool(torch.isfinite(got).all()), launches_A=counts["A"],
+        launches_B=counts["B"])
+    if (tuple(got.shape) != (48, 64, 3) or got.device.type != dev.type
+            or not torch.isfinite(got).all()):
+        raise AssertionError("the entry step's image has the wrong shape, "
+                             "device or values")
+    if not diff.max() < 1e-5:
+        raise AssertionError("the entry step on the card differs from the "
+                             "step on plain versions")
+    if counts != {"A": 4, "A_all": 4, "B": 2}:
+        raise AssertionError(f"expected 4 A and 2 B launches in the entry "
+                             f"step, got {counts}")
+    _, err, _, _ = check_frame_launches("entry", lambda: fn(*args), 4, 2)
+    return dict(counts, max_abs_err=err)
 
 
 def png_size(path):
@@ -1529,6 +1500,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     from zig_vulkan_tpu_torch.core.materials import MAT_NONE
     from zig_vulkan_tpu_torch.core.sun import Sun
     from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.models import scenes
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
     from zig_vulkan_tpu_torch.oracle import cpu_tracer as oracle
 
@@ -1597,7 +1569,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     # RGB of the exact path on the parity scene, tests/test_trace_parity.py's
     # bound
     t0 = time.perf_counter()
-    psc = parity_scene()
+    psc = scenes.small_test_scene()
     parr = psc.grid.arrays.to_device(dev)
     pst = psc.grid.static
     pcam = Camera(75.0, 48, 48, CameraConfig(origin=(4.0, 6.5, 15.0)))
@@ -2070,6 +2042,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     from zig_vulkan_tpu_torch.core.camera import Camera
     from zig_vulkan_tpu_torch.core.sun import Sun
     from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.models import scenes
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
     from zig_vulkan_tpu_torch.utils import roofline
 
@@ -2188,7 +2161,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     # -- 5. golden parity on the card ----------------------------------------------
     golden = np.load(REPO / "tests" / "golden" / "flat_scene_renders.npz")
-    gsc = parity_scene()
+    gsc = scenes.small_test_scene()
     garr = gsc.grid.arrays.to_device(dev)
     gtab = trace.build_trace_tables(gsc.grid.static, garr)
     gmats = trace.materials_to_device(gsc.materials, dev)
@@ -2285,7 +2258,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     # -- 8. the edit fly-through (BASELINE config 3) ------------------------------
     t0 = time.perf_counter()
-    edit = edit_flythrough(dev, scene, headline, edit_frames)
+    edit = edit_flythrough(dev, scene, scale, edit_frames)
     log("edit", phase_seconds=f"{time.perf_counter() - t0:.2f}")
 
     # -- 9. the sun-shadow probe at the default EngineConfig -----------------------
@@ -2294,8 +2267,8 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 10. temporal accumulation and set_resolutions ----------------------------
     temporal(rt)
 
-    # -- 11. the fly-through harness ----------------------------------------------
-    flythrough(rt)
+    # -- 11. the whole fly-through ------------------------------------------------
+    fly_counts = flythrough(dev, scene, iw, ih)
 
     # -- 12. oracle parity on the card, kernel A's NO_SKIP build --------------------
     t0 = time.perf_counter()
@@ -2326,13 +2299,21 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     t0 = time.perf_counter()
     config_counts = baseline_configs(dev, scene, scale)
     log("configs", phase_seconds=f"{time.perf_counter() - t0:.2f}")
-    # the default build's and kernel B's launches of phases 15-17 (config
-    # 5's stand in rows of their own)
-    later = {k: mesh_counts[k] + config_counts[k] for k in ("A", "B")}
+
+    # -- 18. the headline bench, 19. the entry step ---------------------------------
+    bench_counts = headline_bench(dev, scale)
+    entry_counts = entry_step(dev)
+    # the default build's and kernel B's launches of phases 11, 15, 17, 18
+    # and 19 (config 5's stand in rows of their own)
+    later = {k: sum(c[k] for c in (fly_counts, mesh_counts, config_counts,
+                                   bench_counts, entry_counts))
+             for k in ("A", "B")}
     for name in ("A", "B"):
-        # phase 17 held launches of its shapes against the plain versions
+        # phases 17 and 19 held launches of their shapes against the plain
+        # versions
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                           config_counts["max_abs_err"])
+                                           config_counts["max_abs_err"],
+                                           entry_counts["max_abs_err"])
     per_frame = {k: [config_counts["per_frame"][c][k] for c in (1, 2, 4)]
                  for k in ("A", "B")}
 

@@ -1,7 +1,8 @@
 """BASELINE configs 1, 2, 4 and 5 (benchmarks/configs.py:81-252) in
 zig_vulkan_tpu_torch against the JAX package, at the small `scale` of
-tests/test_bench_configs.py. One function makes each configuration for both
-packages from the same numpy inputs.
+tests/test_bench_configs.py. The port's engines come from the
+`build_config*` functions of `zig_vulkan_tpu_torch.benchmarks.configs`, the
+reference's from the JAX harness itself, stopped before its first frame.
 
 Tolerances, as in tests/test_torch_engine.py: primary-ray frames (config 1)
 to 1e-5; path-traced frames against the jitted JAX engine statistically
@@ -14,7 +15,9 @@ why). Config 5's streamed scene is equal array for array, and its sharded
 frame equals the unsharded one bit for bit.
 """
 
-import types
+import os
+import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -22,109 +25,57 @@ import numpy as np
 import pytest
 import torch
 
-import zig_vulkan_tpu.config as rconfig
-import zig_vulkan_tpu.core.grid as rgrid
-import zig_vulkan_tpu.core.materials as rmaterials
-import zig_vulkan_tpu.engine.engine as rengine
 import zig_vulkan_tpu.io.streaming as rstreaming
-import zig_vulkan_tpu.models.scenes as rscenes
 import zig_vulkan_tpu.ops.trace as rtrace
-import zig_vulkan_tpu_torch.config as tconfig
 import zig_vulkan_tpu_torch.core.grid as tgrid
 import zig_vulkan_tpu_torch.core.materials as tmaterials
-import zig_vulkan_tpu_torch.engine.engine as tengine
-import zig_vulkan_tpu_torch.io.streaming as tstreaming
-import zig_vulkan_tpu_torch.models.scenes as tscenes
 import zig_vulkan_tpu_torch.ops.trace as ttrace
+from zig_vulkan_tpu_torch.benchmarks import configs as tconfigs
 from zig_vulkan_tpu_torch.ops import denoise as tdenoise
-from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from benchmarks import configs as rconfigs  # noqa: E402  (the JAX harness)
 
 torch.set_num_threads(2)
-
-REF = types.SimpleNamespace(config=rconfig, grid=rgrid, materials=rmaterials,
-                            scenes=rscenes, streaming=rstreaming,
-                            engine=lambda g, m, c: rengine.VoxelRT(g, m, c))
-PORT = types.SimpleNamespace(config=tconfig, grid=tgrid, materials=tmaterials,
-                             scenes=tscenes, streaming=tstreaming,
-                             engine=lambda g, m, c: tengine.VoxelRT(
-                                 g, m, c, device="cpu"))
 
 FIELDS = ("statuses", "indices", "occupancy", "start_indices",
           "material_indices", "active_bricks", "material_cursor",
           "diel_mask", "brick_ir")
-EMISSIVE = 40
+EMISSIVE = tconfigs.EMISSIVE
 
 
-def build(p, number, scale):
-    """Config `number` of benchmarks/configs.py at `scale` for the package
-    bundle `p`: its engine, before any frame."""
-    c = p.config
-    if number == 1:
-        dim = max(2, int(16 * scale))
-        res = max(32, int(256 * scale))
-        grid = p.grid.BrickGrid(dim, dim, dim, c.GridConfig(scale=1.0))
-        vx, vy, vz = grid.static.voxel_dims
-        xs, ys, zs = np.meshgrid(np.arange(vx), np.arange(vy // 2),
-                                 np.arange(vz), indexing="ij")
-        grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
-                          np.full(xs.size, 1, dtype=np.uint8))
-        return p.engine(grid, p.materials.terrain_materials(), c.EngineConfig(
-            internal_resolution_width=res, internal_resolution_height=res,
-            camera=c.CameraConfig(origin=(dim / 2, dim * 0.9, dim * 2.5),
-                                  samples_per_pixel=1, max_bounce=0),
-            sun=c.SunConfig(enabled=False),
-            denoiser=c.DenoiserConfig(enabled=False)))
-    if number == 2:
-        dims = (max(4, int(128 * scale)), max(2, int(64 * scale)),
-                max(4, int(128 * scale)))
-        w, h = max(64, int(1280 * scale)), max(36, int(720 * scale))
-        scene = p.scenes.default_scene(dims=dims)
-        return p.engine(scene.grid, scene.materials, c.EngineConfig(
-            internal_resolution_width=w, internal_resolution_height=h,
-            camera=c.CameraConfig(origin=(0.0, 0.0, 0.0),
-                                  samples_per_pixel=1, max_bounce=0),
-            sun=c.SunConfig(enabled=True, animate=False),
-            denoiser=c.DenoiserConfig(enabled=False),
-            trace=c.TraceConfig(max_steps=160)))
-    if number == 4:
-        dims = (max(4, int(64 * scale)), max(2, int(32 * scale)),
-                max(4, int(64 * scale)))
-        w, h = max(64, int(1920 * scale)), max(36, int(1080 * scale))
-        scene = p.scenes.default_scene(dims=dims, with_model=False)
-        scene.materials.set(EMISSIVE, p.materials.MAT_EMISSIVE,
-                            (1.0, 0.85, 0.4), 8.0)
-        vx, vy, vz = scene.grid.static.voxel_dims
-        xs, ys, zs = np.meshgrid(
-            np.arange(max(0, vx // 2 - 4), vx // 2 + 4),
-            np.arange(max(0, vy - 8), max(1, vy - 4)),
-            np.arange(max(0, vz // 2 - 4), vz // 2 + 4), indexing="ij")
-        scene.grid.insert_batch(xs.ravel(), ys.ravel(), zs.ravel(),
-                                np.full(xs.size, EMISSIVE, dtype=np.uint8))
-        rt = p.engine(scene.grid, scene.materials, c.EngineConfig(
-            internal_resolution_width=w, internal_resolution_height=h,
-            camera=c.CameraConfig(origin=(0.0, 0.0, 0.0),
-                                  samples_per_pixel=2, max_bounce=3),
-            sun=c.SunConfig(enabled=True, animate=False),
-            denoiser=c.DenoiserConfig(enabled=True),
-            trace=c.TraceConfig(max_steps=160)))
-        rt.set_temporal(True)
-        return rt
-    assert number == 5
-    dims = (max(8, int(256 * scale)), max(4, int(64 * scale)),
-            max(8, int(256 * scale)))
-    w = max(128, int(3840 * scale))
-    h = max(8 * 8, (int(2160 * scale) // 8) * 8)
-    grid = p.grid.BrickGrid(*dims, c.GridConfig(min_point=(-64, -16, -64),
-                                                scale=0.5))
-    rt = p.engine(grid, p.materials.terrain_materials(), c.EngineConfig(
-        internal_resolution_width=w, internal_resolution_height=h,
-        camera=c.CameraConfig(origin=(0.0, 0.0, 0.0), samples_per_pixel=1,
-                              max_bounce=0),
-        sun=c.SunConfig(enabled=False),
-        denoiser=c.DenoiserConfig(enabled=False)))
-    rt.streamed = p.streaming.stream_into_engine(
-        rt, p.streaming.terrain_regions(grid, region_x=dims[0]))
-    return rt
+class _Stop(Exception):
+    """Raised to leave the JAX harness where it would start rendering."""
+
+
+def reference_engine(number, scale):
+    """The JAX engine of config `number` at `scale`, as benchmarks/configs.py
+    itself sets it up: the harness's function runs up to its first frame
+    (configs 1-4: `_timed_frames`; config 5: the end of the streaming, the
+    streamed count left in `rt.streamed`) and is stopped there."""
+    box = {}
+
+    def grab(rt, *args, **kw):
+        box["rt"] = rt
+        raise _Stop
+
+    def grab_streamed(rt, regions, **kw):
+        box["rt"] = rt
+        rt.streamed = stream(rt, regions, **kw)
+        raise _Stop
+
+    stream = rstreaming.stream_into_engine
+    patch = (mock.patch.object(rstreaming, "stream_into_engine",
+                               grab_streamed) if number == 5
+             else mock.patch.object(rconfigs, "_timed_frames", grab))
+    with patch, pytest.raises(_Stop):
+        rconfigs.ALL_CONFIGS[number - 1](scale=scale)
+    return box["rt"]
+
+
+def port_engine(number, scale):
+    """The port's engine of config 1, 2 or 4 on the CPU."""
+    return getattr(tconfigs, f"build_config{number}")(scale, "cpu")
 
 
 def _diff(a, b):
@@ -141,7 +92,7 @@ def _scene_equal(port_arrays, ref_arrays):
 
 
 def test_config1_dense_primary_matches_reference():
-    ref, port = build(REF, 1, 0.15), build(PORT, 1, 0.15)
+    ref, port = reference_engine(1, 0.15), port_engine(1, 0.15)
     assert port.grid_static.scale == 1.0 and port.grid_static.dims == (2, 2, 2)
     _scene_equal(port.arrays, ref.arrays)
     got, want = port.render().numpy(), np.asarray(ref.render())
@@ -153,7 +104,7 @@ def test_config1_dense_primary_matches_reference():
 
 
 def test_config2_sparse_diffuse_shadows_matches_reference():
-    ref, port = build(REF, 2, 0.05), build(PORT, 2, 0.05)
+    ref, port = reference_engine(2, 0.05), port_engine(2, 0.05)
     assert port.trace_config.max_steps == 160
     assert bool(port.sun.device_data.enabled)
     _scene_equal(port.arrays, ref.arrays)
@@ -167,7 +118,7 @@ def test_config2_sparse_diffuse_shadows_matches_reference():
 @pytest.fixture(scope="module")
 def config4():
     """Config 4's engines and their first three accumulated frames."""
-    ref, port = build(REF, 4, 0.05), build(PORT, 4, 0.05)
+    ref, port = reference_engine(4, 0.05), port_engine(4, 0.05)
     frames = [(np.asarray(ref.render()), port.render().numpy())
               for _ in range(3)]
     return ref, port, frames
@@ -244,8 +195,10 @@ def test_config4_traced_frame_bit_equal_op_by_op(monkeypatch, config4,
 
 
 def test_config5_streamed_scene_equals_reference_array_for_array():
-    ref, port = build(REF, 5, 0.05), build(PORT, 5, 0.05)
-    assert port.streamed == ref.streamed > 0
+    ref = reference_engine(5, 0.05)
+    c = tconfigs.build_config5(0.05, ["cpu"] * 8)
+    port = c.rt
+    assert c.streamed == ref.streamed > 0
     assert port.grid_static.dims == (12, 4, 12)
     assert port.grid_static.min_point == (-64.0, -16.0, -64.0)
     _scene_equal(port.arrays, ref.arrays)
@@ -254,17 +207,11 @@ def test_config5_streamed_scene_equals_reference_array_for_array():
     # step with max_bounce=1 and no sun over 8 shards
     st = port.grid_static
     w, h = port.internal_resolution
-    tables = ttrace.build_trace_tables(
-        st, port.arrays, ttrace.distance_field(st, port.arrays, True))
-    m = pmesh.make_mesh(["cpu"] * 8)
-    step = pmesh.build_sharded_step(
-        m, st, width=w, height=h, spp=1, max_bounce=1, sun_enabled=False,
-        denoiser=tconfig.DenoiserConfig(enabled=False))
-    arrays_r, mats_r = pmesh.replicate_scene(m, port.arrays, port.mats)
-    cam = ttrace.camera_vectors(port.camera.d_camera, "cpu")
+    assert (w, h) == (c.width, c.height) == ref.internal_resolution
+    tables, cam = c.tables, c.cam
     zeros3, ones3 = np.zeros(3, np.float32), np.ones(3, np.float32)
-    got = step(arrays_r, mats_r, cam, zeros3, ones3, np.float32(1.0),
-               tables=(tables,) * 8)
+    got = c.sharded_step()()
+    assert torch.equal(c.unsharded(), got)
     whole = ttrace.render_rows(
         st, tables, port.arrays.material_indices, port.mats, cam, w, h, 1, 1,
         zeros3, ones3, np.float32(1.0), False)

@@ -189,6 +189,40 @@ def test_remove_edits_bit_exact():
     _assert_arrays_equal(port2, ref2)
 
 
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_host_remove_then_rebuild_agrees_with_device_remove(package):
+    """Host `BrickGrid.remove_batch` clears occupancy bits only, in both
+    packages alike, so a removed water voxel keeps its `diel_mask` bit until
+    `rebuild_dielectric_masks`; the device `remove_edits` clears both. After
+    remove-then-rebuild the host agrees with the device on `occupancy` and
+    `diel_mask`."""
+    grid_cls = rgrid.BrickGrid if package == "reference" else tgrid.BrickGrid
+    host, _ = _host_scene(grid_cls)
+    st = host.static
+    xyz, valid = _remove_batch(_insert_batch()[0])
+    xyz = xyz[valid]  # with two water voxels: (11, 4, 11) and (12, 4, 12)
+    if package == "reference":
+        dev = _ref_remove(st, host.device_arrays(), jnp.asarray(xyz),
+                          jnp.ones(len(xyz), bool))
+    else:
+        dev = tgrid.remove_edits(st, _port_arrays(host), _t(xyz),
+                                 torch.ones(len(xyz), dtype=torch.bool))
+    dev_occ = np.asarray(dev.occupancy).view(np.uint32)
+    dev_diel = np.asarray(dev.diel_mask).view(np.uint32)
+
+    before = host.arrays.diel_mask.copy()
+    host.remove_batch(xyz[:, 0], xyz[:, 1], xyz[:, 2])
+    np.testing.assert_array_equal(host.arrays.occupancy, dev_occ)
+    # the gap: the host's mask is untouched, the device's lost two bits
+    np.testing.assert_array_equal(host.arrays.diel_mask, before)
+    stale = host.arrays.diel_mask & ~dev_diel
+    assert sum(bin(int(w)).count("1") for w in stale) == 2
+    host.rebuild_dielectric_masks()
+    np.testing.assert_array_equal(host.arrays.diel_mask, dev_diel)
+    np.testing.assert_array_equal(host.arrays.occupancy, dev_occ)
+    assert dev_diel.any()  # water voxels that stayed keep their bits
+
+
 def test_sign_bit_words_wrap_as_uint32():
     """Words with bit 31 set gain and lose bits exactly as uint32 words do."""
     grid, st, _, port = _edit_both()

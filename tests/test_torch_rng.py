@@ -88,3 +88,54 @@ def test_camera_rays_bit_exact(sample_index, size):
         assert a.shape == (w * h,)
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
+
+@pytest.mark.parametrize("name,shape", [
+    ("rand_vec3", (_N, 2)),
+    ("hash13", (_N, 3)),
+    ("hash23", (_N, 3)),
+    ("hash32", (_N, 2)),
+])
+@pytest.mark.parametrize("scale", [1.0, 60.0, 3000.0])
+def test_more_hashes_bit_exact(name, shape, scale):
+    """Bit for bit against the reference's numpy path (`xp=np`)."""
+    x = _inputs(shape, scale, seed=len(name) + 11)
+    want = getattr(rrng, name)(x, xp=np)
+    got = getattr(trng, name)(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.4, 0.7), (2.5, 9.1)])
+def test_hash12_range_bit_exact(lo, hi):
+    x = _inputs((_N, 2), 60.0, seed=21)
+    want = rrng.hash12_range(x, lo, hi, xp=np)
+    got = trng.hash12_range(torch.from_numpy(x), lo, hi)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("scale", [1.0, 40.0])
+def test_rand_in_hemisphere_one_ulp(scale):
+    """The square root is the one operation no CPU backend rounds exactly
+    everywhere (torch's vectorized CPU `sqrt` is one ULP off on under 1%
+    of inputs), so the unit vector is held to one ULP of its norm, and it
+    lies on the normal's side."""
+    co = _inputs((_N, 2), scale, seed=31)
+    normal = _inputs((_N, 3), 1.0, seed=32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    want = rrng.rand_in_hemisphere(co, normal, xp=np)
+    got = trng.rand_in_hemisphere(torch.from_numpy(co),
+                                  torch.from_numpy(normal)).numpy()
+    assert got.shape == (_N, 3)
+    # the hash has fixed points where all three components are 0: both
+    # packages give NaN there (0 / 0), on the same lanes
+    nan = np.isnan(want).any(-1)
+    np.testing.assert_array_equal(np.isnan(got).any(-1), nan)
+    assert nan.mean() < 0.005
+    got, want, normal = got[~nan], want[~nan], normal[~nan]
+    # one ULP of the norm (in [1, 2)) is up to two spacings of a
+    # component in [0.5, 1): that is the bound, and it is rarely reached
+    off = np.abs(got - want) / np.spacing(np.abs(want))
+    assert off.max() <= 2.0
+    assert (off > 0).any(-1).mean() < 0.02
+    assert ((got * normal).sum(-1) > 0).all()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-6)

@@ -24,13 +24,12 @@ import os
 import sys
 import time
 
-import torch
-
 from ..config import CameraConfig, DenoiserConfig, EngineConfig, SunConfig
 from ..engine.engine import VoxelRT, device_name
 from ..io.image import write_png
 from ..models import scenes
 from ..utils import profiling
+from ..utils.device import cli_main, resolve_device
 from .input import Action, Input, Key
 
 
@@ -98,13 +97,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+@cli_main
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if (torch.device(args.device).type == "cuda"
-            and not torch.cuda.is_available()):
-        print(f"no CUDA device for --device {args.device}; pass "
-              f"--device cpu to render on the CPU", file=sys.stderr)
-        return 2
+    resolve_device(args.device)
 
     t0 = time.time()
     rt = build_engine(args)

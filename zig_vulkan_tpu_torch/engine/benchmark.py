@@ -16,7 +16,7 @@ the camera's *yaw* quaternion with pitch reset to identity
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -66,6 +66,9 @@ class BenchmarkReport:
     delta_time_sum: float = 0.0
     delta_time_sum_samples: int = 0
     voxel_dims: Tuple[int, int, int] = (0, 0, 0)
+    # every recorded frame time, in path order (an extension over the
+    # reference: which stretch of the path the slow frames lie on)
+    samples: List[float] = dataclasses.field(default_factory=list)
 
     def average(self) -> float:
         if self.delta_time_sum_samples == 0:
@@ -157,6 +160,7 @@ class Benchmark:
                                              record)
             self.report.delta_time_sum += record
             self.report.delta_time_sum_samples += 1
+            self.report.samples.append(record)
 
         return self.timer >= self.duration
 

@@ -169,3 +169,17 @@ def flat_test_scene(dim: int = 16, fill_material: int = 1,
         np.full(cx.size, 5, dtype=np.uint8),
     )
     return Scene(grid=grid, materials=materials)
+
+
+def small_test_scene() -> Scene:
+    """The flat test scene with a water pool and a metal pillar, so that
+    every material branch traces: the scene of `entry.entry()`'s render
+    step, of the sharded dry run and of the golden renders."""
+    sc = flat_test_scene(dim=8)
+    xs, zs = np.meshgrid(np.arange(6, 16), np.arange(6, 16), indexing="ij")
+    sc.grid.insert_batch(xs.ravel(), np.full(xs.size, 4), zs.ravel(),
+                         np.zeros(xs.size, dtype=np.uint8))
+    ys = np.arange(4, 12)
+    sc.grid.insert_batch(np.full(ys.size, 20), ys, np.full(ys.size, 20),
+                         np.full(ys.size, 7, dtype=np.uint8))
+    return sc

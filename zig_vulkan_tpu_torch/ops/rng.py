@@ -102,3 +102,64 @@ def hash12(p):
     p3y = p3y + d
     p3z = p3z + d
     return fract((p3x + p3y) * p3z)
+
+
+def rand_vec3(co):
+    """GLSL `RandVec3(vec2)` (rand.comp:9-14): chained dependent hashes.
+    Returns shape (..., 3)."""
+    x = rand2(co)
+    y = rand2(torch.stack([co[..., 0] + x, co[..., 1] + x], dim=-1))
+    z = rand2(torch.stack([co[..., 0] + y, co[..., 1] + y], dim=-1))
+    return torch.stack([x, y, z], dim=-1)
+
+
+def hash12_range(p, lo, hi):
+    """GLSL `hash12(vec2, min, max)` (rand.comp:27-29); `hi - lo` is
+    rounded to float32 as the reference does."""
+    return hash12(p) * float(_F32(hi) - _F32(lo)) + float(_F32(lo))
+
+
+def hash13(p):
+    """GLSL `hash13(vec3)` (rand.comp:30-35). `p` shape (..., 3)."""
+    c = float(_F32(31.32))
+    p3 = fract(p * float(_F32(0.1031)))
+    x, y, z = p3[..., 0], p3[..., 1], p3[..., 2]
+    d = x * (z + c) + y * (y + c) + z * (x + c)
+    x, y, z = x + d, y + d, z + d
+    return fract((x + y) * z)
+
+
+def hash23(p):
+    """GLSL `hash23(vec3)` (rand.comp:36-41). Returns shape (..., 2)."""
+    c = float(_F32(33.33))
+    x = fract(p[..., 0] * float(_F32(0.1031)))
+    y = fract(p[..., 1] * float(_F32(0.1030)))
+    z = fract(p[..., 2] * float(_F32(0.0973)))
+    d = x * (y + c) + y * (z + c) + z * (x + c)
+    x, y, z = x + d, y + d, z + d
+    return torch.stack([fract((x + y) * z), fract((x + z) * y)], dim=-1)
+
+
+def hash32(p):
+    """GLSL `hash32(vec2)` (rand.comp:42-47). Returns shape (..., 3)."""
+    c = float(_F32(33.33))
+    px, py = p[..., 0], p[..., 1]
+    x = fract(px * float(_F32(0.1031)))
+    y = fract(py * float(_F32(0.1030)))
+    z = fract(px * float(_F32(0.0973)))
+    d = x * (y + c) + y * (x + c) + z * (z + c)
+    x, y, z = x + d, y + d, z + d
+    # fract((p3.xxy + p3.yzz) * p3.zyx) = ((x+y)z, (x+z)y, (y+z)x)
+    return torch.stack(
+        [fract((x + y) * z), fract((x + z) * y), fract((y + z) * x)], dim=-1)
+
+
+def rand_in_hemisphere(co, normal):
+    """GLSL `RandInHemisphere` (rand.comp:57-63): a unit vector on the
+    side of `normal`. The square root then the division round once each;
+    a backend's `sqrt` may be off by one ULP."""
+    v = rand_vec3_range(co, -1.0, 1.0)
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    unit = v / n
+    same = torch.sum(unit * normal, dim=-1, keepdim=True) > 0
+    return torch.where(same, unit, -unit)

@@ -837,3 +837,131 @@ def render_image(static: GridStatic, arrays, mats, camera_device,
         max_steps=trace_config.max_steps,
         shadow_probe=bool(trace_config.sun_in_kernel),
         use_skip=trace_config.empty_skip)
+
+
+# -- array-of-structs entry points ----------------------------------------------
+# Thin wrappers over the SoA internals above for callers that hold rays as
+# f32[N, 3] (tests, tools); the frame's path uses the SoA functions directly.
+
+def _split3(v):
+    return (v[:, 0].contiguous(), v[:, 1].contiguous(), v[:, 2].contiguous())
+
+
+def grid_hit(static: GridStatic, arrays: GridArrays, origin, direction,
+             t_max=float("inf"), ignore_type=None, internal_reflection=None,
+             active=None, max_steps: int = 768, tables=None,
+             use_skip: bool = False, needs_ignore: bool = True):
+    """First voxel hit of a wavefront of rays held as f32[N, 3]
+    (zig_vulkan_tpu/ops/trace.py:391-421): kernel A for a scene on a CUDA
+    device, its plain version for one on the CPU
+    (`ops.tile_tracer.grid_hit_tiles`).
+
+    Args:
+      origin, direction: f32[N, 3], direction normalized.
+      t_max: scalar upper bound on the hit distance.
+      ignore_type, internal_reflection: int32[N] / f32[N] dielectric-skip
+        state of each ray: a ray with `ignore_type == MAT_DIELECTRIC` passes
+        through dielectric voxels of a brick whose ir equals its
+        `internal_reflection` (the kernel's `ray_key`). None, or
+        `needs_ignore=False`, skips nothing.
+      active: bool[N] lanes to trace (default: all).
+      tables: the records of `build_trace_tables`; built here when None
+        (`one_shot_tables`).
+      use_skip: False traces the exact cell-by-cell DDA, the reference's
+        default for this entry point.
+
+    The reference's `mats` argument (never read by its traversal),
+    `brick_unroll` (a constant of kernel A) and `bounded_t` are not taken.
+    The reference lets `t_max` end a traversal early; its answer is that of
+    the unbounded traversal with every hit past `t_max` turned into a miss:
+    it tests a voxel only while `entry_t + b_t <= t_max` and reports
+    `t = entry_t + b_t - t_off`, distances grow along a ray, and the brick
+    after the one where the bound fell is entered past it. So a finite
+    `t_max` is applied here after the launch, as `t + t_off <= t_max`; a
+    hit within a rounding of the bound may fall on the other side.
+
+    Returns dict(found bool[N], t f32[N], point f32[N, 3], normal f32[N, 3],
+    index int32[N]). Only `found` is meaningful on a lane that missed.
+    """
+    from .tile_tracer import grid_hit_tiles  # imports this module
+
+    if tables is None:
+        tables = one_shot_tables(static, arrays, use_skip)
+    dev = tables.device
+    n = origin.shape[0]
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    key = None
+    if needs_ignore and ignore_type is not None:
+        nan = torch.full((n,), float("nan"), dtype=F32, device=dev)
+        key = torch.where(ignore_type == MAT_DIELECTRIC,
+                          internal_reflection.to(F32), nan)
+    out = grid_hit_tiles(static, tables, arrays.material_indices,
+                         *_split3(origin.to(F32)), *_split3(direction.to(F32)),
+                         active, ray_key=key, max_steps=max_steps,
+                         use_skip=use_skip)
+    found = out["found"]
+    t_max = float(_F(t_max))
+    if t_max != float("inf"):
+        t_off = _c(trace_constants(static)["t_off"])
+        found = found & (out["t"] + t_off <= t_max)
+    return dict(
+        found=found,
+        t=out["t"],
+        point=torch.stack([out["px"], out["py"], out["pz"]], dim=-1),
+        normal=torch.stack([out["nx"], out["ny"], out["nz"]], dim=-1),
+        index=out["index"],
+    )
+
+
+def transmission_direction(n1, n2, ray_dir, normal):
+    """Bec's-method refraction (brick_raytracer.comp:564-574;
+    zig_vulkan_tpu/ops/trace.py:758-768) for f32[N] indices and f32[N, 3]
+    vectors: (should_refract bool[N], refracted f32[N, 3])."""
+    eta = n1 / n2
+    c1 = -_dot3(ray_dir[:, 0], ray_dir[:, 1], ray_dir[:, 2],
+                normal[:, 0], normal[:, 1], normal[:, 2])
+    w = eta * c1
+    c2m = (w - eta) * (w + eta)
+    should = c2m >= -1.0
+    wk = w - torch.sqrt(torch.clamp(1.0 + c2m, min=0.0))
+    return should, eta[:, None] * ray_dir + wk[:, None] * normal
+
+
+def background_color(direction):
+    """GLSL BackgroundColor (brick_raytracer.comp:197-201): the sky's
+    white-to-blue blend by the direction's height, f32[N, 3]."""
+    t = 0.5 * (direction[:, 1] + 1.0)
+    white = torch.ones(3, dtype=F32, device=direction.device)
+    blue = torch.tensor([0.5, _c(0.7), 1.0], dtype=F32,
+                        device=direction.device)
+    return (1.0 - t)[:, None] * white + t[:, None] * blue
+
+
+def ray_color(static: GridStatic, arrays: GridArrays, mats, origin,
+              direction, max_bounce: int, sun_position, sun_enabled: bool,
+              sun_color, sun_radius, max_steps: int = 768, tables=None,
+              use_skip: bool = False):
+    """Path-traced, tone-mapped radiance of a wavefront of rays held as
+    f32[N, 3] (zig_vulkan_tpu/ops/trace.py:851-864): f32[N, 3]. `mats` is
+    `materials_to_device`'s table; the records are built here when
+    `tables` is None."""
+    if tables is None:
+        tables = one_shot_tables(static, arrays, use_skip)
+    cr, cg, cb = _ray_color_soa(
+        static, tables, arrays.material_indices, mats,
+        *_split3(origin.to(F32)), *_split3(direction.to(F32)), max_bounce,
+        sun_position, sun_enabled, sun_color, sun_radius, max_steps,
+        use_skip=use_skip)
+    return torch.stack([cr, cg, cb], dim=-1)
+
+
+def camera_rays(cam: dict, width: int, height: int, sample_index,
+                row0=0, rows=None):
+    """Per-pixel jittered camera rays as (origin f32[N, 3], direction
+    f32[N, 3]), directions not normalized
+    (zig_vulkan_tpu/ops/trace.py:1371-1379)."""
+    oxs, oys, ozs, rdx, rdy, rdz = _camera_rays_soa(
+        cam, width, height, sample_index, row0, rows)
+    return (torch.stack([oxs, oys, ozs], dim=-1),
+            torch.stack([rdx, rdy, rdz], dim=-1))

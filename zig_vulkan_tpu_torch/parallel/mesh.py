@@ -49,6 +49,7 @@ from ..config import DenoiserConfig, TraceConfig
 from ..core.grid import GridArrays, GridStatic
 from ..ops import denoise as denoise_mod
 from ..ops import trace as trace_mod
+from ..utils.device import NoCudaDevice, cli_main
 
 TILE_AXIS = "tiles"
 
@@ -77,8 +78,9 @@ def make_mesh(devices=None) -> Mesh:
     default: pass the devices."""
     if devices is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh: no CUDA device is visible; pass "
-                               "the devices of the mesh")
+            raise NoCudaDevice("make_mesh: no CUDA device is visible; pass "
+                               "the devices of the mesh (--device cpu to "
+                               "run on the CPU)")
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devices = tuple(_canonical(d) for d in devices)
     if not devices:
@@ -280,21 +282,6 @@ def render_image_sharded(mesh: Mesh, static: GridStatic, arrays: GridArrays,
                 sun_device.position, sun_device.color, sun_device.radius)
 
 
-def _small_scene(dim: int = 8):
-    """The flat test scene with a water pool and a metal pillar, so that
-    every material branch traces."""
-    from ..models.scenes import flat_test_scene
-
-    sc = flat_test_scene(dim=dim)
-    xs, zs = np.meshgrid(np.arange(6, 16), np.arange(6, 16), indexing="ij")
-    sc.grid.insert_batch(xs.ravel(), np.full(xs.size, 4), zs.ravel(),
-                         np.zeros(xs.size, dtype=np.uint8))
-    ys = np.arange(4, 12)
-    sc.grid.insert_batch(np.full(ys.size, 20), ys, np.full(ys.size, 20),
-                         np.full(ys.size, 7, dtype=np.uint8))
-    return sc
-
-
 def dryrun_multichip(n_devices: int, device=None) -> None:
     """Run the whole sharded frame on an `n_devices`-shard mesh at a small
     size: a sharded render with the denoiser, voxel edits on every replica
@@ -308,6 +295,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     from ..core.grid import apply_edits, grid_at
     from ..core.materials import MAT_DIELECTRIC
     from ..core.sun import Sun
+    from ..models.scenes import small_test_scene
 
     if device is None:
         cards = make_mesh().devices
@@ -316,7 +304,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         mesh = make_mesh([device] * n_devices)
     first = mesh.devices[0]
 
-    sc = _small_scene()
+    sc = small_test_scene()
     static = sc.grid.static
     width, height = 32, 4 * n_devices  # rows divide the mesh
     spp, max_bounce = 1, 2
@@ -398,6 +386,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
           f"{[str(d) for d in mesh.devices]}", flush=True)
 
 
+@cli_main
 def main(argv=None) -> int:
     import argparse
 
@@ -409,10 +398,6 @@ def main(argv=None) -> int:
                     help="put every shard on this device (e.g. cpu); by "
                          "default the shards go round the CUDA devices")
     args = ap.parse_args(argv)
-    if args.device is None and not torch.cuda.is_available():
-        print("dryrun_multichip: no CUDA device; pass --device cpu to run "
-              "on the CPU", flush=True)
-        return 2
     dryrun_multichip(args.n, device=args.device)
     return 0
 
