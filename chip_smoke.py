@@ -2,10 +2,18 @@
 """Drive zig_vulkan_tpu_torch's main path once on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --default-frame-trace   # phase 20's trace alone
 
 The quickest proof that the port builds and runs on the card. Every phase
 prints one line of numbers and raises on failure, so the script exits
-non-zero if any phase fails:
+non-zero if any phase fails. Every engine frame of every phase
+(`VoxelRT.render()`, `draw()`) runs through the compiled step: captured
+once a step key as a CUDA graph and replayed. Checks that hook the kernel
+wrappers run the same step's body op by op (`VoxelRT.render_op_by_op()`):
+a replay calls no wrapper. So the wrappers' launch counters move only on a
+capture frame (its run and its capture) and op by op, and the launches of
+a replayed frame are counted in a `torch.profiler` trace of the card
+(`card_launches`).
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile csrc/*.cu (kernels A and B) with nvcc;
@@ -19,9 +27,11 @@ non-zero if any phase fails:
    tests/golden/flat_scene_renders.npz rendered on the card;
 6. the main path: `VoxelRT(...).draw()` at the default EngineConfig
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
-   with the kernels' launch counts;
+   with the kernels' launch counts through the wrappers and a replayed
+   frame's on the card;
 6b. the frame's 6 kernel A and 3 kernel B launches, captured from one
-   `draw()` and replayed one by one (`frame_kernels`): each bit for bit
+   frame of the step's body run op by op and replayed one by one
+   (`frame_kernels`): each bit for bit
    against its plain version, its device time warm and after an L2
    flush, its bound, kernel A's steps, warp-use shares and its time with
    no lane live, with only its slowest 1% of rays live and through the
@@ -101,12 +111,26 @@ non-zero if any phase fails:
 19. the entry module: `entry.entry()`'s render step (64x48, two levels, the
     denoiser) on the card against the same step on the CPU, where the
     kernels' plain versions run (no pixel differs by 1e-5); its 4 A and 2 B
-    launches, each against its plain version bit for bit.
+    launches, each against its plain version bit for bit;
+20. the compiled step (`engine.step`): the default frame, config 3's edit
+    frames, config 4's temporal frames, config 5's 4K frame, the default
+    frame after a change of the denoiser's `samples`, and the bench's pose
+    frame, each run as a replay and op by op (the body called directly):
+    the replay's image equal to the op-by-op one bit for bit, the captures
+    (one a key; one in all of config 3's frames), kernel A and B launches a
+    frame on each route, median ms of each route in turns by CUDA events
+    and by the host clock, device-busy ms and idle share and host-to-device
+    copies a frame from a `torch.profiler` trace of each route, and peak
+    allocated and reserved bytes of each.
+
+`--default-frame-trace` runs phases 1-2 and the trace of phase 20's default
+frame through `VoxelRT.render()` alone: the same lines from an older tree
+(copy this script over its checkout) give the numbers before the step.
 
 The line before the last is a JSON object with one entry per kernel build
-(its launches and launches per frame as counted in this run, time, plain
-time, bound, share of the bound and, for kernel B, `index_select`'s
-time); the last line is
+(its launches through the wrapper in this run, launches a replayed frame
+on the card, time, plain time, bound, share of the bound and, for kernel
+B, `index_select`'s time); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -159,6 +183,9 @@ HALO_BANDS = (1, 2, 4, 8)  # phase 15a
 MESH_SIZES = (1, 2, 4)     # shards of one card, phase 15b
 MESH_FRAMES = 6            # timed steps per mesh size and round (2 rounds)
 EMISSIVE = 40              # config 4's emissive material index
+STEP_EQUAL = 3             # phase 20: frames held bit for bit a case
+STEP_FRAMES = 3            # phase 20: timed frames a route and turn (4 turns)
+TRACE_FRAMES = 3           # phase 20: traced frames a route
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
 # 24-46, core/materials.py:MaterialTable)
 SCENE_FILE_DTYPES = {
@@ -393,7 +420,11 @@ def edit_flythrough(dev, scene, scale, frames):
         st, rt.arrays, trace.distance_field(st, rt.arrays)))["n_step"])
     clean_ms = cuda_ms(lambda: hit(prim, on), reps=5)
 
-    # warm both edit paths outside the timing (benchmarks/configs.py:52-62)
+    # warm both edit paths outside the timing (benchmarks/configs.py:52-62);
+    # the first frame is the step's capture, counted with the frames
+    tile_tracer.reset_launch_counts()
+    lookup.table_lookup.launches = 0
+    c0 = captures()
     for insert in (True, False):
         move(insert)()
         rt.render()
@@ -402,8 +433,6 @@ def edit_flythrough(dev, scene, scale, frames):
             fractions.append(rt.nonempty_region_fraction())
 
     torch.cuda.reset_peak_memory_stats()
-    tile_tracer.reset_launch_counts()
-    lookup.table_lookup.launches = 0
     frame_ms, wall_ms, edit_ms = [], [], {True: [], False: []}
     image = None
     for i in range(frames):
@@ -425,9 +454,13 @@ def edit_flythrough(dev, scene, scale, frames):
     launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "A_all": tile_tracer.grid_hit_tiles.launches,
                 "B": lookup.table_lookup.launches}
+    made = captures() - c0
     peak = torch.cuda.max_memory_allocated()
+    on_card = card_launches(rt.render)  # a replayed frame, traced
     img = image.cpu().numpy()
-    log("edit", frames=frames, resolution=f"{w}x{h}",
+    log("edit", frames=frames, resolution=f"{w}x{h}", captures=made,
+        replayed_frame_on_card_A=on_card["A_all"],
+        replayed_frame_on_card_B=on_card["B"],
         median_frame_ms=f"{np.median(frame_ms):.3f}",
         min_frame_ms=f"{min(frame_ms):.3f}", max_frame_ms=f"{max(frame_ms):.3f}",
         median_wall_ms=f"{np.median(wall_ms):.3f}",
@@ -442,9 +475,15 @@ def edit_flythrough(dev, scene, scale, frames):
     if img.shape != (h, w, 3) or not np.isfinite(img).all():
         raise AssertionError("edit frame has the wrong shape or non-finite "
                              "values")
-    if launches != {"A": 4 * frames, "A_all": 4 * frames, "B": 2 * frames}:
-        raise AssertionError(f"expected 4 A and 2 B launches per edit frame, "
-                             f"got {launches} over {frames} frames")
+    # one capture over every edit frame: its run and its capture went
+    # through the wrappers, the replays did not
+    if made != 1 or launches != {"A": 2 * 4, "A_all": 2 * 4, "B": 2 * 2}:
+        raise AssertionError(f"expected one capture of 4 A and 2 B launches "
+                             f"over the edit frames, got {made} and "
+                             f"{launches}")
+    if (on_card["A"], on_card["A_all"], on_card["B"]) != (4, 4, 2):
+        raise AssertionError(f"expected 4 A and 2 B launches a replayed edit "
+                             f"frame on the card, got {on_card}")
     if not rt._scene_degraded():
         raise AssertionError("the sprayed scene did not degrade")
 
@@ -521,14 +560,13 @@ def edit_flythrough(dev, scene, scale, frames):
     n = w * h
     return dict(
         sprayed=dict(launches=launches["A"],
-                     launches_per_frame=launches["A"] / frames,
+                     launches_per_frame=on_card["A"],
                      max_abs_err=sprayed_err, ms=sprayed_ms,
                      plain_ms=sprayed_plain_ms,
                      **a_bound(n, after, after["n_step"])),
         stats=dict(launches=stats_launches,
-                   # no frame runs it: the frames' launches of other builds
-                   launches_per_frame=(launches["A_all"] - launches["A"])
-                   / frames,
+                   # no frame runs it: a replayed frame's other builds
+                   launches_per_frame=on_card["A_all"] - on_card["A"],
                    max_abs_err=stats_err, ms=stats_ms,
                    plain_ms=stats_plain_ms,
                    **a_bound(n, after, after["n_step"], stats=True)),
@@ -568,6 +606,28 @@ def read_counts():
     a = tile_tracer.grid_hit_tiles
     return {"A": a.build_launches["default"], "A_all": a.launches,
             "B": lookup.table_lookup.launches}
+
+
+def card_counts(launches, calls=1):
+    """`utils.profiling.kernel_launches`' counts of a trace, a call, in
+    `read_counts`' keys plus one key a build of kernel A."""
+    per = {k: v / calls for k, v in launches.items()}
+    return dict(per, A=per["default"], A_all=per["A"], B=per["B"])
+
+
+def card_launches(fn, calls=1):
+    """Kernel A and B launches a call of `fn` as the card ran them, counted
+    in a `torch.profiler` trace (`device_trace`; one more call runs before
+    the trace): a CUDA graph's replay runs its kernels without calling a
+    wrapper, so the wrappers' counters (`read_counts`) miss them."""
+    return device_trace(fn, calls)["launches"]
+
+
+def captures():
+    """CUDA graph captures made by the port's compiled steps so far."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    return GraphedCall.captures
 
 
 def halo_check(dev, width, height):
@@ -763,7 +823,8 @@ def config5(dev, scale=1.0, frames=None):
     reset_counts()
     whole_ms = step_times(unsharded, frames)
     whole = read_counts()
-    busy_ms, busy_events = device_busy_ms(unsharded, frames)
+    busy = device_trace(unsharded, frames)
+    busy_ms, busy_events = busy["busy_ms"], busy["events"]
     dev_ms, wall_ms = (float(np.median(v)) for v in zip(*whole_ms))
     log("config 5", step="unsharded render_image", frames=frames,
         median_device_ms=f"{dev_ms:.3f}", median_wall_ms=f"{wall_ms:.3f}",
@@ -801,7 +862,8 @@ def config5(dev, scale=1.0, frames=None):
                            for v in zip(*step_times(run, frames)))
         counts = read_counts()
         steps = 2 * frames + 1
-        busy_ms, busy_events = device_busy_ms(run, frames)
+        busy = device_trace(run, frames)
+        busy_ms, busy_events = busy["busy_ms"], busy["events"]
         shard = {k: counts[k] / (m.size * steps) for k in ("A", "B")}
         total = {k: total[k] + counts[k] for k in total}
         log("config 5", mesh=label, shards=m.size, replicas=len(m.distinct),
@@ -913,17 +975,21 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
         rt.tables()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        first = rt.render().clone()  # a frame before the timed ones
+        reset_counts()
+        c0 = captures()
+        first = rt.render().clone()  # the capture frame, before the timed
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
         timed = configs._timed_frames(rt, n_frames)
         counts = read_counts()
-        rendered = n_frames + 1  # with _timed_frames' warm-up
+        made = captures() - c0
+        # a replayed frame on the card (two renders: the trace's and one
+        # before it)
+        on_card = card_launches(rt.render)
         image = rt.render()
         torch.cuda.synchronize()
         total = {k: total[k] + counts[k] for k in total}
-        per_frame[number] = {k: counts[k] / rendered for k in ("A", "B")}
+        per_frame[number] = {k: on_card[k] for k in ("A", "B")}
         w, h = rt.internal_resolution
         d = rt.camera.d_camera
         spp, levels = int(d.samples_per_pixel), int(d.max_bounce)
@@ -935,6 +1001,7 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
             bounce_levels=levels, sun=bool(rt.sun.device_data.enabled),
             denoiser=bool(rt.denoiser.enabled), temporal=rt.temporal_enabled,
             max_steps=rt.trace_config.max_steps, frames=n_frames,
+            captures=made, launches_A=counts["A"], launches_B=counts["B"],
             ms_per_frame=f"{timed['ms_per_frame']:.3f}",
             fps=f"{timed['fps']:.2f}",
             mrays_per_s=f"{timed['mrays_per_s']:.1f}",
@@ -948,14 +1015,22 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
         if (img.shape != (oh, ow, 3) or not np.isfinite(img).all()
                 or img.min() < 0.0 or img.max() > 1.0):
             raise AssertionError(f"config {number}: wrong shape or range")
-        if counts != {"A": per * rendered, "A_all": per * rendered,
-                      "B": levels * rendered}:
+        # the capture frame's run and capture through the wrappers; the
+        # timed frames are replays
+        if made != 1 or counts != {"A": 2 * per, "A_all": 2 * per,
+                                   "B": 2 * levels}:
+            raise AssertionError(f"config {number}: expected one capture of "
+                                 f"{per} A and {levels} B launches, got "
+                                 f"{made} and {counts}")
+        if (on_card["A"], on_card["A_all"], on_card["B"]) != (per, per,
+                                                             levels):
             raise AssertionError(f"config {number}: expected {per} A and "
-                                 f"{levels} B launches a frame, got {counts}")
+                                 f"{levels} B launches a replayed frame on "
+                                 f"the card, got {on_card}")
         moved = (image - first).abs().mean().item()
         # one more frame, its launches against their plain versions
-        _, e, rows, _ = check_frame_launches(f"config {number}", rt.render,
-                                             per, levels)
+        _, e, rows, _ = check_frame_launches(f"config {number}",
+                                             rt.render_op_by_op, per, levels)
         err = max(err, e)
         log(f"config {number}", frame_launches=json.dumps(
             rows, separators=(",", ":")))
@@ -965,14 +1040,16 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
         log("config 4", accum_count=rt._accum_count,
             mean_abs_accumulated_minus_first=f"{moved:.3e}",
             emissive_lanes_per_launch=seen)
-        if rt._accum_count != n_frames + 4 or not moved > 0:
+        # the capture frame, _timed_frames' warm-up and frames, the two of
+        # the trace, one more, the op-by-op frame
+        if rt._accum_count != n_frames + 6 or not moved > 0:
             raise AssertionError("config 4: the accumulated frame did not "
                                  "move")
         # The benchmark's camera may see no emissive voxel, so the same
         # engine also renders from the pose that looks at the block.
         configs.look_at_emissive_block(rt)
         _, e, rows, _ = check_frame_launches(
-            "config 4, the block in view", rt.render, per, levels)
+            "config 4, the block in view", rt.render_op_by_op, per, levels)
         err = max(err, e)
         seen = [r["emissive"] for r in rows]
         log("config 4", pose="the block in view", frame_launches=json.dumps(
@@ -1037,14 +1114,18 @@ def shadow_probe(rt, rays, active, key):
     base = rt.trace_config
     images = {}
     ms_lists = {False: [], True: []}
-    counts = {False: {}, True: {}}
+    counts = {False: {}, True: {}}  # through the wrappers
+    made = {False: 0, True: 0}
+    on_card = {}  # a replayed frame of each, traced
     # in turns (separate, in kernel, in kernel, separate): the frames are
-    # host-bound and drift between groups
+    # host-bound and drift between groups. sun_in_kernel is in the step's
+    # key: a group whose key is not the cached step's captures it anew.
     for probe in (False, True, True, False):
         rt.trace_config = dataclasses.replace(base, sun_in_kernel=probe)
-        rt.draw()  # warm-up
         tile_tracer.reset_launch_counts()
         lookup.table_lookup.launches = 0
+        c0 = captures()
+        rt.draw()  # warm-up
         for _ in range(PROBE_FRAMES):
             e0, e1, _ = frame_events()
             e0.record()
@@ -1052,30 +1133,44 @@ def shadow_probe(rt, rays, active, key):
             e1.record()
             torch.cuda.synchronize()
             ms_lists[probe].append(e0.elapsed_time(e1))
+        made[probe] += captures() - c0
         for name, n in dict(tile_tracer.grid_hit_tiles.build_launches,
                             B=lookup.table_lookup.launches).items():
             counts[probe][name] = counts[probe].get(name, 0) + n
+        if probe not in on_card:
+            on_card[probe] = card_launches(rt.render)
     rt.trace_config = base
     timing = {k: float(np.median(v)) for k, v in ms_lists.items()}
     diff = (images[True] - images[False]).abs().amax(-1)
     share = (diff > 1e-3).float().mean().item()
     log("shadow", frame_ms_separate=f"{timing[False]:.3f}",
         frame_ms_in_kernel=f"{timing[True]:.3f}",
-        frames_each=2 * PROBE_FRAMES,
+        frames_each=2 * PROBE_FRAMES, captures=json.dumps(made),
         launches_separate=json.dumps(counts[False], separators=(",", ":")),
         launches_in_kernel=json.dumps(counts[True], separators=(",", ":")),
+        replayed_frame_on_card_separate=json.dumps(
+            on_card[False], separators=(",", ":")),
+        replayed_frame_on_card_in_kernel=json.dumps(
+            on_card[True], separators=(",", ":")),
         share_over_1e_3=share,
         bit_equal=bool(torch.equal(images[True], images[False])))
     if share >= 0.01:
         raise AssertionError("sun_in_kernel frame differs from the separate "
                              "shadow launches")
-    f = 2 * PROBE_FRAMES
-    if (counts[True]["shadow"] != 3 * f or counts[True]["default"] != 0
-            or counts[False]["default"] != 6 * f or counts[False]["shadow"]
-            or counts[True]["B"] != 3 * f):
-        raise AssertionError(f"unexpected launch counts {counts}")
+    # a replayed frame: 3 shadow A launches in kernel, 6 default A
+    # separately, 3 B either way; through the wrappers, each capture's run
+    # and capture of the same
+    want = {True: {"shadow": 3, "default": 0, "B": 3},
+            False: {"shadow": 0, "default": 6, "B": 3}}
+    for probe, w in want.items():
+        got = {k: on_card[probe][k] for k in w}
+        wrapped = {k: counts[probe][k] for k in w}
+        if (made[probe] < 1 or got != w
+                or wrapped != {k: 2 * made[probe] * v for k, v in w.items()}):
+            raise AssertionError(f"unexpected launch counts: captures {made}, "
+                                 f"wrappers {counts}, on the card {on_card}")
     return dict(launches=counts[True]["shadow"],
-                launches_per_frame=counts[True]["shadow"] / f,
+                launches_per_frame=on_card[True]["shadow"],
                 max_abs_err=err, ms=ms, **bound,
                 plain_ms=plain_ms)
 
@@ -1119,11 +1214,13 @@ def flythrough(dev, scene, width, height):
     from zig_vulkan_tpu_torch.benchmarks import flythrough as fly_mod
 
     reset_counts()
+    c0 = captures()
     t0 = time.perf_counter()
     rep = fly_mod.fly(FLY_DT, dev, scene=scene,
                       config=fly_mod.default_workload(width=width,
                                                       height=height))
     counts = read_counts()
+    made = captures() - c0
     want = round(60.0 / FLY_DT)
     # mean ms over each of the path's 11 waypoint stretches, in path order
     stretches = [f"{np.mean(part) * 1e3:.1f}"
@@ -1133,17 +1230,19 @@ def flythrough(dev, scene, width, height):
         min_ms=f"{rep.min_delta_time * 1e3:.3f}",
         max_ms=f"{rep.max_delta_time * 1e3:.3f}",
         avg_ms=f"{rep.average() * 1e3:.3f}",
-        launches_A=counts["A"], launches_B=counts["B"],
+        captures=made, launches_A=counts["A"], launches_B=counts["B"],
         seconds=f"{time.perf_counter() - t0:.2f}")
     if rep.delta_time_sum_samples != want or not np.isfinite(rep.average()):
         raise AssertionError(f"the fly-through reported "
                              f"{rep.delta_time_sum_samples} frames, not "
                              f"{want}")
-    # a warm-up frame, frame 0 (no sample) and the reported frames
-    renders = want + 2
-    if counts != {"A": 6 * renders, "A_all": 6 * renders, "B": 3 * renders}:
-        raise AssertionError(f"expected 6 A and 3 B launches a frame over "
-                             f"{renders} frames, got {counts}")
+    # one capture (the warm-up frame) for every frame of the path: its run
+    # and its capture went through the wrappers, the 121 replays did not
+    # (phases 6 and 20 count a replayed frame's launches on the card)
+    if made != 1 or counts != {"A": 2 * 6, "A_all": 2 * 6, "B": 2 * 3}:
+        raise AssertionError(f"expected one capture of 6 A and 3 B launches "
+                             f"over the fly-through, got {made} and "
+                             f"{counts}")
     return counts
 
 
@@ -1156,16 +1255,18 @@ def headline_bench(dev, scale):
     if scale != 1.0:
         argv += ["--scale", str(scale)]
     reset_counts()
+    c0 = captures()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = bench.main(argv)
     counts = read_counts()
+    made = captures() - c0
     lines = buf.getvalue().strip().splitlines()
     print(buf.getvalue().strip(), flush=True)
     rec = json.loads(lines[-1])
-    log("bench", exit_code=rc, launches_A=counts["A"], launches_B=counts["B"],
-        seconds=f"{time.perf_counter() - t0:.2f}")
+    log("bench", exit_code=rc, captures=made, launches_A=counts["A"],
+        launches_B=counts["B"], seconds=f"{time.perf_counter() - t0:.2f}")
     if rc != 0 or len(lines) != 1:
         raise AssertionError(f"the bench exited with {rc}")
     if not rec["value"] > 0 or rec["parity_vs_oracle"] < 0.995:
@@ -1173,10 +1274,14 @@ def headline_bench(dev, scale):
                              "parity")
     if dev.type == "cuda" and rec["kernel_a_launches_per_pose"] != 1:
         raise AssertionError("the bench did not launch kernel A once a pose")
-    # a warm-up pose, the timed poses, the parity rays; 13 default frames
-    a = 1 + BENCH_POSES + 1 + 13 * 6
-    if counts != {"A": a, "A_all": a, "B": 13 * 3}:
-        raise AssertionError(f"unexpected bench launches {counts}")
+    # through the wrappers: the pose frame's capture (its run and its
+    # capture), one pose op by op, the parity rays, and the default frame's
+    # capture (6 A and 3 B, twice); the timed poses and 12 default frames
+    # are replays (phase 20 traces both frames' replays on the card)
+    a = 2 + 1 + 1 + 2 * 6
+    if made != 2 or counts != {"A": a, "A_all": a, "B": 2 * 3}:
+        raise AssertionError(f"unexpected bench launches {counts} over "
+                             f"{made} captures")
     return counts
 
 
@@ -1216,6 +1321,233 @@ def entry_step(dev):
                              f"step, got {counts}")
     _, err, _, _ = check_frame_launches("entry", lambda: fn(*args), 4, 2)
     return dict(counts, max_abs_err=err)
+
+
+def _same(got, want):
+    import torch
+
+    if isinstance(want, dict):
+        return all(torch.equal(got[k], want[k]) for k in want)
+    return bool(torch.equal(got, want))
+
+
+def graph_pool_bytes(graph):
+    """Bytes of the segments of `graph`'s private memory pool (what a
+    captured step holds between replays), or None where the allocator's
+    snapshot does not name pools."""
+    import torch
+
+    pool = tuple(graph.pool())
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def step_case(label, pair, routes, graph, between=lambda i: None,
+              htod_replay=1):
+    """Phase 20, one case. `routes` = {"replay": ..., "op_by_op": ...}, one
+    frame each; `pair()` gives (replayed, op-by-op) results of one frame
+    from the same state; `graph()` the case's CUDAGraph; `between(i)` the
+    host's work before frame i, outside the timings (moves, edits). The
+    first frame is the capture frame. Kernel launches are counted two
+    ways: through the wrappers over the whole case (the capture frame's run
+    and capture, and the op-by-op frames), and on the card from the traces
+    of each route (a replay calls no wrapper). Returns the case's
+    numbers."""
+    import torch
+
+    c0 = captures()
+    reset_counts()
+    t_case = time.perf_counter()
+    between(0)
+    routes["replay"]()
+    torch.cuda.synchronize()
+    equal = []
+    frame = 1
+    for _ in range(STEP_EQUAL):
+        between(frame)
+        frame += 1
+        equal.append(_same(*pair()))
+    times = {name: [] for name in routes}
+    for name in ("op_by_op", "replay", "replay", "op_by_op"):
+        for _ in range(STEP_FRAMES):
+            between(frame)
+            frame += 1
+            torch.cuda.synchronize()
+            e0, e1, _ = frame_events()
+            t0 = time.perf_counter()
+            e0.record()
+            routes[name]()
+            e1.record()
+            torch.cuda.synchronize()
+            times[name].append((e0.elapsed_time(e1),
+                                (time.perf_counter() - t0) * 1e3))
+    peak = {}
+    for name, fn in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+    pool = graph_pool_bytes(graph())
+    traced = {name: device_trace(fn, TRACE_FRAMES)
+              for name, fn in routes.items()}
+    wrapped = read_counts()
+    made = captures() - c0
+    launches = {name: t["launches"] for name, t in traced.items()}
+    out = dict(bit_equal=all(equal), frames_compared=len(equal),
+               captures=made, frames=frame,
+               wrapper_launches_A=wrapped["A_all"],
+               wrapper_launches_B=wrapped["B"])
+    for name in routes:
+        dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times[name]))
+        t = traced[name]
+        out[name] = dict(
+            launches_A=launches[name]["A_all"], launches_B=launches[name]["B"],
+            median_device_ms=dev_ms, median_wall_ms=wall_ms,
+            device_busy_ms=t["busy_ms"], idle_share=1 - t["busy_ms"] / wall_ms,
+            device_events=t["events"], kernels=t["kernels"],
+            htod_copies=t["htod"], htod_pageable=t["htod_pageable"],
+            copies=json.dumps(t["copies"], separators=(",", ":")),
+            peak_allocated_bytes=peak[name])
+    out["replay"]["graph_pool_bytes"] = pool
+    log("step", case=label, bit_equal=out["bit_equal"],
+        frames_compared=len(equal), captures=made, frames=frame,
+        wrapper_launches_A=wrapped["A_all"], wrapper_launches_B=wrapped["B"],
+        seconds=f"{time.perf_counter() - t_case:.2f}")
+    for name in routes:
+        log("step", case=label, route=name, **{
+            k: (f"{v:.4f}" if isinstance(v, float) else v)
+            for k, v in out[name].items()})
+    if not out["bit_equal"]:
+        raise AssertionError(f"{label}: a replay differs from the op-by-op "
+                             f"body")
+    if made != 1:
+        raise AssertionError(f"{label}: {made} captures, expected one")
+    # on the card, a replay runs every launch of kernels A and B (each
+    # build) that the body op by op runs
+    if (launches["replay"] != launches["op_by_op"]
+            or not launches["replay"]["A_all"] > 0 or not wrapped["A_all"] > 0):
+        raise AssertionError(f"{label}: launches on the card differ between "
+                             f"the routes or are missing: {launches}, "
+                             f"{wrapped} through the wrappers")
+    if out["replay"]["htod_copies"] != htod_replay:
+        raise AssertionError(f"{label}: {out['replay']['htod_copies']} "
+                             f"host-to-device copies a replayed frame, "
+                             f"expected {htod_replay}")
+    return out
+
+
+def compiled_step(dev, scene, cfg, scale=1.0):
+    """Phase 20: the compiled step's six cases (see the module docstring).
+    Returns {case: numbers}."""
+    import torch
+
+    from zig_vulkan_tpu_torch.benchmarks import bench, configs
+    from zig_vulkan_tpu_torch.config import CameraConfig
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT, both_routes
+    from zig_vulkan_tpu_torch.ops import trace
+
+    cases = {}
+
+    def engine_case(label, rt, between=lambda i: None):
+        cases[label] = step_case(
+            label, lambda: both_routes(rt),
+            {"replay": rt.render, "op_by_op": rt.render_op_by_op},
+            lambda: rt.step().graphed.graph, between)
+
+    def move(rt):
+        def between(i):
+            rt.camera.turn_yaw(0.02)
+            rt.camera.translate(0.05, [0.0, 0.0, -1.0])
+        return between
+
+    rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
+    engine_case("default frame", rt, move(rt))
+    rt.set_denoiser(samples=8)
+    engine_case("default frame, denoiser samples 8", rt, move(rt))
+    del rt
+
+    rt = configs.build_config3(scale, dev, scene=scene)
+    edits = configs.EditStream(rt)
+    engine_case("config 3 edit frames", rt, edits)
+    del rt, edits
+
+    rt = configs.build_config4(scale, dev)
+    engine_case("config 4 temporal frames", rt)
+    del rt
+
+    c = configs.build_config5(scale, [dev])
+    engine_case("config 5 4K frame", c.rt)
+    del c
+
+    tables = VoxelRT(scene.grid, scene.materials, cfg, device=dev).tables()
+    st = scene.grid.static
+    w, h = configs.scaled_size(scale, 1920, 1080)
+    arrays = scene.grid.arrays.to_device(dev)
+    frame = bench.PoseFrame(st, tables, arrays.material_indices, w, h)
+    cam = Camera(75.0, w, h, CameraConfig(origin=(0.0, 0.0, 0.0)))
+    vecs = []
+    for p in PATH_POINTS:
+        cam.set_origin(p)
+        vecs.append(torch.from_numpy(trace.camera_basis(cam.d_camera))
+                    .to(dev))
+    pose = [vecs[0]]
+
+    def pair():
+        got = {k: v.clone() for k, v in frame(pose[0]).items()}
+        frame.camera.copy_(pose[0])
+        return got, frame.body(frame.camera)
+
+    def op_by_op():
+        frame.camera.copy_(pose[0])
+        return frame.body(frame.camera)
+
+    cases["bench pose frame"] = step_case(
+        "bench pose frame", pair,
+        {"replay": lambda: frame(pose[0]), "op_by_op": op_by_op},
+        lambda: frame.compiled.graph,
+        lambda i: pose.__setitem__(0, vecs[i % len(vecs)]), htod_replay=0)
+    return cases
+
+
+def default_frame_trace(dev, scene, cfg):
+    """`--default-frame-trace`: the default frame through `VoxelRT.render()`
+    with the camera moving, 5 timed frames (host clock to a synchronize)
+    and a trace of TRACE_FRAMES more: device-busy ms, idle share, device
+    events, kernels and host-to-device copies a frame."""
+    import torch
+
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+
+    rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
+
+    def frame():
+        rt.camera.turn_yaw(0.02)
+        rt.camera.translate(0.05, [0.0, 0.0, -1.0])
+        return rt.render()
+
+    for _ in range(2):
+        frame()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    t = device_trace(frame, TRACE_FRAMES)
+    wall_ms = float(np.median(wall))
+    log("trace", frame="VoxelRT.render(), default EngineConfig",
+        median_wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{t['busy_ms']:.3f}",
+        idle_share=f"{1 - t['busy_ms'] / wall_ms:.4f}",
+        device_events=t["events"], kernels=t["kernels"],
+        htod_copies=t["htod"], htod_pageable=t["htod_pageable"],
+        copies=json.dumps(t["copies"], separators=(",", ":")))
 
 
 def png_size(path):
@@ -1288,8 +1620,10 @@ HIT_KEYS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
 
 
 def check_frame_launches(label, frame, want_a, want_b):
-    """One call of `frame()` with its launches of kernels A and B captured;
-    each launch is then replayed on its own inputs, on its own device, and
+    """One call of `frame()` with its launches of kernels A and B captured
+    (an engine frame through `render_op_by_op`: a graph's replay calls no
+    wrapper); each launch is then replayed on its own inputs, on its own
+    device, and
     held bit for bit against its plain version (kernel B also against
     `torch.index_select`). `want_a` and `want_b` are the launches the frame
     must make. The replays move the launch counts: call it outside a
@@ -1339,25 +1673,41 @@ def check_frame_launches(label, frame, want_a, want_b):
     return image, err, rows, [args for args, _ in cap_b]
 
 
-def device_busy_ms(fn, frames):
-    """(device-busy ms, device events) per call of `fn`: the union of the
-    kernel, copy and memset intervals in a `torch.profiler` trace of
-    `frames` calls. The intervals are the card's own; the host runs slower
-    under the profiler, so an idle share is taken against wall time that
-    was measured without it."""
+TRACE_MARK = "chip_smoke: traced calls"
+
+
+def device_trace(fn, frames):
+    """The card's intervals in a `torch.profiler` trace of `frames` calls of
+    `fn`: {"busy_ms": the union of the kernel, copy and memset intervals a
+    call, "events": those intervals a call, "htod": host-to-device copies a
+    call, "htod_pageable": those from pageable memory, "kernels": kernels a
+    call, "copies": {copy or memset kind: count a call}, "launches": kernel
+    A and B launches a call (`card_counts`)}. One call runs
+    first, synchronized, outside the counted range (a trace's first
+    device records may be lost). The intervals are the card's own; the
+    host runs slower under the profiler, so an idle share is taken against
+    wall time that was measured without it."""
+    import collections
+
     import torch
 
     from zig_vulkan_tpu_torch.utils import profiling
 
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace_session(tmp):
-            for _ in range(frames):
-                fn()
+            fn()
             torch.cuda.synchronize()
+            with torch.profiler.record_function(TRACE_MARK):
+                for _ in range(frames):
+                    fn()
+                torch.cuda.synchronize()
         events = json.loads(Path(tmp, profiling.TRACE_FILE)
                             .read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    start = min(e["ts"] for e in events if e.get("name") == TRACE_MARK)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and e["ts"] >= start]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
     if not spans:
         raise AssertionError("the trace shows no activity on the card")
     busy, (lo, hi) = 0.0, spans[0]
@@ -1368,12 +1718,23 @@ def device_busy_ms(fn, frames):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    return busy / 1e3 / frames, len(spans) / frames
+    htod = [e["name"] for e in dev
+            if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    copies = collections.Counter(e["name"] for e in dev
+                                 if e["cat"] != "kernel")
+    launches = profiling.kernel_launches(e["name"] for e in dev
+                                         if e["cat"] == "kernel")
+    return dict(busy_ms=busy / 1e3 / frames, events=len(spans) / frames,
+                launches=card_counts(launches, frames),
+                htod=len(htod) / frames,
+                htod_pageable=sum("Pageable" in n for n in htod) / frames,
+                kernels=sum(e["cat"] == "kernel" for e in dev) / frames,
+                copies={k: v / frames for k, v in sorted(copies.items())})
 
 
 def frame_kernels(rt, reps: int = FRAME_REPS):
-    """Phase 6b: the kernel A and kernel B launches of one `rt.draw()`,
-    captured and replayed one by one: each against its plain version, bit
+    """Phase 6b: the kernel A and kernel B launches of one frame of `rt`'s
+    step run op by op, captured and replayed one by one: each against its plain version, bit
     for bit; device time warm and after an L2 flush; for A, the stats
     build's steps over the active lanes, the warp-use shares (lanes in
     launch order, and the active lanes packed together), and the launch's
@@ -1389,7 +1750,7 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
     cap_a, cap_b = [], []
     with capturing(tile_tracer, "grid_hit_tiles", cap_a, keep=(0, 1, 2)), \
             capturing(trace, "table_lookup", cap_b, keep=(0,)):
-        rt.draw()
+        rt.render_op_by_op()
     levels = int(rt.camera.d_camera.max_bounce)
     per = frame_launches_per_level(rt)
     if len(cap_a) != levels * per or len(cap_b) != levels:
@@ -1594,10 +1955,13 @@ def oracle_parity(dev, scene, rt, poses_1080):
                              "oracle")
 
     # RGB of the exact path on the default scene, through the engine (the
-    # NO_SKIP build's main path: launches counted from 0 over these frames)
+    # NO_SKIP build's main path: launches counted from 0 over these frames;
+    # each engine's one frame is its step's capture frame, whose run and
+    # capture go through the wrappers)
     w, h = RGB_RES
     counts = {"exact": 0, "other_A": 0, "B": 0, "expected_A": 0,
-              "expected_B": 0}
+              "expected_B": 0, "captures": 0}
+    path_frame_launches = None
     for i in RGB_POSES:
         origin = tuple(float(v) for v in PATH_POINTS[i])
         for primary in (True, False):
@@ -1612,17 +1976,20 @@ def oracle_parity(dev, scene, rt, poses_1080):
             ert.tables()
             tile_tracer.reset_launch_counts()
             lookup.table_lookup.launches = 0
+            c0 = captures()
             img = ert.render()
             torch.cuda.synchronize()
             a = tile_tracer.grid_hit_tiles
             counts["exact"] += a.build_launches["exact"]
-            if not primary:
-                path_frame_launches = a.build_launches["exact"]
             counts["other_A"] += a.launches - a.build_launches["exact"]
             counts["B"] += lookup.table_lookup.launches
+            counts["captures"] += captures() - c0
             levels = int(ert.camera.d_camera.max_bounce)
-            counts["expected_A"] += levels * frame_launches_per_level(ert)
-            counts["expected_B"] += levels
+            counts["expected_A"] += 2 * levels * frame_launches_per_level(ert)
+            counts["expected_B"] += 2 * levels
+            if not primary and path_frame_launches is None:
+                # a replayed path-traced frame, traced on the card
+                path_frame_launches = card_launches(ert.render)["exact"]
             got = img.cpu().numpy()
             want = oracle.render(osc, ert.camera.d_camera, ert.sun.device_data)
             share, mean, mx, signed = frame_diff(got, want)
@@ -1649,8 +2016,12 @@ def oracle_parity(dev, scene, rt, poses_1080):
     log("oracle rgb", launches=json.dumps(counts, separators=(",", ":")),
         seconds=f"{time.perf_counter() - t0:.2f}")
     if (counts["exact"] != counts["expected_A"] or counts["other_A"]
-            or counts["B"] != counts["expected_B"]):
-        raise AssertionError(f"unexpected launch counts {counts}")
+            or counts["B"] != counts["expected_B"]
+            or counts["captures"] != 2 * len(RGB_POSES)
+            or path_frame_launches != 2 * 3):
+        raise AssertionError(f"unexpected launch counts {counts}, "
+                             f"{path_frame_launches} exact launches a "
+                             f"replayed path-traced frame")
 
     # NO_SKIP against the default build on the 1080p primary rays, in turns
     hon = torch.ones(poses_1080[0][0].shape[0], dtype=torch.bool, device=dev)
@@ -1728,7 +2099,9 @@ def app_phase(app_args):
         with tempfile.TemporaryDirectory() as tmp:
             tile_tracer.reset_launch_counts()
             lookup.table_lookup.launches = 0
+            c0 = captures()
             _, secs, rt = run("--frames", "8", "--out", f"{tmp}/frames")
+            made = captures() - c0
             a = tile_tracer.grid_hit_tiles
             launches = {"A": a.build_launches["default"], "A_all": a.launches,
                         "B": lookup.table_lookup.launches}
@@ -1737,13 +2110,18 @@ def app_phase(app_args):
             levels = int(rt.camera.d_camera.max_bounce)
             per = levels * frame_launches_per_level(rt)
             log("app", mode="frames", frames=len(pngs), png_sizes=sizes,
+                captures=made,
                 launches=json.dumps(launches, separators=(",", ":")),
                 seconds=f"{secs:.2f}")
             if len(pngs) != 8 or sizes != [rt.output_resolution]:
                 raise AssertionError("the app did not write 8 frames of the "
                                      "output size")
-            if launches != {"A": 8 * per, "A_all": 8 * per, "B": 8 * levels}:
-                raise AssertionError(f"unexpected app launches {launches}")
+            # 8 frames of one step: its capture frame's run and capture
+            # through the wrappers, then 7 replays
+            if made != 1 or launches != {"A": 2 * per, "A_all": 2 * per,
+                                         "B": 2 * levels}:
+                raise AssertionError(f"unexpected app launches {launches} "
+                                     f"over {made} captures")
 
             _, secs, rt = run("--script", "demo", "--frames", "8")
             ft = np.asarray(rt.metrics.frame_times) * 1e3
@@ -1936,9 +2314,13 @@ def host_io(dev, scene, rt8, cfg):
         raise AssertionError("the native builder's terrain differs")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--default-frame-trace"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1947,7 +2329,16 @@ def main() -> int:
     from zig_vulkan_tpu_torch.config import EngineConfig
     from zig_vulkan_tpu_torch.models import scenes
 
-    return smoke(torch.device("cuda"), scenes.default_scene, EngineConfig())
+    dev = torch.device("cuda")
+    if argv:
+        card = device_and_build()
+        default_frame_trace(dev, scenes.default_scene(), EngineConfig())
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    return smoke(dev, scenes.default_scene, EngineConfig())
 
 
 def device_and_build():
@@ -2191,40 +2582,56 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     torch.cuda.reset_peak_memory_stats()
     tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
-    rt.draw()  # warm-up frame
+    c0 = captures()
+    rt.draw()  # warm-up frame: the step's capture
+
+    def move_and_draw():
+        rt.camera.turn_yaw(0.02)
+        rt.camera.translate(0.05, [0.0, 0.0, -1.0])
+        return rt.draw()
+
     frame_ms = []
     image = None
     for _ in range(frames):
-        rt.camera.turn_yaw(0.02)
-        rt.camera.translate(0.05, [0.0, 0.0, -1.0])
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        image = rt.draw()
+        image = move_and_draw()
         end.record()
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
+    # the wrappers launched the capture frame's kernels twice (its run and
+    # its capture); the replays call no wrapper
     launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "B": lookup.table_lookup.launches}
+    made = captures() - c0
     if tile_tracer.grid_hit_tiles.launches != launches["A"]:
         raise AssertionError("the default frame launched another build of A")
     peak = torch.cuda.max_memory_allocated()
     frames += 1  # with the warm-up
+    # what a replayed frame runs on the card, from a trace of two
+    on_card = card_launches(move_and_draw, 2)
     img = image.cpu().numpy()
     colours = len(np.unique((img * 255).astype(np.uint8).reshape(-1, 3),
                             axis=0))
     log("frame", frames=frames, median_ms=f"{np.median(frame_ms):.3f}",
         min_ms=f"{min(frame_ms):.3f}", max_ms=f"{max(frame_ms):.3f}",
-        peak_bytes=peak, launches_A=launches["A"], launches_B=launches["B"],
+        peak_bytes=peak, captures=made, launches_A=launches["A"],
+        launches_B=launches["B"], replayed_frame_on_card_A=on_card["A_all"],
+        replayed_frame_on_card_B=on_card["B"],
         shape=list(img.shape), distinct_colours=colours,
         min=float(img.min()), max=float(img.max()))
     if img.shape != (ih, iw, 3) or not np.isfinite(img).all():
         raise AssertionError("frame has the wrong shape or non-finite values")
     if img.min() < 0.0 or img.max() > 1.0 or colours <= 64:
         raise AssertionError("frame out of [0, 1] or nearly uniform")
-    if launches != {"A": 6 * frames, "B": 3 * frames}:
-        raise AssertionError(f"expected 6 A and 3 B launches per frame, "
-                             f"got {launches} over {frames} frames")
+    if made != 1 or launches != {"A": 2 * 6, "B": 2 * 3}:
+        raise AssertionError(f"expected one capture of 6 A and 3 B launches "
+                             f"(its run and its capture), got {made} and "
+                             f"{launches}")
+    if (on_card["A"], on_card["A_all"], on_card["B"]) != (6, 6, 3):
+        raise AssertionError(f"expected 6 A and 3 B launches a replayed "
+                             f"frame on the card, got {on_card}")
 
     # -- 6b. the frame's kernel launches, one by one --------------------------------
     t0 = time.perf_counter()
@@ -2303,6 +2710,12 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 18. the headline bench, 19. the entry step ---------------------------------
     bench_counts = headline_bench(dev, scale)
     entry_counts = entry_step(dev)
+
+    # -- 20. the compiled step ---------------------------------------------------------
+    t0 = time.perf_counter()
+    steps = compiled_step(dev, scene, cfg, scale)
+    log("step", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+    default_step = steps["default frame"]
     # the default build's and kernel B's launches of phases 11, 15, 17, 18
     # and 19 (config 5's stand in rows of their own)
     later = {k: sum(c[k] for c in (fly_counts, mesh_counts, config_counts,
@@ -2319,14 +2732,21 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     src_a = "zig_vulkan_tpu_torch/csrc/traverse.cu"
     kernels = [
-        # launches_per_frame: counted in the frame that runs the build (the
-        # default frame; config 3's edit frame for the sprayed scene; a
-        # sun_in_kernel frame; none for the diagnostic stats build; a
-        # path-traced empty_skip=False frame)
+        # launches: through the wrapper, in the main path's run (its step's
+        # run and capture) and the later phases', as counted; a replay calls
+        # no wrapper. launches_per_frame: a replayed frame that runs the
+        # build, on the card in a profiler trace (the default frame; config
+        # 3's edit frame for the sprayed scene; a sun_in_kernel frame; none
+        # for the diagnostic stats build; a path-traced empty_skip=False
+        # frame); launches_per_replayed_frame and _per_op_by_op_frame: phase
+        # 20's traces of the default frame
         dict(name="traverse (kernel A, default build)", route="cuda",
              source=src_a, replaces="zig_vulkan_tpu/ops/tile_tracer.py:367",
              launches=launches["A"] + later["A"],
-             launches_per_frame=launches["A"] / frames,
+             launches_per_frame=on_card["A"],
+             launches_per_replayed_frame=default_step["replay"]["launches_A"],
+             launches_per_op_by_op_frame=default_step["op_by_op"][
+                 "launches_A"],
              launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
                  "A"],
              launches_per_frame_configs_1_2_4=per_frame["A"],
@@ -2354,7 +2774,10 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
              source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29",
              launches=launches["B"] + later["B"],
-             launches_per_frame=launches["B"] / frames,
+             launches_per_frame=on_card["B"],
+             launches_per_replayed_frame=default_step["replay"]["launches_B"],
+             launches_per_op_by_op_frame=default_step["op_by_op"][
+                 "launches_B"],
              launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
                  "B"],
              launches_per_frame_configs_1_2_4=per_frame["B"],

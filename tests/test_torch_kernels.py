@@ -22,9 +22,10 @@ import torch
 from zig_vulkan_tpu_torch import _build
 from zig_vulkan_tpu_torch.config import EngineConfig, TraceConfig
 from zig_vulkan_tpu_torch.core import grid as grid_mod
-from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+from zig_vulkan_tpu_torch.engine.engine import VoxelRT, both_routes
 from zig_vulkan_tpu_torch.models import scenes
 from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+from zig_vulkan_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -156,13 +157,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(scene_on_card, card):
 @pytest.mark.cuda
 def test_frame_launches_each_kernel(scene_on_card):
     """One frame at max_bounce 2 (3 bounce levels), sun on: 6 launches of
-    kernel A (scatter + shadow per level) and 3 of kernel B."""
+    kernel A (scatter + shadow per level) and 3 of kernel B, counted
+    through the wrappers on the step's body op by op (a replay of the
+    same step runs them without calling a wrapper)."""
     rt = scene_on_card
     a0 = tile_tracer.grid_hit_tiles.launches
     b0 = lookup.table_lookup.launches
-    img = rt.draw()
+    rt.render_op_by_op()
     assert tile_tracer.grid_hit_tiles.launches - a0 == 6
     assert lookup.table_lookup.launches - b0 == 3
+    img = rt.draw()
     assert img.shape == (144, 256, 3) and img.is_cuda
     assert bool(torch.isfinite(img).all())
     cpu = img.cpu().numpy()
@@ -282,16 +286,18 @@ def test_kernel_a_matches_plain_on_a_sprayed_scene(card):
 @pytest.mark.cuda
 def test_frame_with_sun_in_kernel(scene_on_card):
     """sun_in_kernel: 3 launches of the shadow build per frame at
-    max_bounce 2 and none of the default build, and the same image."""
+    max_bounce 2 and none of the default build (the body op by op), and
+    the same image."""
     rt = scene_on_card
     separate = rt.draw()
-    before = dict(tile_tracer.grid_hit_tiles.build_launches)
     rt.trace_config = TraceConfig(sun_in_kernel=True)
     try:
+        before = dict(tile_tracer.grid_hit_tiles.build_launches)
+        rt.render_op_by_op()
+        after = dict(tile_tracer.grid_hit_tiles.build_launches)
         img = rt.draw()
     finally:
         rt.trace_config = TraceConfig()
-    after = tile_tracer.grid_hit_tiles.build_launches
     assert after["shadow"] - before["shadow"] == 3
     assert after["default"] == before["default"]
     assert torch.equal(img, separate)
@@ -346,8 +352,9 @@ def test_exact_frame_launches_the_exact_build(card):
         internal_resolution_width=96, internal_resolution_height=54,
         trace=TraceConfig(empty_skip=False)), device=card)
     before = dict(tile_tracer.grid_hit_tiles.build_launches)
+    rt.render_op_by_op()  # one frame, each launch through its wrapper
+    after = dict(tile_tracer.grid_hit_tiles.build_launches)
     img = rt.draw()
-    after = tile_tracer.grid_hit_tiles.build_launches
     assert after["exact"] - before["exact"] == 6
     assert after["default"] == before["default"]
     assert bool(torch.isfinite(img).all())
@@ -647,3 +654,172 @@ def test_kernel_a_under_a_non_default_stream_and_on_a_second_card(
     for k in want:
         assert got[k].device == other
         assert torch.equal(got[k].to(card), want[k]), k
+
+
+# -- the compiled frame step (engine.step): replays on the card ------------------
+
+def _step_engine(card, temporal=False):
+    sc = scenes.default_scene(dims=(64, 32, 64))
+    rt = VoxelRT(sc.grid, sc.materials, EngineConfig(
+        internal_resolution_width=256, internal_resolution_height=144,
+        output_resolution_width=320, output_resolution_height=180),
+        device=card)
+    rt.set_temporal(temporal)
+    return rt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [False, True])
+def test_replay_equals_the_op_by_op_body(card, temporal):
+    """After the capture frame, every replay equals the step's body run op
+    by op on the same push constants, bit for bit; one capture."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card, temporal)
+    before = GraphedCall.captures
+    first = rt.render()
+    for i in range(3):
+        if not temporal:
+            rt.camera.turn_yaw(0.05)
+            rt.update_sun(0.5)
+        got, want = both_routes(rt)
+        assert torch.equal(got, want), i
+    assert GraphedCall.captures == before + 1
+    assert not torch.equal(got, first)
+    if temporal:
+        assert rt._accum_count == 4
+
+
+@pytest.mark.cuda
+def test_one_capture_over_frames_with_edits(card):
+    """Edits between frames write the scene in place: each replay shows
+    them through the one graph, equal to the op-by-op body."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card)
+    before = GraphedCall.captures
+    rt.render()
+    rng = np.random.default_rng(7)
+    vx, vy, vz = rt.grid_static.voxel_dims
+    for i in range(4):
+        xyz = np.stack([rng.integers(0, vx, 512), rng.integers(0, vy, 512),
+                        rng.integers(0, vz, 512)], -1)
+        if i % 2 == 0:
+            rt.insert_voxels(xyz, rng.integers(1, 8, 512).astype(np.uint8))
+        else:
+            rt.remove_voxels(xyz)
+        got, want = both_routes(rt)
+        assert torch.equal(got, want), i
+    assert GraphedCall.captures == before + 1
+
+
+def _card_launches(fn, calls):
+    """Kernel launches a call of `fn` as a torch.profiler trace of the card
+    shows them (`utils.profiling.kernel_launches`)."""
+    import json
+    import tempfile
+
+    fn()  # outside the trace: its first device records may be lost
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace_session(tmp):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with open(f"{tmp}/{profiling.TRACE_FILE}") as f:
+            events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {k: v / calls for k, v in profiling.kernel_launches(names).items()}
+
+
+@pytest.mark.cuda
+def test_launch_counters_after_replays(card):
+    """The counters move where a wrapper launches its kernel: in the
+    capture frame's warm-up and capture (6 A and 3 B each, a default frame
+    of 3 levels with the sun) and op by op, never on a replay. A trace of
+    the card shows each replay running the same 6 A and 3 B launches."""
+    rt = _step_engine(card)
+    tile_tracer.reset_launch_counts()
+    lookup.table_lookup.launches = 0
+    rt.render()
+    torch.cuda.synchronize()
+    assert tile_tracer.grid_hit_tiles.launches == 12
+    assert lookup.table_lookup.launches == 6
+    for _ in range(5):
+        rt.render()
+    torch.cuda.synchronize()
+    assert tile_tracer.grid_hit_tiles.launches == 12
+    assert tile_tracer.grid_hit_tiles.build_launches["default"] == 12
+    assert lookup.table_lookup.launches == 6
+    replayed = _card_launches(rt.render, 3)
+    assert (replayed["A"], replayed["default"], replayed["B"]) == (6, 6, 3)
+    assert tile_tracer.grid_hit_tiles.launches == 12
+    assert _card_launches(rt.render_op_by_op, 1) == replayed
+    # two op-by-op frames: the trace's and the one before it
+    assert tile_tracer.grid_hit_tiles.launches == 12 + 2 * 6
+    assert lookup.table_lookup.launches == 6 + 2 * 3
+
+
+@pytest.mark.cuda
+def test_denoiser_sweep_keeps_one_graph(card):
+    """Each denoiser value is a key and a capture; the engine keeps the
+    current key's step alone, so the memory the graphs hold stays flat
+    over a sweep of values."""
+    rt = _step_engine(card)
+    held = []
+    for i in range(6):
+        rt.set_denoiser(distribution_bias=0.05 * (i + 1))
+        rt.render()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(card))
+        assert len(rt._step_cache) == 1
+    assert max(held[2:]) <= held[1]
+
+
+@pytest.mark.cuda
+def test_step_captures_on_a_second_card(card):
+    """An engine on `cuda:1` captures and replays its step there while
+    `cuda:0` is the current device: each replay equals its body op by op."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    other = torch.device("cuda:1")
+    assert torch.cuda.current_device() == 0
+    rt = _step_engine(other)
+    before = GraphedCall.captures
+    first = rt.render()
+    assert first.device == other
+    for _ in range(2):
+        rt.camera.turn_yaw(0.05)
+        got, want = both_routes(rt)
+        assert got.device == other and torch.equal(got, want)
+    assert GraphedCall.captures == before + 1
+    assert rt.step().graphed.graph is not None
+
+
+@pytest.mark.cuda
+def test_pose_frame_replays_equal_its_body(card):
+    """The bench's compiled pose frame: each replay equals the body on the
+    same vectors; the body makes one kernel A launch, a replay none through
+    the wrapper."""
+    from zig_vulkan_tpu_torch.benchmarks import bench
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.config import CameraConfig
+
+    rt = _step_engine(card)
+    frame = bench.PoseFrame(rt.grid_static, rt.tables(),
+                            rt.arrays.material_indices, 320, 180)
+    cam = Camera(75.0, 320, 180, CameraConfig(origin=(0.0, 0.0, 0.0)))
+    frame(torch.from_numpy(trace.camera_basis(cam.d_camera)).to(card))
+    for p in ((2.0, 5.0, 0.0), (10.0, -20.0, 15.0)):
+        cam.set_origin(p)
+        vec = torch.from_numpy(trace.camera_basis(cam.d_camera)).to(card)
+        before = tile_tracer.grid_hit_tiles.launches
+        got = {k: v.clone() for k, v in frame(vec).items()}
+        assert tile_tracer.grid_hit_tiles.launches == before  # a replay
+        want = frame.body(vec)
+        assert tile_tracer.grid_hit_tiles.launches == before + 1
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k

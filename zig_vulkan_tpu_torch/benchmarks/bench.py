@@ -13,15 +13,20 @@ prints ONE JSON line:
   the fly-through path makes its camera rays from camera vectors that were
   uploaded before the timed loop, normalizes them and traces them through
   `grid_hit_tiles` (one kernel A launch a pose); the poses are chained and
-  synchronized once; the host's clock.
+  synchronized once; the host's clock. The pose frame is compiled as the
+  reference's `make_frame` is (`PoseFrame`): captured once as a CUDA graph
+  that reads the pose's camera vectors from a static device buffer, then
+  a device-to-device copy of each pose's vectors and a replay.
 - `parity_vs_oracle`: the share of 48x48 subsampled rays of pose 0 on
   which the compiled kernel and the numpy oracle agree (same `found`, and
   `t` within 1e-2 where both hit). The skip path may flip grazing voxels
   in under 0.5% of lanes.
 - `default_frame_ms`: the default workload through the engine, 12 chained
   frames with a static sun.
-- `kernel_a_launches_per_pose`: kernel A launches counted over the timed
-  poses, a pose (1 on a card; 0 on the CPU, where the plain version runs).
+- `kernel_a_launches_per_pose`: kernel A launches of one pose frame run
+  op by op after the timed poses, counted by the wrapper (1 on a card; 0
+  on the CPU, where the plain version runs); each replay runs the same
+  launches without calling the wrapper.
 
 A phase that fails is not swallowed: the line then carries `value` 0 and a
 note, and the exit code is 1. `--timeout` bounds the whole run the same
@@ -47,6 +52,7 @@ from ..core.camera import Camera
 from ..core.materials import MAT_NONE
 from ..engine.benchmark import PATH_POINTS
 from ..engine.engine import VoxelRT, device_name
+from ..engine.step import GraphedCall
 from ..models import scenes
 from ..ops import tile_tracer
 from ..ops import trace as trace_mod
@@ -116,6 +122,39 @@ def _parity_check(sc, tables, material_indices, width: int,
     return rate
 
 
+class PoseFrame:
+    """The bench's compiled pose frame (the counterpart of `bench.py:
+    make_frame`, 190-200): a pose's camera rays, read from the static
+    f32[12] buffer `camera`, their normalization and one kernel A launch,
+    captured once as a CUDA graph (`engine.step.GraphedCall`; the body op
+    by op on the CPU). Calling it with a pose's vectors (an f32[12] device
+    tensor of `ops.trace.camera_basis`) copies them into the buffer and
+    runs the frame; the hits it returns are the graph's static outputs,
+    which the next pose overwrites."""
+
+    def __init__(self, static, tables, material_indices, width: int,
+                 height: int):
+        self.static, self.tables = static, tables
+        self.material_indices = material_indices
+        self.width, self.height = width, height
+        dev = tables.device
+        self.camera = torch.zeros(12, dtype=torch.float32, device=dev)
+        self.on = torch.ones(width * height, dtype=torch.bool, device=dev)
+        self.compiled = GraphedCall(self.body, self.camera)
+
+    def body(self, camera):
+        r = trace_mod._camera_rays_soa(trace_mod.basis_views(camera),
+                                       self.width, self.height, 0)
+        rays = (a.contiguous() for a in (*r[:3], *trace_mod._norm3(*r[3:])))
+        return tile_tracer.grid_hit_tiles(self.static, self.tables,
+                                          self.material_indices, *rays,
+                                          self.on)
+
+    def __call__(self, vectors):
+        self.camera.copy_(vectors)
+        return self.compiled()
+
+
 def _headline(sc, device, frames: int, width: int, height: int):
     """(Mray/s of the poses, kernel A launches a pose, parity) of the
     primary-ray pass."""
@@ -124,7 +163,7 @@ def _headline(sc, device, frames: int, width: int, height: int):
     tables = trace_mod.build_trace_tables(
         static, arrays, trace_mod.distance_field(static, arrays, True))
     mat_idx = arrays.material_indices
-    on = torch.ones(width * height, dtype=torch.bool, device=device)
+    frame = PoseFrame(static, tables, mat_idx, width, height)
 
     # the camera bases along the path, uploaded outside the timed loop
     cam = Camera(75.0, width, height, CameraConfig(origin=(0.0, 0.0, 0.0)))
@@ -133,25 +172,24 @@ def _headline(sc, device, frames: int, width: int, height: int):
     for i in range(frames):
         cam.d_camera.origin = path[i % len(path)]
         cam.propagate_pitch_change()
-        cam_vecs.append(trace_mod.camera_vectors(cam.d_camera, device))
-
-    def frame(cv):
-        r = trace_mod._camera_rays_soa(cv, width, height, 0)
-        rays = (a.contiguous() for a in (*r[:3], *trace_mod._norm3(*r[3:])))
-        return tile_tracer.grid_hit_tiles(static, tables, mat_idx, *rays, on)
+        cam_vecs.append(torch.from_numpy(
+            trace_mod.camera_basis(cam.d_camera)).to(device))
 
     t0 = time.time()
-    frame(cam_vecs[0])  # warm-up: the kernels' build and one pose, synced
+    frame(cam_vecs[0])  # warm-up: the kernels' build, one pose, the capture
     sync(device)
-    _note(f"warm-up (build + 1 pose): {time.time() - t0:.1f}s")
+    _note(f"warm-up (build + 1 pose + capture): {time.time() - t0:.1f}s")
 
-    before = tile_tracer.grid_hit_tiles.launches
     t0 = time.time()
     for cv in cam_vecs:
         hits = frame(cv)
     sync(device)
     elapsed = time.time() - t0
-    launches = (tile_tracer.grid_hit_tiles.launches - before) / frames
+    # the kernel A launches of one pose, through the body op by op: a
+    # replay runs the same launches without calling the wrapper
+    before = tile_tracer.grid_hit_tiles.launches
+    frame.body(frame.camera)
+    launches = tile_tracer.grid_hit_tiles.launches - before
     per_frame = elapsed / frames
     mrays = width * height / per_frame / 1e6
     found = int(hits["found"].sum())

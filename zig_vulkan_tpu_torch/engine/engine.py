@@ -2,12 +2,27 @@
 
 The torch counterpart of `zig_vulkan_tpu.engine.engine.VoxelRT` (the
 reference's public renderer API, src/modules/VoxelRT.zig, with the
-per-frame orchestration of voxel_rt/Pipeline.zig). A frame is eager torch
-on one device:
+per-frame orchestration of voxel_rt/Pipeline.zig). A frame is one compiled
+step on one device, as the JAX engine's:
 
     trace (ops.trace.render_rows: kernels A and B on CUDA)
       -> temporal running mean (when enabled)
       -> denoise + resample (ops.denoise)
+
+`_step_key()` holds the frame's static configuration, `_step_cache` the
+current key's step (`_build_step`, `engine.step.Step`), and `_push_constants()`
+packs every per-frame value (camera, sun, sample base, temporal count) into
+one f32[24] array in the JAX engine's layout: one host-to-device copy a
+frame, so a new pose, a moving sun or a new count needs no new step. On a
+CUDA device a step is captured once as a CUDA graph and replayed every
+frame after; on the CPU its body runs op by op. `render_op_by_op()` calls
+the same body op by op on any device (for checks that hook the kernel
+wrappers, which a replay does not call).
+
+A graph bakes in the addresses of the scene's tensors. The edits write
+into them in place, so a replay sees them; `flush_grid` and a rebuild of
+the records (first frame, `empty_skip` flipped) drop every step, and
+`push_materials` / `push_albedo` write into the material table in place.
 
 The scene's per-cell traversal records are built once, on the first frame,
 with the exact distance field, and cached. Voxel edits (`insert_voxels`,
@@ -33,7 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import EngineConfig
+from ..config import DenoiserConfig, EngineConfig
 from ..core.camera import Camera
 from ..core.grid import BrickGrid, apply_edits, grid_at, remove_edits
 from ..core.materials import MAT_DIELECTRIC, MaterialTable
@@ -44,6 +59,7 @@ from ..ops.tile_tracer import REGION_CELLS, region_grid
 from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
+from .step import PUSH_CONSTANTS, PushRing, Step, StepKey
 
 
 class VoxelRT:
@@ -95,11 +111,14 @@ class VoxelRT:
 
         # temporal accumulation (BASELINE config 4): running mean of traced
         # frames while the camera and sun pose stay put, with fresh jitter
-        # seeds per frame
+        # seeds per frame; `_accum` is the last temporal step's accumulator
         self.temporal_enabled = False
         self._accum = None
         self._accum_count = 0
         self._pose_key = None
+
+        self._step_cache = {}
+        self._push = PushRing(self.device)
 
     def _track_host_grid(self, grid: BrickGrid) -> None:
         # host-side bound on the active bricks: the edit path never reads
@@ -120,6 +139,8 @@ class VoxelRT:
             self._tables = None
             self._dist = None
         if self._tables is None:
+            # the steps' graphs read the records they were captured with
+            self._step_cache.clear()
             with profiling.zone("build_tables"):
                 if self._dist is None:
                     self._dist = (trace_mod.distance_field(
@@ -132,47 +153,135 @@ class VoxelRT:
         return self._tables
 
     def render(self):
-        """Render one frame; returns the device image f32[out_h, out_w, 3].
-        In debug mode (`utils.validation.enable_debug_mode`) a frame with
-        non-finite or out-of-range pixels raises SceneValidationError."""
-        tables = self.tables()
-        with profiling.zone("render_step"):
-            image = self._render(tables)
-        if validation.debug_mode_enabled():
-            validation.check_image(image)
-        return image
+        """Render one frame; returns the device image f32[out_h, out_w, 3],
+        which later frames leave as it is. On a CUDA device the step of the
+        current key is captured once and replayed. In debug mode
+        (`utils.validation.enable_debug_mode`) a frame with non-finite or
+        out-of-range pixels raises SceneValidationError."""
+        return _checked(self._render(Step.__call__))
 
-    def _render(self, tables):
-        iw, ih = self.internal_resolution
-        ow, oh = self.output_resolution
-        d = self.camera.d_camera
-        sun = self.sun.device_data
-        spp = int(d.samples_per_pixel)
-        if self.temporal_enabled:
+    def render_op_by_op(self):
+        """The same frame as `render()`, through the same step's body called
+        op by op on any device (no graph): each kernel launch goes through
+        its wrapper. Advances the temporal count as `render()` does."""
+        return _checked(self._render(Step.op_by_op))
+
+    def step(self) -> Step:
+        """The current key's step, built (not captured) on first use. The
+        cache keeps the current key's step alone: a new key (a denoiser
+        slider makes one a value) frees the old step, its graph and the
+        graph's memory pool."""
+        self.tables()
+        key = self._step_key()
+        step = self._step_cache.get(key)
+        if step is None:
+            self._step_cache.clear()
+            step = self._step_cache[key] = self._build_step(key)
+        return step
+
+    def _render(self, run):
+        """One frame of the current step through `run(step)`."""
+        step = self.step()
+        if step.accum is not None:
+            d, sun = self.camera.d_camera, self.sun.device_data
             pose = (tuple(np.asarray(d.origin).tolist()),
                     tuple(np.asarray(d.lower_left_corner).tolist()),
                     tuple(np.asarray(sun.position).tolist()))
-            if (pose != self._pose_key or self._accum is None
-                    or tuple(self._accum.shape) != (ih, iw, 3)):
-                self._accum = torch.zeros((ih, iw, 3), dtype=torch.float32,
-                                          device=self.device)
+            # the running mean goes on into a new step of the same
+            # resolution (a denoiser change), as the JAX engine's does
+            carry = (self._accum is not None and pose == self._pose_key
+                     and self._accum.shape == step.accum.shape)
+            if self._accum is not step.accum:
+                if carry:
+                    step.accum.copy_(self._accum)
+                self._accum = step.accum
+            if not carry:
+                step.accum.zero_()
                 self._accum_count = 0
             self._pose_key = pose
-        sample_base = self._accum_count * spp if self.temporal_enabled else 0
-        img = trace_mod.render_rows(
-            self.grid_static, tables, self.arrays.material_indices,
-            self.mats, trace_mod.camera_vectors(d, self.device), iw, ih,
-            spp, int(d.max_bounce), sun.position, sun.color, sun.radius,
-            bool(sun.enabled), max_steps=int(self.trace_config.max_steps),
-            sample_base=sample_base,
-            shadow_probe=bool(self.trace_config.sun_in_kernel),
-            use_skip=bool(self.trace_config.empty_skip))
-        if self.temporal_enabled:
-            self._accum = self._accum + trace_mod._div(
-                img - self._accum, self._accum_count + 1)
+        self._push.upload(self._push_constants(), step.pc)
+        with profiling.zone("render_step"):
+            image = run(step)
+        if step.accum is not None:
             self._accum_count += 1
-            img = self._accum
-        return denoise_mod.postprocess(img, self.denoiser, oh, ow)
+        return image
+
+    def _step_key(self) -> StepKey:
+        """The frame's static configuration (the JAX engine's `_step_key`
+        less the fields not ported, plus the denoiser's runtime values; see
+        `engine.step.StepKey`)."""
+        iw, ih = self.internal_resolution
+        ow, oh = self.output_resolution
+        d = self.camera.d_camera
+        dn, tc = self.denoiser, self.trace_config
+        return StepKey(
+            iw, ih, ow, oh, int(d.samples_per_pixel), int(d.max_bounce),
+            bool(self.sun.device_data.enabled), bool(dn.enabled),
+            float(dn.pixel_multiplier), int(tc.max_steps),
+            bool(tc.empty_skip), bool(self.temporal_enabled),
+            bool(tc.sun_in_kernel), int(dn.samples),
+            float(dn.distribution_bias), float(dn.inverse_hue_tolerance))
+
+    def _build_step(self, key: StepKey) -> Step:
+        """The step of `key` over the scene's current tensors: camera rays
+        from pc[0:12], the trace with the sun from pc[12:19] and the sample
+        base from pc[21], the temporal mean through pc[22], then
+        `denoise.postprocess` with the key's denoiser."""
+        static = self.grid_static
+        tables = self._tables
+        material_indices = self.arrays.material_indices
+        mats = self.mats
+        denoiser = DenoiserConfig(
+            samples=key.denoiser_samples,
+            distribution_bias=key.distribution_bias,
+            pixel_multiplier=key.pixel_multiplier,
+            inverse_hue_tolerance=key.inverse_hue_tolerance,
+            enabled=key.denoiser_enabled)
+
+        def body(pc, accum):
+            cam = trace_mod.basis_views(pc[0:12])
+            img = trace_mod.render_rows(
+                static, tables, material_indices, mats, cam,
+                key.internal_width, key.internal_height,
+                key.samples_per_pixel, key.max_bounce, pc[12:15],
+                pc[15:18], pc[18], key.sun_enabled,
+                max_steps=key.max_steps, sample_base=pc[21],
+                shadow_probe=key.sun_in_kernel, use_skip=key.empty_skip)
+            if accum is not None:
+                # running mean over pose-static frames, in place
+                accum.add_(trace_mod._div(img - accum, pc[22] + 1.0))
+                img = accum
+            return denoise_mod.postprocess(img, denoiser, key.output_height,
+                                           key.output_width)
+
+        accum_shape = ((key.internal_height, key.internal_width, 3)
+                       if key.temporal else None)
+        return Step(key, body, self.device, accum_shape)
+
+    def _push_constants(self) -> np.ndarray:
+        """Per-frame values packed into one f32[24] array, the JAX engine's
+        layout: camera origin, horizontal, vertical, lower-left corner
+        (0-11), sun position (12-14), colour (15-17), radius (18), denoiser
+        distribution bias (19) and inverse hue tolerance (20), sample base
+        (21), temporal count (22), denoiser samples clipped to
+        MAX_RUNTIME_SAMPLES (23). The port's step reads 0-18, 21 and 22;
+        its key holds the denoiser's values."""
+        d = self.camera.d_camera
+        sun = self.sun.device_data
+        pc = np.zeros(PUSH_CONSTANTS, dtype=np.float32)
+        pc[0:12] = trace_mod.camera_basis(d)
+        pc[12:15] = np.asarray(sun.position, np.float32)
+        pc[15:18] = np.asarray(sun.color, np.float32)
+        pc[18] = np.float32(sun.radius)
+        pc[19] = np.float32(self.denoiser.distribution_bias)
+        pc[20] = np.float32(self.denoiser.inverse_hue_tolerance)
+        spp = int(d.samples_per_pixel)
+        pc[21] = np.float32(self._accum_count * spp
+                            if self.temporal_enabled else 0.0)
+        pc[22] = np.float32(self._accum_count)
+        pc[23] = np.float32(min(int(self.denoiser.samples),
+                                denoise_mod.MAX_RUNTIME_SAMPLES))
+        return pc
 
     def draw(self, dt: float | None = None):
         """Render + record frame metrics (Pipeline.draw analog). Waits for
@@ -206,17 +315,19 @@ class VoxelRT:
         self._track_host_grid(grid)
         self._tables = None
         self._dist = None
+        self._step_cache.clear()
 
     def push_materials(self, materials: MaterialTable) -> None:
-        """Replace the material table (VoxelRT.zig:85-88)."""
+        """Replace the material table (VoxelRT.zig:85-88), written into the
+        device table in place: the steps keep their graphs."""
         self.materials_host = materials
-        self.mats = trace_mod.materials_to_device(materials, self.device)
+        self.mats.copy_(trace_mod.materials_to_device(materials, self.device))
 
     def push_albedo(self, index: int, albedo) -> None:
-        """Update one material's albedo (VoxelRT.zig:90-92 pushAlbedo)."""
+        """Update one material's albedo (VoxelRT.zig:90-92 pushAlbedo), in
+        place as `push_materials`."""
         self.materials_host.albedo[index] = np.asarray(albedo, dtype=np.float32)
-        self.mats = trace_mod.materials_to_device(self.materials_host,
-                                                  self.device)
+        self.push_materials(self.materials_host)
 
     def set_temporal(self, enabled: bool) -> None:
         """Toggle temporal accumulation (BASELINE config 4)."""
@@ -395,6 +506,28 @@ class VoxelRT:
 
     def device_image_to_host(self, image) -> np.ndarray:
         return image.cpu().numpy()
+
+
+def _checked(image):
+    """`image`, after the debug-mode check of its pixels
+    (`utils.validation.enable_debug_mode`)."""
+    if validation.debug_mode_enabled():
+        validation.check_image(image)
+    return image
+
+
+def both_routes(rt: VoxelRT):
+    """(`render()`'s image, `render_op_by_op()`'s image) of one frame of
+    `rt` from the same state: the temporal accumulator and count are put
+    back between the two. On a CUDA device the first is a replay (after
+    the step's capture frame), the second the body op by op."""
+    saved = (None if rt._accum is None else rt._accum.clone(),
+             rt._accum_count)
+    want = rt.render_op_by_op()
+    if saved[0] is not None:
+        rt._accum.copy_(saved[0])
+    rt._accum_count = saved[1]
+    return rt.render(), want
 
 
 def device_name(device) -> str:

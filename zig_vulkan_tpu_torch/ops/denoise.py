@@ -111,8 +111,9 @@ def _sample_coords(n_out: int, n_in: int, offset, dev, first: int = 0,
     `first`..`last`-1 (all `n_out` by default) sampled over an `n_in`-pixel
     texture, shifted by `offset` input pixels."""
     last = n_out if last is None else last
+    # the divisor is filled on the device, not copied from the host
     u = (torch.arange(first, last, dtype=F32, device=dev) + 0.5) \
-        / torch.tensor(_F(n_out), device=dev)
+        / torch.full((), float(_F(n_out)), dtype=F32, device=dev)
     if offset is not None:
         u = u + float(_F(offset) / _F(n_in))
     x = u * float(n_in) - 0.5

@@ -21,7 +21,11 @@ Float parity: every expression keeps the reference's operation order, one
 float32 rounding per operation. Divisions by constants divide by a 0-d
 tensor on the wavefront's device, because PyTorch's CUDA division by a
 Python scalar multiplies by its reciprocal, which can differ in the last
-bit.
+bit. Such a constant is made on the device by a fill (`_const`), never
+copied from the host, and the per-frame values (camera basis, sun, sample
+base) may come as device tensors: a frame then makes no host-to-device
+copy, waits for nothing, and can be captured as a CUDA graph. A 0-d
+float32 tensor operand rounds as the float32 host value did.
 """
 
 from __future__ import annotations
@@ -53,10 +57,24 @@ def _c(x) -> float:
     return float(_F(x))
 
 
+def _const(c, device):
+    """The float32 value of host scalar `c` as a 0-d tensor on `device`,
+    made by a fill: no host-to-device copy."""
+    return torch.full((), _c(c), dtype=F32, device=device)
+
+
 def _div(x, c):
-    """`x / c` for a float32 constant `c`, rounded as a true division on
-    every device (see the module docstring)."""
-    return x / torch.tensor(_F(c), dtype=F32, device=x.device)
+    """`x / c` for a float32 constant or 0-d tensor `c`, rounded as a true
+    division on every device (see the module docstring)."""
+    return x / (c if torch.is_tensor(c) else _const(c, x.device))
+
+
+def _vec3(v):
+    """A per-frame float32[3] value as the shading reads it: a device
+    tensor stays one; host values become exact float32 Python floats."""
+    if torch.is_tensor(v):
+        return v
+    return [_c(x) for x in np.asarray(v, dtype=np.float32)]
 
 
 def materials_to_device(table: MaterialTable, device) -> torch.Tensor:
@@ -547,7 +565,9 @@ def sun_targets(dx, dy, dz, sun_p, radius):
     """Per-lane jittered sun-disk target of a ray (brick_raytracer.comp:
     240-249; zig_vulkan_tpu/ops/trace.py:1127-1139). The jitter seed is the
     incoming direction, so the target is known before the traversal: the
-    shadow build of kernel A takes it and traces the sun ray itself."""
+    shadow build of kernel A takes it and traces the sun ray itself.
+    `sun_p` is three floats or an f32[3] tensor, `radius` a float32 or a
+    0-d tensor on the rays' device."""
     jx, jy, jz = _rand_vec3_range_soa(dx + dz, dy + dz, -radius, radius)
     return sun_p[0] + jx, sun_p[1] + jy, sun_p[2] + jz
 
@@ -576,8 +596,9 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
     brick_raytracer.comp:203-265; zig_vulkan_tpu/ops/trace.py:867-1325).
 
     `mats` is `materials_to_device`'s f32[5, 256] table; `sun_position`/
-    `sun_color` are float32[3] numpy vectors and `sun_radius` a float32
-    scalar (the per-frame push constants). With `shadow_probe` (and the
+    `sun_color` are float32[3] vectors and `sun_radius` a float32 scalar
+    (the per-frame push constants), each on the host or as a tensor on the
+    wavefront's device (f32[3], 0-d). With `shadow_probe` (and the
     sun on) each bounce level's sun ray is traced inside its scatter
     traversal (kernel A's shadow build) instead of a second traversal; the
     colours are the same. `use_skip=False` traces every ray with the exact
@@ -602,9 +623,9 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
     loop_count = torch.zeros(n, dtype=torch.int32, device=dev)
     bouncing = torch.ones(n, dtype=torch.bool, device=dev)
     nan = torch.full((n,), float("nan"), dtype=F32, device=dev)
-    sun_p = [_c(v) for v in np.asarray(sun_position, dtype=np.float32)]
-    sun_c = [_c(v) for v in np.asarray(sun_color, dtype=np.float32)]
-    radius = _F(sun_radius)
+    sun_p = _vec3(sun_position)
+    sun_c = _vec3(sun_color)
+    radius = sun_radius if torch.is_tensor(sun_radius) else _F(sun_radius)
 
     # original direction for the background of never-hit rays
     odx, ody, odz = dx, dy, dz
@@ -737,14 +758,31 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
 
 # -- camera rays and the frame --------------------------------------------------
 
-def camera_vectors(camera_device, device) -> dict:
+CAMERA_BASIS = ("origin", "horizontal", "vertical", "lower_left_corner")
+
+
+def camera_basis(camera_device) -> np.ndarray:
     """The camera basis (the push-constant payload, Camera.zig:183-193) as
-    float32[3] tensors on `device`."""
-    d = camera_device
-    return {name: torch.from_numpy(np.asarray(getattr(d, name),
-                                              dtype=np.float32).copy()).to(device)
-            for name in ("horizontal", "vertical", "lower_left_corner",
-                         "origin")}
+    one float32[12] array: origin, horizontal, vertical, lower-left corner,
+    the engine's pc[0:12]."""
+    return np.concatenate([np.asarray(getattr(camera_device, name),
+                                      dtype=np.float32)
+                           for name in CAMERA_BASIS])
+
+
+def basis_views(basis) -> dict:
+    """`camera_vectors`' dict over a float32[12] basis tensor (the layout
+    of `camera_basis`): four float32[3] views."""
+    return {name: basis[3 * i:3 * i + 3]
+            for i, name in enumerate(CAMERA_BASIS)}
+
+
+def camera_vectors(camera_device, device) -> dict:
+    """The camera basis as float32[3] tensors on `device`, views of one
+    host-to-device copy. The engine's frame reads the same basis from its
+    push constants instead."""
+    return basis_views(torch.from_numpy(camera_basis(camera_device))
+                       .to(device))
 
 
 def _camera_rays_soa(cam: dict, width: int, height: int, sample_index,
@@ -753,7 +791,8 @@ def _camera_rays_soa(cam: dict, width: int, height: int, sample_index,
     CameraGetRay :474-477) of the `rows` image rows from `row0` on (the
     whole frame by default), row-major, as six f32[rows*width] arrays.
     Pixel y is row0 + its row in the band, in float32; u and v divide by the
-    whole frame's width - 1 and height - 1."""
+    whole frame's width - 1 and height - 1. `sample_index` is a host value
+    or a 0-d float32 tensor on the camera's device."""
     w, h = int(width), int(height)
     rows = h if rows is None else int(rows)
     dev = cam["origin"].device
@@ -761,8 +800,9 @@ def _camera_rays_soa(cam: dict, width: int, height: int, sample_index,
                             torch.arange(w, dtype=F32, device=dev),
                             indexing="ij")
     xs = xs.reshape(-1)
-    ys = ys.reshape(-1) + torch.tensor(_F(row0), dtype=F32, device=dev)
-    s = torch.tensor(_F(sample_index), dtype=F32, device=dev)
+    ys = ys.reshape(-1) + _const(row0, dev)
+    s = (sample_index if torch.is_tensor(sample_index)
+         else _const(sample_index, dev))
     sf = _c(0.2) * (s > 0).to(F32)
     noise_x = rng.hash12(torch.stack([(xs + s) * sf, ys * sf], dim=-1))
     noise_y = rng.hash12(torch.stack([xs * sf, (ys + s) * sf], dim=-1))
@@ -800,12 +840,21 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     `sample_base` offsets the per-sample jitter seed (sample s uses
     sample_base + s, in float32); temporal accumulation passes
     frame_index * spp so every frame draws fresh sub-pixel samples.
-    `use_skip=False` runs the exact DDA (TraceConfig.empty_skip=False)."""
+    `use_skip=False` runs the exact DDA (TraceConfig.empty_skip=False).
+
+    The per-frame values may be device tensors on the records' device: the
+    camera basis (`cam`, four f32[3]), `sun_position` and `sun_color`
+    (f32[3]), `sun_radius` and `sample_base` (0-d). Then nothing on the
+    path reads them back or copies from the host (the engine's compiled
+    step passes views of its push constants)."""
     w, h = int(width), int(height)
     rows = h if rows is None else int(rows)
-    samples = [_camera_rays_soa(cam, w, h, _F(_F(sample_base) + _F(s)),
-                                row0=row0, rows=rows)
-               for s in range(spp)]
+    if torch.is_tensor(sample_base):
+        seeds = [sample_base + _c(s) for s in range(spp)]
+    else:
+        seeds = [_F(_F(sample_base) + _F(s)) for s in range(spp)]
+    samples = [_camera_rays_soa(cam, w, h, seed, row0=row0, rows=rows)
+               for seed in seeds]
     oxs, oys, ozs, rdx, rdy, rdz = (
         torch.cat([sm[i] for sm in samples]) for i in range(6))
     cr, cg, cb = _ray_color_soa(

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Iterator
 
@@ -60,6 +61,34 @@ def trace_session(log_dir: str) -> Iterator[None]:
     finally:
         enable(was)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+# kernel A's symbol with its template flags <SHADOW, STATS, SKIP, POW2>,
+# demangled or mangled
+_TRAVERSE = re.compile(
+    r"traverse_kernel(?:<(true|false), (true|false), (true|false), "
+    r"(?:true|false)>|ILb([01])ELb([01])ELb([01])ELb[01]E)")
+
+
+def kernel_launches(names) -> dict:
+    """Launches of the port's kernels among `names`, the names of the
+    kernels a trace shows on the card: kernel A per build (the build names
+    of `ops.tile_tracer`) and in all ("A"), kernel B ("B"). A CUDA graph's
+    replay runs its kernels without calling their wrappers, so their
+    launch counters miss them; a trace of the card counts them."""
+    from ..ops.tile_tracer import _BUILDS, _build_name
+
+    counts = dict(dict.fromkeys(_BUILDS, 0), A=0, B=0)
+    for name in names:
+        m = _TRAVERSE.search(name)
+        if m:
+            shadow, stats, skip = (g in ("true", "1")
+                                   for g in m.groups() if g is not None)
+            counts[_build_name(shadow, stats, skip)] += 1
+            counts["A"] += 1
+        elif "lookup_kernel" in name:
+            counts["B"] += 1
+    return counts
 
 
 @contextlib.contextmanager
