@@ -77,23 +77,25 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     with their halos against the whole image, a seeded random 1024x576
     image to 1280x720 and at equal size, bit for bit; (b) the default
     frame's configuration through `build_sharded_step` over 1, 2 and 4
-    shards of the card, each equal bit for bit to `render_image` +
-    `postprocess`, launches per shard, the 4-shard step's kernel launches
-    (a band's lanes each) bit for bit against their plain versions, and
-    the step's time beside the unsharded frame's, in turns; (c)
-    `dryrun_multichip(4)`; (d) where there
+    shards of the card, each first call (each shard's graphs' capture)
+    equal bit for bit to `render_image` + `postprocess`, its captures and
+    launches, the 4-shard step's kernel launches op by op (a band's lanes
+    each) bit for bit against their plain versions (phase 21 times the
+    steps); (c) `dryrun_multichip(4)`; (d) where there
     is more than one card, (b) over the distinct cards;
 16. BASELINE config 5 (benchmarks/configs.py:179-252): a 1024x256x1024-voxel
     terrain streamed into an empty engine, the exact distance field and the
     records built once, then 3840x2160 frames (1 spp, one level, no sun, no
-    denoiser) through the sharded step over every card and over 4 shards of
-    the first card; each equal to the unsharded `render_image` bit for bit,
-    with its device ms between events, wall ms and device-busy ms (a
-    `torch.profiler` trace) and the idle share they give; the kernel A and
-    kernel B launches of the unsharded frame (8,294,400 lanes) and of the
-    4-shard step (2,073,600 lanes a shard), captured and held bit for bit
-    against their plain versions; kernel A and kernel B on the whole frame
-    with their times, plain times and bounds;
+    denoiser) through the sharded step's graphs over every card and over 4
+    shards of the first card; each equal to the unsharded `render_image`
+    bit for bit, with its device ms between events, wall ms and
+    device-busy ms (a `torch.profiler` trace) and the idle share they give,
+    its captures and a replayed step's launches on the card; the kernel A
+    and kernel B launches of the unsharded frame (8,294,400 lanes) and of
+    the 4-shard step op by op (2,073,600 lanes a shard), captured and held
+    bit for bit against their plain versions; kernel A and kernel B on the
+    whole frame with their times, plain times and bounds; the terrain's
+    stream through the engine's edit graphs (voxels/s, captures);
 17. BASELINE configs 1, 2 and 4 (benchmarks/configs.py:81-114, :151-176) at
     full width: ms a frame and Mray/s over the source's 8 / 6 / 6 frames
     (`benchmarks.configs._timed_frames`), launches per frame,
@@ -112,16 +114,36 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     denoiser) on the card against the same step on the CPU, where the
     kernels' plain versions run (no pixel differs by 1e-5); its 4 A and 2 B
     launches, each against its plain version bit for bit;
-20. the compiled step (`engine.step`): the default frame, config 3's edit
-    frames, config 4's temporal frames, config 5's 4K frame, the default
-    frame after a change of the denoiser's `samples`, and the bench's pose
-    frame, each run as a replay and op by op (the body called directly):
-    the replay's image equal to the op-by-op one bit for bit, the captures
-    (one a key; one in all of config 3's frames), kernel A and B launches a
+20. the compiled step (`engine.step`): the default frame, config 4's
+    temporal frames, config 5's 4K frame, the default frame after a change
+    of the denoiser's `samples`, and the bench's pose frame (config 3's
+    edit frames are phase 21's), each run as a replay and op by op (the
+    body called directly): the replay's image equal to the op-by-op one
+    bit for bit, the captures (one a key), kernel A and B launches a
     frame on each route, median ms of each route in turns by CUDA events
     and by the host clock, device-busy ms and idle share and host-to-device
     copies a frame from a `torch.profiler` trace of each route, and peak
-    allocated and reserved bytes of each.
+    allocated and reserved bytes of each;
+21. the compiled edit path and shards: (a) config 3's 16 edit frames on
+    two engines built from one scene, one through the edit and frame
+    graphs, one through the same bodies op by op (`insert_voxels_op_by_op`,
+    `render_op_by_op`), in turns (op, replay, replay, op; twice): the nine
+    arrays, the records and each frame's image bit for bit, one capture an
+    edit kind (and the frame's), every edit after the captures under
+    `torch.cuda.set_sync_debug_mode("error")`, insert + refresh, remove +
+    refresh and edit-frame ms by CUDA events and the host clock, an edit's
+    host-to-device copies from a trace (one pinned), the graphs' pool
+    bytes and peak bytes; (b) a 1,500-voxel batch (2,048 lanes) on both
+    routes, and a batch the capacity guard refuses before the scene is
+    touched; (c) half of config 5's first terrain slab streamed into empty engines
+    on both routes in turns: voxels/s, captures, the scenes bit for bit;
+    (d) the default frame and config 5's frame (`Config5.sharded_step`)
+    over 1, 2 and 4 shards of the card: the capture call, then frames with
+    the camera and the sun moved between calls, each as a replay, op by op
+    and the unsharded replayed frame, bit for bit; ms of the three in
+    turns, busy ms (and the idle share, on one shard) and kernel A and B
+    launches a step of the replays from a trace, equal to the op-by-op
+    step's launches through the wrappers.
 
 `--default-frame-trace` runs phases 1-2 and the trace of phase 20's default
 frame through `VoxelRT.render()` alone: the same lines from an older tree
@@ -181,11 +203,15 @@ FLUSH_BYTES = 128 << 20    # written between timed calls: evicts the 50 MB L2
 FRAME_REPS = 10            # timed replays of each captured frame launch
 HALO_BANDS = (1, 2, 4, 8)  # phase 15a
 MESH_SIZES = (1, 2, 4)     # shards of one card, phase 15b
-MESH_FRAMES = 6            # timed steps per mesh size and round (2 rounds)
 EMISSIVE = 40              # config 4's emissive material index
 STEP_EQUAL = 3             # phase 20: frames held bit for bit a case
 STEP_FRAMES = 3            # phase 20: timed frames a route and turn (4 turns)
 TRACE_FRAMES = 3           # phase 20: traced frames a route
+EDIT_TURN_FRAMES = 4       # phase 21: config 3's edit frames a route and
+                           # turn (4 turns a route: 16 frames)
+ROUTE_TURNS = ("op_by_op", "replay", "replay", "op_by_op")
+SHARD_FRAMES = 2           # phase 21: timed steps a route and turn
+SHARD_TRACE = 2            # phase 21: traced steps a route
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
 # 24-46, core/materials.py:MaterialTable)
 SCENE_FILE_DTYPES = {
@@ -475,12 +501,13 @@ def edit_flythrough(dev, scene, scale, frames):
     if img.shape != (h, w, 3) or not np.isfinite(img).all():
         raise AssertionError("edit frame has the wrong shape or non-finite "
                              "values")
-    # one capture over every edit frame: its run and its capture went
-    # through the wrappers, the replays did not
-    if made != 1 or launches != {"A": 2 * 4, "A_all": 2 * 4, "B": 2 * 2}:
-        raise AssertionError(f"expected one capture of 4 A and 2 B launches "
-                             f"over the edit frames, got {made} and "
-                             f"{launches}")
+    # three captures over every edit frame: the frame's step (its run and
+    # its capture went through the wrappers, the replays did not), the
+    # insert's graph and the removal's (1,024 lanes, with the records)
+    if made != 3 or launches != {"A": 2 * 4, "A_all": 2 * 4, "B": 2 * 2}:
+        raise AssertionError(f"expected three captures and 4 A and 2 B "
+                             f"launches twice over the edit frames, got "
+                             f"{made} and {launches}")
     if (on_card["A"], on_card["A_all"], on_card["B"]) != (4, 4, 2):
         raise AssertionError(f"expected 4 A and 2 B launches a replayed edit "
                              f"frame on the card, got {on_card}")
@@ -667,91 +694,84 @@ def halo_check(dev, width, height):
 def sharded_default_frame(rt, devices, label, sizes):
     """Phase 15b/d: the default frame's configuration (the engine `rt`'s)
     through `build_sharded_step` over meshes of `devices[:n]` for n in
-    `sizes`. Each image is held to the unsharded `render_image` +
-    `postprocess` bit for bit, each step's launches are counted, and the
-    steps are timed in turns with the unsharded frame. The largest mesh's
-    launches are also held against their plain versions. Returns the
-    kernel launches counted over the timed steps, with the launches a
-    shard of one step as counted ("per_shard")."""
+    `sizes`. Each image (the first call: each shard's graphs' capture) is
+    held to the unsharded `render_image` + `postprocess` bit for bit and
+    its launches through the wrappers are counted; the largest mesh's
+    launches, op by op, are held against their plain versions (phase 21
+    times the routes). Returns the kernel launches counted, with the
+    launches a shard of one step op by op ("per_shard")."""
     import torch
 
     from zig_vulkan_tpu_torch.ops import denoise, trace
+
+    st = rt.grid_static
+    d, sun = rt.camera.d_camera, rt.sun.device_data
+    ow, oh = rt.output_resolution
+    levels = int(d.max_bounce)
+    img = trace.render_image(st, rt.arrays, rt.mats, d, sun.position,
+                             sun.color, sun.radius, bool(sun.enabled),
+                             rt.trace_config, tables=rt.tables())
+    want = denoise.postprocess(img, rt.denoiser, oh, ow)
+    per = levels * frame_launches_per_level(rt)
+    total = {"A": 0, "A_all": 0, "B": 0}
+    for n in sizes:
+        step, args, tables = sharded_default_step(rt, devices[:n])
+        reset_counts()
+        c0 = captures()
+        got = step(*args, tables=tables)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        made = captures() - c0
+        total = {k: total[k] + counts[k] for k in total}
+        same = bool(torch.equal(got, want))
+        log("mesh", mesh=label, shards=n, replicas=len(step.mesh.distinct),
+            equals_unsharded=same, captures=made, launches_A=counts["A"],
+            launches_B=counts["B"], shape=list(got.shape),
+            device=str(got.device))
+        if not same or got.device != want.device:
+            raise AssertionError(f"the {n}-shard frame differs from the "
+                                 f"unsharded one")
+        # the capture call: each shard's trace and post-process graphs,
+        # their warm-ups and captures through the wrappers
+        if made != 2 * n or counts != {"A": 2 * per * n, "A_all": 2 * per * n,
+                                       "B": 2 * levels * n}:
+            raise AssertionError(f"expected {2 * n} captures and {per} A and "
+                                 f"{levels} B launches a shard twice, got "
+                                 f"{made} and {counts}")
+    # the bands' launches (a band's lanes, each shard's replica), op by
+    # op, against their plain versions
+    reset_counts()
+    check_frame_launches(f"mesh {label} x{n}",
+                         lambda: step.op_by_op(*args, tables=tables),
+                         per * n, levels * n)
+    # a shard's launches in one step, measured: the last mesh's capture
+    # call ran each shard's bodies twice (its warm-up and its capture)
+    return dict(total, per_shard={k: counts[k] / (2 * n) for k in ("A", "B")})
+
+
+def sharded_default_step(rt, devices):
+    """(the sharded step of `rt`'s frame over `devices`, its arguments
+    (replicas, material tables, the camera on the host, the sun) at `rt`'s
+    pose now, the records of each replica built with the exact field)."""
+    from zig_vulkan_tpu_torch.ops import trace
     from zig_vulkan_tpu_torch.parallel import mesh as pmesh
 
     st = rt.grid_static
     d, sun = rt.camera.d_camera, rt.sun.device_data
     iw, ih = rt.internal_resolution
     ow, oh = rt.output_resolution
-    levels = int(d.max_bounce)
-    cam = trace.camera_vectors(d, rt.device)
-
-    def unsharded():
-        img = trace.render_image(st, rt.arrays, rt.mats, d, sun.position,
-                                 sun.color, sun.radius, bool(sun.enabled),
-                                 rt.trace_config, tables=rt.tables())
-        return denoise.postprocess(img, rt.denoiser, oh, ow)
-
-    want = unsharded()
-    runs = {"unsharded": unsharded}
-    per_shard = None
-    for n in sizes:
-        m = pmesh.make_mesh(devices[:n])
-        arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
-        tables = pmesh.map_replicas(
-            m, lambda a: trace.build_trace_tables(
-                st, a, trace.distance_field(st, a, exact=True)),
-            arrays_r)
-        step = pmesh.build_sharded_step(
-            m, st, width=iw, height=ih, spp=int(d.samples_per_pixel),
-            max_bounce=levels, sun_enabled=bool(sun.enabled), out_width=ow,
-            out_height=oh, denoiser=rt.denoiser,
-            trace_config=rt.trace_config)
-
-        def run(step=step, arrays_r=arrays_r, mats_r=mats_r, tables=tables):
-            return step(arrays_r, mats_r, cam, sun.position, sun.color,
-                        sun.radius, tables=tables)
-
-        reset_counts()
-        got = run()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        same = bool(torch.equal(got, want))
-        shard = {k: counts[k] / n for k in ("A", "B")}
-        log("mesh", mesh=label, shards=n, replicas=len(m.distinct),
-            equals_unsharded=same, launches_A=counts["A"],
-            launches_B=counts["B"],
-            per_shard=f"{shard['A']} A + {shard['B']} B",
-            shape=list(got.shape), device=str(got.device))
-        per = levels * frame_launches_per_level(rt)
-        if not same or got.device != want.device:
-            raise AssertionError(f"the {n}-shard frame differs from the "
-                                 f"unsharded one")
-        if counts != {"A": per * n, "A_all": per * n, "B": levels * n}:
-            raise AssertionError(f"expected {per} A and {levels} B launches "
-                                 f"a shard, got {counts}")
-        if per_shard not in (None, shard):
-            raise AssertionError(f"launches a shard vary with the mesh: "
-                                 f"{per_shard}, {shard}")
-        per_shard = shard
-        runs[f"x{n}"] = run
-    # the bands' launches (a band's lanes, each shard's replica) against
-    # their plain versions
-    check_frame_launches(f"mesh {label} x{max(sizes)}", run,
-                         per * max(sizes), levels * max(sizes))
-    # timed in turns, forward then backward: host-bound times drift
-    reset_counts()
-    times = {name: [] for name in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for name in order:
-            times[name] += step_times(runs[name], MESH_FRAMES)
-    counts = dict(read_counts(), per_shard=per_shard)
-    for name, t in times.items():
-        dev_ms, wall_ms = zip(*t)
-        log("mesh", mesh=label, step=name, frames=len(t),
-            median_device_ms=f"{np.median(dev_ms):.3f}",
-            median_wall_ms=f"{np.median(wall_ms):.3f}",
-            min_wall_ms=f"{min(wall_ms):.3f}", max_wall_ms=f"{max(wall_ms):.3f}")
-    return counts
+    m = pmesh.make_mesh(devices)
+    arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+    tables = pmesh.map_replicas(
+        m, lambda a: trace.build_trace_tables(
+            st, a, trace.distance_field(st, a, exact=True)), arrays_r)
+    step = pmesh.build_sharded_step(
+        m, st, width=iw, height=ih, spp=int(d.samples_per_pixel),
+        max_bounce=int(d.max_bounce), sun_enabled=bool(sun.enabled),
+        out_width=ow, out_height=oh, denoiser=rt.denoiser,
+        trace_config=rt.trace_config)
+    return step, (arrays_r, mats_r, trace.camera_vectors(d, "cpu"),
+                  sun.position, sun.color, sun.radius), tables
 
 
 def mesh_phase(dev, rt):
@@ -800,7 +820,9 @@ def config5(dev, scale=1.0, frames=None):
               ("4 shards of one card", pmesh.make_mesh([first] * 4))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # rows that divide over the cards and over 4 shards of one
+    # rows that divide over the cards and over 2 and 4 shards of one; the
+    # terrain streams through the engine's edit graphs
+    c0 = captures()
     c = configs.build_config5(scale, cards.devices,
                               row_multiple=math.lcm(4, cards.size))
     rt, tables, cam = c.rt, c.tables, c.cam
@@ -809,6 +831,8 @@ def config5(dev, scale=1.0, frames=None):
     log("config 5", voxels="x".join(map(str, st.voxel_dims)), cells=st.cells,
         streamed_voxels=streamed, stream_seconds=f"{c.stream_s:.2f}",
         voxels_per_s=f"{streamed / c.stream_s:.0f}",
+        stream_captures=captures() - c0,
+        stream_padded_sizes=json.dumps(list(rt._edit_cache)),
         active_bricks=int(rt.arrays.active_bricks),
         exact_field_and_tables_seconds=f"{c.tables_s:.2f}")
     if streamed <= 0 or int(rt.arrays.active_bricks) <= 0:
@@ -848,10 +872,13 @@ def config5(dev, scale=1.0, frames=None):
     per_shard = None
     for label, m in meshes:
         run = c.sharded_step(m.devices)
-        got = run()  # warm-up, synced
-        torch.cuda.synchronize()
-        same = bool(torch.equal(got, want))
         reset_counts()
+        c0 = captures()
+        got = run()  # each shard's graph captured, synced
+        torch.cuda.synchronize()
+        made = captures() - c0
+        captured = read_counts()
+        same = bool(torch.equal(got, want))
         t0 = time.perf_counter()
         for _ in range(frames):
             got = run()
@@ -860,38 +887,47 @@ def config5(dev, scale=1.0, frames=None):
         # and each step between events of its own, ending in a synchronize
         dev_ms, wall_ms = (float(np.median(v))
                            for v in zip(*step_times(run, frames)))
-        counts = read_counts()
-        steps = 2 * frames + 1
         busy = device_trace(run, frames)
         busy_ms, busy_events = busy["busy_ms"], busy["events"]
-        shard = {k: counts[k] / (m.size * steps) for k in ("A", "B")}
-        total = {k: total[k] + counts[k] for k in total}
+        launches = busy["launches"]  # a replayed step, on the card
+        shard = {k: launches[k] / m.size for k in ("A", "B")}
+        total = {k: total[k] + captured[k] for k in total}
         log("config 5", mesh=label, shards=m.size, replicas=len(m.distinct),
-            resolution=f"{w}x{h}", frames=frames,
+            resolution=f"{w}x{h}", frames=frames, captures=made,
             ms_per_frame=f"{dt * 1e3:.3f}",
             mrays_per_s=f"{w * h / dt / 1e6:.1f}",
             median_device_ms=f"{dev_ms:.3f}", median_wall_ms=f"{wall_ms:.3f}",
             device_busy_ms=f"{busy_ms:.3f}", device_events=busy_events,
-            idle_share=f"{1 - busy_ms / wall_ms:.4f}",
-            launches_A=counts["A"], launches_B=counts["B"],
+            **idle_share(busy_ms, wall_ms, m.size),
+            capture_call_launches_A=captured["A"],
+            capture_call_launches_B=captured["B"],
+            replayed_step_on_card_A=launches["A_all"],
+            replayed_step_on_card_B=launches["B"],
             per_shard_per_step=f"{shard['A']} A + {shard['B']} B",
             equals_unsharded=same,
             peak_bytes=torch.cuda.max_memory_allocated())
         if not same or not torch.equal(got, want):
             raise AssertionError(f"config 5 over {label} differs from the "
                                  f"unsharded frame")
-        if counts != {"A": m.size * steps, "A_all": m.size * steps,
-                      "B": m.size * steps}:
+        # a trace graph a shard (no denoiser at the same size: no
+        # post-process), its warm-up and capture through the wrappers
+        if made != m.size or captured != {"A": 2 * m.size,
+                                          "A_all": 2 * m.size,
+                                          "B": 2 * m.size}:
+            raise AssertionError(f"expected {m.size} captures of one A and "
+                                 f"one B launch a shard, got {made} and "
+                                 f"{captured}")
+        if shard != {"A": 1, "B": 1} or launches["A_all"] != m.size:
             raise AssertionError(f"expected one A and one B launch a shard "
-                                 f"a step, got {counts}")
+                                 f"a replayed step, got {launches}")
         if per_shard not in (None, shard):
             raise AssertionError(f"launches a shard vary with the mesh: "
                                  f"{per_shard}, {shard}")
         per_shard = shard
-    # the last mesh's launches (a band of rows a shard) against their plain
-    # versions
-    _, band_err, _, _ = check_frame_launches(f"config 5 {label}", run,
-                                             m.size, m.size)
+    # the last mesh's launches (a band of rows a shard), op by op, against
+    # their plain versions
+    _, band_err, _, _ = check_frame_launches(f"config 5 {label}",
+                                             run.op_by_op, m.size, m.size)
     err = max(err, band_err)
     del run
 
@@ -948,7 +984,7 @@ def config5(dev, scale=1.0, frames=None):
     return dict(
         A=row("A", max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound),
         B=row("B", max_abs_err=b_err, ms=b_ms, plain_ms=b_plain_ms,
-              bound_ms=b_bound, bound_by=b_by, library_ms=b_lib_ms))
+              bound_ms=b_bound, bound_by=b_by, library_ms=b_lib_ms)), c
 
 
 def baseline_configs(dev, scene, scale=1.0, frames=None):
@@ -1350,8 +1386,8 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
     """Phase 20, one case. `routes` = {"replay": ..., "op_by_op": ...}, one
     frame each; `pair()` gives (replayed, op-by-op) results of one frame
     from the same state; `graph()` the case's CUDAGraph; `between(i)` the
-    host's work before frame i, outside the timings (moves, edits). The
-    first frame is the capture frame. Kernel launches are counted two
+    host's work before frame i, outside the timings (moves). The first
+    frame is the capture frame. Kernel launches are counted two
     ways: through the wrappers over the whole case (the capture frame's run
     and capture, and the op-by-op frames), and on the card from the traces
     of each route (a replay calls no wrapper). Returns the case's
@@ -1441,9 +1477,9 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
     return out
 
 
-def compiled_step(dev, scene, cfg, scale=1.0):
-    """Phase 20: the compiled step's six cases (see the module docstring).
-    Returns {case: numbers}."""
+def compiled_step(dev, scene, cfg, c5, scale=1.0):
+    """Phase 20: the compiled step's five cases (see the module
+    docstring); `c5` is phase 16's config 5. Returns {case: numbers}."""
     import torch
 
     from zig_vulkan_tpu_torch.benchmarks import bench, configs
@@ -1472,18 +1508,11 @@ def compiled_step(dev, scene, cfg, scale=1.0):
     engine_case("default frame, denoiser samples 8", rt, move(rt))
     del rt
 
-    rt = configs.build_config3(scale, dev, scene=scene)
-    edits = configs.EditStream(rt)
-    engine_case("config 3 edit frames", rt, edits)
-    del rt, edits
-
     rt = configs.build_config4(scale, dev)
     engine_case("config 4 temporal frames", rt)
     del rt
 
-    c = configs.build_config5(scale, [dev])
-    engine_case("config 5 4K frame", c.rt)
-    del c
+    engine_case("config 5 4K frame", c5.rt)
 
     tables = VoxelRT(scene.grid, scene.materials, cfg, device=dev).tables()
     st = scene.grid.static
@@ -1513,6 +1542,387 @@ def compiled_step(dev, scene, cfg, scale=1.0):
         lambda: frame.compiled.graph,
         lambda i: pose.__setitem__(0, vecs[i % len(vecs)]), htod_replay=0)
     return cases
+
+
+# -- phase 21: the compiled edit path and shards ----------------------------------
+
+@contextlib.contextmanager
+def sync_errors():
+    """Any host synchronization by a CUDA call inside the block raises
+    (`torch.cuda.set_sync_debug_mode("error")`)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def edit_call(rt, xyz, mats, replay):
+    """One edit batch of `rt` (an insert, or a removal where `mats` is
+    None) through its graph (`replay`) or its body op by op."""
+    if mats is None:
+        (rt.remove_voxels if replay else rt.remove_voxels_op_by_op)(xyz)
+    else:
+        (rt.insert_voxels if replay
+         else rt.insert_voxels_op_by_op)(xyz, mats)
+
+
+def scene_differs(a, b):
+    """The GridArrays fields that differ between two scenes, bit for bit."""
+    import torch
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    return [f for f in _FIELDS if not torch.equal(raw(getattr(a, f)),
+                                                  raw(getattr(b, f)))]
+
+
+def edit_routes(dev, scene, scale):
+    """Phase 21a: config 3's 16 edit frames (`build_config3` and its
+    `EditStream`) on two engines from one scene, one through the edit and
+    frame graphs, one through the same bodies op by op, in turns. Returns
+    the engines and the numbers."""
+    import torch
+
+    from zig_vulkan_tpu_torch.benchmarks import configs
+
+    rts = {name: configs.build_config3(scale, dev, scene=scene)
+           for name in ("replay", "op_by_op")}
+    streams = {name: configs.EditStream(rt) for name, rt in rts.items()}
+    for rt in rts.values():
+        rt.tables()
+    done = {name: 0 for name in rts}
+    images = {name: [] for name in rts}
+    times = {name: {"insert": [], "remove": []} for name in rts}
+    frames = {name: [] for name in rts}
+
+    def frame(name):
+        rt, i = rts[name], done[name]
+        done[name] += 1
+        replay = name == "replay"
+        xyz, mats = streams[name].draw(i)
+        op = "remove" if mats is None else "insert"
+        torch.cuda.synchronize()
+        e0, e1, e2 = frame_events()
+        t0 = time.perf_counter()
+        e0.record()
+        # the replay route's first insert and removal capture their graphs
+        # (a capture synchronizes); every other edit runs with host syncs
+        # made errors
+        with (contextlib.nullcontext() if replay and i < 2
+              else sync_errors()):
+            edit_call(rt, xyz, mats, replay)
+        e1.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images[name].append(rt.render() if replay else rt.render_op_by_op())
+        e2.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= 2:  # the capture frames stay out of the times
+            times[name][op].append((e0.elapsed_time(e1), (t1 - t0) * 1e3))
+            frames[name].append((e0.elapsed_time(e2), (t2 - t0) * 1e3))
+
+    c0 = captures()
+    for name in ROUTE_TURNS * 2:
+        for _ in range(EDIT_TURN_FRAMES):
+            frame(name)
+    made = captures() - c0
+    differ = scene_differs(rts["replay"].arrays, rts["op_by_op"].arrays)
+    tables_equal = bool(torch.equal(rts["replay"]._tables,
+                                    rts["op_by_op"]._tables))
+    images_equal = [bool(torch.equal(a, b)) for a, b in
+                    zip(images["replay"], images["op_by_op"])]
+    graphs = rts["replay"]._edit_cache[1024].graphs
+    keys = sorted(graphs)
+    pools = [graph_pool_bytes(g.graph) for g in graphs.values()]
+    pools.append(graph_pool_bytes(rts["replay"].step().graphed.graph))
+
+    # host-to-device copies and busy time of an edit, from a trace
+    def next_edit(name):
+        i = done[name]
+        done[name] += 1
+        edit_call(rts[name], *streams[name].draw(i), name == "replay")
+
+    traced = {name: device_trace(lambda name=name: next_edit(name),
+                                 TRACE_FRAMES)
+              for name in rts}
+    peak = {}
+    for name in rts:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            frame(name)
+        peak[name] = torch.cuda.max_memory_allocated()
+    out = dict(frames=len(images_equal), captures=made,
+               graph_keys=[list(k) for k in keys], arrays_differ=differ,
+               tables_equal=tables_equal, images_equal=sum(images_equal),
+               graph_pool_bytes=pools)
+    for name in rts:
+        ins, rem, fr = (list(zip(*v)) for v in
+                        (times[name]["insert"], times[name]["remove"],
+                         frames[name]))
+        t = traced[name]
+        out[name] = dict(
+            insert_refresh_ms=float(np.median(ins[0])),
+            insert_refresh_wall_ms=float(np.median(ins[1])),
+            remove_refresh_ms=float(np.median(rem[0])),
+            remove_refresh_wall_ms=float(np.median(rem[1])),
+            edit_frame_ms=float(np.median(fr[0])),
+            edit_frame_wall_ms=float(np.median(fr[1])),
+            edit_htod_copies=t["htod"], edit_htod_pageable=t["htod_pageable"],
+            edit_busy_ms=t["busy_ms"], edit_kernels=t["kernels"],
+            peak_allocated_bytes=peak[name])
+    log("edits", case="config 3's edit frames, replay against op by op",
+        **{k: (json.dumps(v, separators=(",", ":"))
+               if isinstance(v, (list, dict)) else v)
+           for k, v in out.items() if k not in rts})
+    for name in rts:
+        log("edits", route=name, **{k: (f"{v:.4f}" if isinstance(v, float)
+                                        else v)
+                                    for k, v in out[name].items()})
+    if differ or not tables_equal or not all(images_equal):
+        raise AssertionError(f"config 3's edit frames differ between the "
+                             f"routes: arrays {differ}, records equal "
+                             f"{tables_equal}, images {images_equal}")
+    # the frame's step, one insert and one removal graph of 1,024 lanes
+    if made != 3 or keys != [("insert", True, True), ("remove", True, True)]:
+        raise AssertionError(f"expected the frame's and one capture an edit "
+                             f"kind over config 3's frames, got {made}: "
+                             f"{keys}")
+    if any(out[n]["edit_htod_copies"] != 1 or out[n]["edit_htod_pageable"]
+           for n in rts):
+        raise AssertionError("expected one pinned host-to-device copy an "
+                             "edit")
+    return rts, out
+
+
+def edge_batches(dev, rts):
+    """Phase 21b: a batch of 1,500 voxels (2,048 lanes) on both routes of
+    phase 21a's engines, and a batch that would exhaust `brick_alloc` on a
+    small engine: the guard raises before the scene is touched."""
+    import torch
+
+    from zig_vulkan_tpu_torch.config import (CameraConfig, DenoiserConfig,
+                                             EngineConfig, GridConfig,
+                                             SunConfig)
+    from zig_vulkan_tpu_torch.core.grid import BrickGrid
+    from zig_vulkan_tpu_torch.core.materials import terrain_materials
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+
+    rng = np.random.default_rng(21)
+    vx, vy, vz = rts["replay"].grid_static.voxel_dims
+    xyz = np.stack([rng.integers(0, vx, 1500), rng.integers(0, vy, 1500),
+                    rng.integers(0, vz, 1500)], -1)
+    mats = rng.integers(1, 8, 1500).astype(np.uint8)
+    c0 = captures()
+    for name, rt in rts.items():
+        with (contextlib.nullcontext() if name == "replay"
+              else sync_errors()):
+            edit_call(rt, xyz, mats, name == "replay")
+    torch.cuda.synchronize()
+    made = captures() - c0
+    differ = scene_differs(rts["replay"].arrays, rts["op_by_op"].arrays)
+    same_tables = bool(torch.equal(rts["replay"]._tables,
+                                   rts["op_by_op"]._tables))
+
+    grid = BrickGrid(16, 8, 16, GridConfig(brick_alloc=4))
+    grid.insert(0, 0, 0, 1)
+    small = VoxelRT(grid, terrain_materials(), EngineConfig(
+        internal_resolution_width=64, internal_resolution_height=64,
+        camera=CameraConfig(samples_per_pixel=1, max_bounce=0),
+        sun=SunConfig(enabled=False), denoiser=DenoiserConfig(enabled=False)),
+        device=dev)
+    small.insert_voxels([[8, 8, 8]], [1])
+    small.insert_voxels([[16, 16, 16], [24, 24, 24]], [2, 3])  # 4 of 4
+    before = {f: getattr(small.arrays, f).clone() for f in _FIELDS}
+    raised = False
+    try:
+        small.insert_voxels([[32, 8, 32], [40, 8, 40]], [4, 5])
+    except MemoryError:
+        raised = True
+    torch.cuda.synchronize()
+    untouched = all(torch.equal(before[f].view(torch.uint8)
+                                if before[f].is_floating_point() else before[f],
+                                getattr(small.arrays, f).view(torch.uint8)
+                                if before[f].is_floating_point()
+                                else getattr(small.arrays, f))
+                    for f in _FIELDS)
+    small.insert_voxels([[9, 9, 9]], [6])  # into a loaded brick: fits
+    torch.cuda.synchronize()
+    active = int(small.arrays.active_bricks)
+    log("edits", case="edge batches", batch_1500_lanes=rts["replay"]._padded(
+        1500), captures=made, arrays_differ=json.dumps(differ),
+        tables_equal=same_tables, exhaustion_raised=raised,
+        scene_untouched=untouched, active_bricks_after=active)
+    if made != 1 or differ or not same_tables:
+        raise AssertionError("the 1,500-voxel batch differs between the "
+                             "routes or did not capture once")
+    if not (raised and untouched and active == 4):
+        raise AssertionError("the capacity guard did not hold the scene")
+    return dict(captures=made, exhaustion_raised=raised)
+
+
+def stream_routes(dev, c5):
+    """Phase 21c: config 5's terrain, its first slab (half of the width
+    `build_config5` streams at once), streamed
+    (`stream_into_engine`) into empty engines of its geometry through the
+    edit graphs and op by op, in turns: voxels/s and captures of each, and
+    the two scenes bit for bit."""
+    import itertools
+    import types
+
+    import torch
+
+    from zig_vulkan_tpu_torch.config import GridConfig
+    from zig_vulkan_tpu_torch.core.grid import BrickGrid
+    from zig_vulkan_tpu_torch.core.materials import terrain_materials
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.io import streaming
+
+    st = c5.rt.grid_static
+    gcfg = GridConfig(brick_alloc=st.brick_alloc, base_t=st.base_t,
+                      min_point=st.min_point, scale=st.scale)
+    rates, made, last = {"replay": [], "op_by_op": []}, {}, {}
+    for name in ROUTE_TURNS:
+        last.pop(name, None)
+        grid = BrickGrid(st.dim_x, st.dim_y, st.dim_z, gcfg)
+        rt = VoxelRT(grid, terrain_materials(), c5.rt.config, device=dev)
+        engine = (rt if name == "replay" else
+                  types.SimpleNamespace(insert_voxels=rt.insert_voxels_op_by_op))
+        regions = itertools.islice(
+            streaming.terrain_regions(grid, region_x=st.dim_x // 2), 1)
+        torch.cuda.synchronize()
+        c0 = captures()
+        t0 = time.perf_counter()
+        n = streaming.stream_into_engine(engine, regions)
+        torch.cuda.synchronize()
+        rates[name].append(n / (time.perf_counter() - t0))
+        made[name] = captures() - c0
+        last[name] = rt
+    differ = scene_differs(last["replay"].arrays, last["op_by_op"].arrays)
+    out = dict(voxels=n, voxels_per_s=rates, captures=made,
+               padded_sizes=list(last["replay"]._edit_cache),
+               arrays_differ=differ)
+    log("edits", case="config 5's first slab streamed",
+        **{k: json.dumps(v, separators=(",", ":")) if isinstance(
+            v, (list, dict)) else v for k, v in out.items()})
+    if differ or made["op_by_op"] != 0 or made["replay"] < 1:
+        raise AssertionError("the streamed scenes differ between the routes "
+                             "or the captures are wrong")
+    return out
+
+
+def idle_share(busy_ms, wall_ms, streams):
+    """{"idle_share": 1 - busy / wall} for a step on one stream, else {}:
+    the traced union of several streams' (or cards') intervals can exceed
+    the untraced wall time, so a share there would mislead."""
+    return {"idle_share": 1 - busy_ms / wall_ms} if streams == 1 else {}
+
+
+def shard_case(label, n, routes, unsharded, move, want_captures):
+    """Phase 21d, one mesh: the capture call, then frames moved between
+    calls, each as a replay, op by op and the unsharded replayed frame, bit
+    for bit; ms of each in turns; a trace of the replays (busy ms, the idle
+    share on one shard, kernel A and B launches a step on the card) beside
+    the op-by-op step's launches through the wrappers (each a launch on the
+    card)."""
+    import torch
+
+    c0 = captures()
+    first = routes["replay"]()
+    torch.cuda.synchronize()
+    made = captures() - c0
+    equal = [bool(torch.equal(first, unsharded()))]
+    for _ in range(2):
+        move()
+        got, want = routes["replay"](), routes["op_by_op"]()
+        equal.append(bool(torch.equal(got, want))
+                     and bool(torch.equal(got, unsharded())))
+    runs = dict(routes, unsharded=unsharded)
+    times = {name: [] for name in runs}
+    for name in ("op_by_op", "replay", "unsharded", "unsharded", "replay",
+                 "op_by_op"):
+        times[name] += step_times(runs[name], SHARD_FRAMES)
+    traced = {"replay": device_trace(routes["replay"], SHARD_TRACE)}
+    reset_counts()
+    routes["op_by_op"]()
+    wrapped = read_counts()
+    out = dict(shards=n, captures=made, bit_equal=all(equal),
+               frames_compared=len(equal))
+    for name in runs:
+        dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times[name]))
+        out[name] = dict(median_device_ms=dev_ms, median_wall_ms=wall_ms)
+        if name in traced:
+            t = traced[name]
+            out[name].update(
+                device_busy_ms=t["busy_ms"],
+                **idle_share(t["busy_ms"], wall_ms, n),
+                device_events=t["events"],
+                launches_A=t["launches"]["A_all"],
+                launches_B=t["launches"]["B"], htod_copies=t["htod"])
+    out["op_by_op"].update(launches_A=wrapped["A_all"],
+                           launches_B=wrapped["B"])
+    log("shards", case=label, shards=n, captures=made,
+        bit_equal=out["bit_equal"], frames_compared=len(equal))
+    for name in runs:
+        log("shards", case=label, shards=n, route=name, **{
+            k: (f"{v:.4f}" if isinstance(v, float) else v)
+            for k, v in out[name].items()})
+    launches = {name: (out[name]["launches_A"], out[name]["launches_B"])
+                for name in routes}
+    if not out["bit_equal"]:
+        raise AssertionError(f"{label} over {n} shards: a replay differs "
+                             f"from op by op or from the unsharded frame")
+    if made != want_captures or launches["replay"] != launches["op_by_op"]:
+        raise AssertionError(f"{label} over {n} shards: {made} captures "
+                             f"(expected {want_captures}), launches "
+                             f"{launches}")
+    return out
+
+
+def shard_routes(dev, rt, c5):
+    """Phase 21d: the sharded step over 1, 2 and 4 shards of the card, the
+    default frame (phase 15b's: the engine `rt`'s) and config 5's frame
+    through `Config5.sharded_step`. Returns {(case, shards): numbers}."""
+    from zig_vulkan_tpu_torch.ops import trace
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    card = pmesh.make_mesh([dev]).devices[0]
+    out = {}
+
+    def move_default():
+        rt.camera.turn_yaw(0.02)
+        rt.camera.translate(0.05, [0.0, 0.0, -1.0])
+        rt.update_sun(0.5)
+
+    def move_config5():
+        c5.rt.camera.turn_yaw(0.02)
+
+    rt.render()
+    for n in MESH_SIZES:
+        step, args, tables = sharded_default_step(rt, [card] * n)
+
+        def frame(route, step=step, args=args, tables=tables):
+            d, sun = rt.camera.d_camera, rt.sun.device_data
+            return route(*args[:2], trace.camera_vectors(d, "cpu"),
+                         sun.position, sun.color, sun.radius, tables=tables)
+
+        routes = {"replay": lambda frame=frame, step=step: frame(step),
+                  "op_by_op": lambda frame=frame, step=step:
+                  frame(step.op_by_op)}
+        out[("default frame", n)] = shard_case(
+            "default frame", n, routes, rt.render, move_default, 2 * n)
+    c5.rt.render()
+    for n in MESH_SIZES:
+        run = c5.sharded_step([card] * n)
+        out[("config 5", n)] = shard_case(
+            "config 5", n, {"replay": run, "op_by_op": run.op_by_op},
+            c5.rt.render, move_config5, n)
+    return out
 
 
 def default_frame_trace(dev, scene, cfg):
@@ -2699,7 +3109,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     # -- 16. BASELINE config 5 ------------------------------------------------------
     t0 = time.perf_counter()
-    big = config5(dev, scale)
+    big, c5 = config5(dev, scale)
     log("config 5", phase_seconds=f"{time.perf_counter() - t0:.2f}")
 
     # -- 17. BASELINE configs 1, 2 and 4 --------------------------------------------
@@ -2713,9 +3123,22 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
 
     # -- 20. the compiled step ---------------------------------------------------------
     t0 = time.perf_counter()
-    steps = compiled_step(dev, scene, cfg, scale)
+    steps = compiled_step(dev, scene, cfg, c5, scale)
     log("step", phase_seconds=f"{time.perf_counter() - t0:.2f}")
     default_step = steps["default frame"]
+
+    # -- 21. the compiled edit path and shards ------------------------------------------
+    t0 = time.perf_counter()
+    edit_rts, edits21 = edit_routes(dev, scene, scale)
+    edge_batches(dev, edit_rts)
+    del edit_rts
+    stream21 = stream_routes(dev, c5)
+    shards21 = shard_routes(dev, rt, c5)
+    log("edits and shards", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+    widest = shards21[("default frame", max(MESH_SIZES))]
+    shard_launches = {
+        route: {k: widest[route][f"launches_{k}"] / max(MESH_SIZES)
+                for k in ("A", "B")} for route in ("replay", "op_by_op")}
     # the default build's and kernel B's launches of phases 11, 15, 17, 18
     # and 19 (config 5's stand in rows of their own)
     later = {k: sum(c[k] for c in (fly_counts, mesh_counts, config_counts,
@@ -2749,6 +3172,10 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
                  "launches_A"],
              launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
                  "A"],
+             launches_per_shard_of_a_sharded_replay=shard_launches[
+                 "replay"]["A"],
+             launches_per_shard_of_a_sharded_op_by_op_frame=shard_launches[
+                 "op_by_op"]["A"],
              launches_per_frame_configs_1_2_4=per_frame["A"],
              frame_launch_ms=[r["ms"] for r in frame_rows["A"]],
              **results["A"]),
@@ -2780,6 +3207,10 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
                  "launches_B"],
              launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"][
                  "B"],
+             launches_per_shard_of_a_sharded_replay=shard_launches[
+                 "replay"]["B"],
+             launches_per_shard_of_a_sharded_op_by_op_frame=shard_launches[
+                 "op_by_op"]["B"],
              launches_per_frame_configs_1_2_4=per_frame["B"],
              frame_launch_ms=[r["ms"] for r in frame_rows["B"]],
              **results["B"]),

@@ -9,7 +9,8 @@ plain versions on the card, and the voxel edits on the card with the same
 edits on the CPU; where `torch.cuda.is_available()` is False they skip.
 Kernel A's NO_SKIP builds (`use_skip=False`, the exact DDA) are held against
 their twin and against the port's numpy oracle. The build helpers are
-tested everywhere.
+tested everywhere. The compiled steps (the frame, the edits, the sharded
+bands) are held here as replays against their bodies op by op.
 """
 
 import ctypes
@@ -618,9 +619,11 @@ def test_two_shards_on_two_streams_equal_one_stream(scene_on_card, card):
     assert images[2].device == want.device
     assert torch.equal(images[1], want)
     assert torch.equal(images[2], want)
-    # 3 levels a shard: scatter + shadow launches of A, one of B
-    assert tile_tracer.grid_hit_tiles.launches == 6 * 3
-    assert lookup.table_lookup.launches == 3 * 3
+    # 3 levels a shard: scatter + shadow launches of A, one of B; each
+    # shard's first call is its graph's capture (its warm-up and its
+    # capture go through the wrappers)
+    assert tile_tracer.grid_hit_tiles.launches == 2 * 6 * 3
+    assert lookup.table_lookup.launches == 2 * 3 * 3
 
 
 @pytest.mark.cuda
@@ -693,7 +696,8 @@ def test_replay_equals_the_op_by_op_body(card, temporal):
 @pytest.mark.cuda
 def test_one_capture_over_frames_with_edits(card):
     """Edits between frames write the scene in place: each replay shows
-    them through the one graph, equal to the op-by-op body."""
+    them through the one frame graph, equal to the op-by-op body; the
+    edits add one graph for the inserts and one for the removals."""
     from zig_vulkan_tpu_torch.engine.step import GraphedCall
 
     rt = _step_engine(card)
@@ -710,7 +714,7 @@ def test_one_capture_over_frames_with_edits(card):
             rt.remove_voxels(xyz)
         got, want = both_routes(rt)
         assert torch.equal(got, want), i
-    assert GraphedCall.captures == before + 1
+    assert GraphedCall.captures == before + 3
 
 
 def _card_launches(fn, calls):
@@ -823,3 +827,130 @@ def test_pose_frame_replays_equal_its_body(card):
         torch.cuda.synchronize()
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+# -- the compiled edits and the sharded bands: replays on the card ---------------
+
+def _edit_batches(rt, sizes, seed=3):
+    """Insert and removal batches of `sizes` voxels, alternating."""
+    rng = np.random.default_rng(seed)
+    vx, vy, vz = rt.grid_static.voxel_dims
+    for i, n in enumerate(sizes):
+        xyz = np.stack([rng.integers(0, vx, n), rng.integers(0, vy, n),
+                        rng.integers(0, vz, n)], -1)
+        yield xyz, (rng.integers(0, 9, n).astype(np.uint8) if i % 2 == 0
+                    else None)
+
+
+def _edit(rt, xyz, mats, op_by_op=False):
+    if mats is None:
+        (rt.remove_voxels_op_by_op if op_by_op else rt.remove_voxels)(xyz)
+    else:
+        (rt.insert_voxels_op_by_op if op_by_op
+         else rt.insert_voxels)(xyz, mats)
+
+
+def _same_scene(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert torch.equal(x.view(torch.uint8) if x.is_floating_point() else x,
+                           y.view(torch.uint8) if y.is_floating_point() else y
+                           ), f.name
+
+
+@pytest.mark.cuda
+def test_edit_replays_equal_the_op_by_op_body(card):
+    """Two engines on one scene, one editing through the edit graphs, one
+    through the same bodies op by op: arrays, records and frames bit for
+    bit after every batch; one capture an (op, padded size)."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    replay, plain = _step_engine(card), _step_engine(card)
+    for rt in (replay, plain):
+        rt.render()
+    before = GraphedCall.captures
+    sizes = (512, 512, 700, 300, 1500, 1500, 512, 512)
+    for xyz, mats in _edit_batches(replay, sizes):
+        _edit(replay, xyz, mats)
+        _edit(plain, xyz, mats, op_by_op=True)
+        _same_scene(replay.arrays, plain.arrays)
+        assert torch.equal(replay._tables, plain._tables)
+        assert torch.equal(replay.render(), plain.render())
+    # (insert, 1024), (remove, 1024), (insert, 2048), (remove, 2048)
+    assert GraphedCall.captures - before == 4
+
+
+@pytest.mark.cuda
+def test_edits_make_no_host_sync_on_the_card(card):
+    """After each (op, size)'s capture, edits replayed and edits op by op
+    run under `set_sync_debug_mode("error")`: no copy or wait of the edit
+    body blocks the host."""
+    rt = _step_engine(card)
+    rt.render()
+    batches = list(_edit_batches(rt, (512,) * 6))
+    for xyz, mats in batches[:2]:
+        _edit(rt, xyz, mats)  # the captures (a capture synchronizes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for xyz, mats in batches[2:4]:
+            _edit(rt, xyz, mats)
+        for xyz, mats in batches[4:]:
+            _edit(rt, xyz, mats, op_by_op=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_one_edit_capture_over_batches_of_one_size(card):
+    """Eight inserts of 200 to 1,000 voxels: one padded size, one capture,
+    and the scene equals the same inserts on the CPU."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card)
+    rt.tables()
+    sc = scenes.default_scene(dims=(64, 32, 64))
+    cpu = VoxelRT(sc.grid, sc.materials, rt.config, device="cpu")
+    cpu.tables()
+    before = GraphedCall.captures
+    rng = np.random.default_rng(9)
+    for xyz, _ in _edit_batches(rt, [int(n) for n in
+                                     rng.integers(200, 1000, 8)]):
+        mats = np.full(len(xyz), 3, np.uint8)
+        rt.insert_voxels(xyz, mats)
+        cpu.insert_voxels(xyz, mats)
+    assert GraphedCall.captures - before == 1
+    assert list(rt._edit_cache) == [1024]
+    _same_scene(cpu.arrays, grid_mod.GridArrays(**{
+        f.name: getattr(rt.arrays, f.name).cpu()
+        for f in dataclasses.fields(rt.arrays)}))
+    assert torch.equal(rt._tables.cpu(), cpu._tables)
+
+
+@pytest.mark.cuda
+def test_two_shard_replays_equal_op_by_op_and_unsharded(scene_on_card, card):
+    """Two shards of one card through their graphs: each frame, with the
+    camera and the sun moved between calls, equals the same step op by op
+    and the unsharded replayed frame bit for bit; one trace and one
+    post-process capture a shard."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+    from zig_vulkan_tpu_torch.parallel import mesh as pmesh
+
+    rt = scene_on_card
+    m = pmesh.make_mesh([card] * 2)
+    kw, _ = _sharded_inputs(rt, card)
+    step = pmesh.build_sharded_step(m, rt.grid_static, **kw)
+    arrays_r, mats_r = pmesh.replicate_scene(m, rt.arrays, rt.mats)
+    tables = pmesh.map_replicas(m, lambda a: rt.tables().clone(), arrays_r)
+    rt.render()  # the frame's step captured outside the count
+    before = GraphedCall.captures
+    for i in range(3):
+        rt.camera.turn_yaw(0.05)
+        rt.update_sun(0.5)
+        _, args = _sharded_inputs(rt, card)
+        got = step(arrays_r, mats_r, *args, tables=tables)
+        want = step.op_by_op(arrays_r, mats_r, *args, tables=tables)
+        assert torch.equal(got, want), i
+        assert torch.equal(got, rt.render()), i
+    assert GraphedCall.captures - before == 2 * 2

@@ -406,3 +406,93 @@ def test_remove_batch_matches_reference():
     empty.remove_batch([1], [1], [1])  # nothing loaded: a no-op
     assert not empty.arrays.occupancy.any()
     np.testing.assert_array_equal(grids[0].arrays.occupancy, before)
+
+
+def _moving_frames(f, n, denoiser, calls=3):
+    """`calls` frames of one sharded step, the camera and the sun moved and
+    the sample base changed between them, each with the unsharded frame of
+    the same values."""
+    m = _cpu_mesh(n)
+    d = f.camera.d_camera
+    step = pmesh.build_sharded_step(
+        m, f.static, width=W, height=H, spp=int(d.samples_per_pixel),
+        max_bounce=int(d.max_bounce) + 1, sun_enabled=True, out_width=48,
+        out_height=48, denoiser=denoiser)
+    arrays_r, mats_r = pmesh.replicate_scene(m, f.arrays, f.mats)
+    tables = pmesh.map_replicas(
+        m, lambda a: ttrace.build_trace_tables(f.static, a), arrays_r)
+    for k in range(calls):
+        f.camera.turn_yaw(0.1)
+        f.camera.translate(0.2, [0.0, 0.0, -1.0])
+        sun = np.asarray(f.sun.position, np.float32) + np.float32(3 * k)
+        cam = ttrace.camera_vectors(d, "cpu")
+        args = (arrays_r, mats_r, cam, sun, f.sun.color, f.sun.radius)
+        want = tdenoise.postprocess(
+            ttrace.render_rows(f.static, tables[0], arrays_r[0].material_indices,
+                               mats_r[0], cam, W, H, int(d.samples_per_pixel),
+                               int(d.max_bounce) + 1, sun, f.sun.color,
+                               f.sun.radius, True, sample_base=float(k)),
+            denoiser, 48, 48)
+        yield step, args, tables, float(k), want
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_sharded_step_push_constants_follow_the_camera_and_sun(n):
+    """The per-frame values reach the shards as push constants: with the
+    camera, the sun and the sample base moved between calls of one step,
+    each frame equals the unsharded frame of its values bit for bit, on
+    both routes."""
+    f = Frame(spp=1, max_bounce=1, sun=True)
+    dn = tconfig.DenoiserConfig(enabled=True, samples=8)
+    images = []
+    for step, args, tables, base, want in _moving_frames(f, n, dn):
+        got = step(*args, tables=tables, sample_base=base)
+        assert torch.equal(got, want)
+        assert torch.equal(step.op_by_op(*args, tables=tables,
+                                         sample_base=base), want)
+        assert torch.equal(step.pcs[torch.device("cpu")][12:15],
+                           torch.from_numpy(args[3]))
+        images.append(got)
+    assert not torch.equal(images[0], images[1])
+
+
+class _FakeGraph:
+    """A CUDA graph's contract on the CPU: the first call runs the body and
+    returns its result (the warm-up) while the static output holds garbage
+    (the capture runs nothing); every later call writes the body's result
+    into the static output and returns it (a replay)."""
+
+    captures = 0
+
+    def __init__(self, body, *args):
+        self.body, self.args, self.out = body, args, None
+
+    def __call__(self):
+        if self.out is None:
+            result = self.body(*self.args)
+            self.out = torch.full_like(result, float("nan"))
+            _FakeGraph.captures += 1
+            return result
+        self.out.copy_(self.body(*self.args))
+        return self.out
+
+
+@pytest.mark.parametrize("n, denoise", [(1, False), (2, True), (4, True),
+                                        (4, False)])
+def test_sharded_graphs_read_static_bands(monkeypatch, n, denoise):
+    """The graphed route's bookkeeping, with a stand-in for the graphs: a
+    trace and (with the denoiser) a post-process graph a shard, captured on
+    the first call; the capture call's bands reach the static bands the
+    post graphs read; later calls replay; new records capture again."""
+    monkeypatch.setattr(pmesh, "GraphedCall", _FakeGraph)
+    f = Frame(spp=1, max_bounce=1, sun=True)
+    dn = tconfig.DenoiserConfig(enabled=denoise, samples=8)
+    before = _FakeGraph.captures
+    for step, args, tables, base, want in _moving_frames(f, n, dn):
+        step.graphed = True
+        assert torch.equal(step(*args, tables=tables, sample_base=base), want)
+    assert _FakeGraph.captures - before == n * 2
+    fresh = tuple(t.clone() for t in tables)
+    assert torch.equal(step(*args, tables=fresh, sample_base=base), want)
+    assert _FakeGraph.captures - before == n * 4
+    assert step._inputs[0][1] is fresh[0]  # (pc, records, ...)

@@ -240,9 +240,11 @@ class Config5:
             *self._SUN, False, TraceConfig(), tables=self.tables)
 
     def sharded_step(self, devices=None):
-        """A zero-argument function that renders the frame through
-        `build_sharded_step` over `devices` (default: the configuration's),
-        the scene and the records replicated once."""
+        """A zero-argument function that renders the frame of the engine's
+        camera through `build_sharded_step` over `devices` (default: the
+        configuration's), the scene and the records replicated once: the
+        step's graphs, captured on the first call. Its attribute `op_by_op`
+        renders the same frame through the same bodies op by op."""
         rt = self.rt
         m = pmesh.make_mesh(self.devices if devices is None else devices)
         step = pmesh.build_sharded_step(
@@ -253,10 +255,15 @@ class Config5:
         tables_r = pmesh.map_replicas(
             m, lambda a: self.tables.to(a.statuses.device), arrays_r)
 
-        def run():
-            return step(arrays_r, mats_r, self.cam, *self._SUN,
-                        tables=tables_r)
+        def frame(route):
+            # the camera packs into the step's one pinned upload
+            cam = trace_mod.camera_vectors(rt.camera.d_camera, "cpu")
+            return route(arrays_r, mats_r, cam, *self._SUN, tables=tables_r)
 
+        def run():
+            return frame(step)
+
+        run.op_by_op = lambda: frame(step.op_by_op)
         return run
 
 

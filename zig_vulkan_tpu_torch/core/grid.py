@@ -385,9 +385,13 @@ class BrickGrid:
 # word update below is a bitwise OR / AND-NOT of per-word masks, and a mask
 # is built by summing distinct bits into zero (a sum of distinct bits is
 # their OR, and no partial sum leaves int32), so bit 31 needs no care.
-# Edits update the arrays in place (the JAX package donates them) and bring
-# no scene value back to the host; the boolean-mask indexing below does wait
-# for the device, to size its results.
+#
+# Edits update the arrays in place (the JAX package donates them), read
+# nothing back to the host and make no tensor whose shape depends on the
+# data: every lane stays, and masks choose what each lane writes. torch has
+# no `mode="drop"`, so a lane that writes nothing adds 0 at a clamped index
+# (`_put`), as the JAX package's scatter-adds do. An edit can therefore be
+# captured in a CUDA graph (engine.step.EditStep).
 
 def _voxel_cells(static: GridStatic, xyz):
     """(cell, voxel bit) int64[N] of int[N, 3] voxel coordinates, Y flipped
@@ -427,8 +431,7 @@ def _run_or(run_start, bits, take):
     run. The taken bits of a run must be distinct."""
     run = torch.cumsum(run_start.to(torch.int64), 0) - 1
     acc = torch.zeros_like(bits)
-    acc.index_put_((run,), torch.where(take, bits, torch.zeros_like(bits)),
-                   accumulate=True)
+    acc.index_add_(0, run, torch.where(take, bits, torch.zeros_like(bits)))
     return acc[run]
 
 
@@ -440,6 +443,16 @@ def _by_word_bit(word_key, nbit):
     return order, key[order]
 
 
+def _put(dst, index, new, live):
+    """dst[index[i]] = new[i] on the `live` lanes, whose targets are
+    distinct, as a scatter-add of new - old; every other lane adds 0 at
+    index 0. Integer adds wrap, so the result is exact for every integer
+    dtype (the JAX package's `mode="drop"` scatter-adds)."""
+    idx = torch.where(live, index, torch.zeros_like(index))
+    old = dst[idx]
+    dst.index_add_(0, idx, torch.where(live, new - old, torch.zeros_like(old)))
+
+
 def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
                 valid, mat_is_diel=None, mat_ir=None) -> GridArrays:
     """Insert a batch of voxels into device-resident arrays
@@ -447,15 +460,14 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
 
     Args:
       arrays: GridArrays of torch tensors (GridArrays.to_device); updated
-        in place.
+        in place, `active_bricks` and `material_cursor` included.
       xyz: int[N, 3] voxel coordinates; material_index: uint8[N];
-      valid: bool[N], False lanes are ignored (the reference pads batches).
+      valid: bool[N], False lanes are ignored (the engine pads batches).
       mat_is_diel, mat_ir: optional bool[256] / f32[256] material
         classification that maintains diel_mask/brick_ir; without them the
         edited voxels count as non-dielectric there.
 
-    Returns GridArrays holding the same tensors and the new 0-d
-    `active_bricks`/`material_cursor` (computed on the device).
+    Returns `arrays`.
 
     Brick slots are numbered in cell order, material windows in the same
     rank order (stable sorts, so the arrays equal the reference's bit for
@@ -463,12 +475,16 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
     and dielectric bit, as sequential inserts would; the reference leaves
     that unspecified. Bricks whose lanes bring different ir end up NaN.
     The caller keeps the brick count within `brick_alloc` (the engine's
-    capacity guard); lanes past it are dropped as the reference drops them.
+    capacity guard); a brick past it is counted and its cell marked, as
+    in the reference, and its voxels set no bit; their material bytes go,
+    as there, through a clamped index into the last brick's window.
     """
     a = arrays
     dev = a.statuses.device
     cells, alloc = static.cells, static.brick_alloc
     n = xyz.shape[0]
+    if n == 0:
+        return a
     cell, nth = _voxel_cells(static, xyz)
 
     # lanes sorted by cell; invalid lanes sort last as their own run
@@ -487,27 +503,29 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
     new_brick_id = a.active_bricks + rank
 
     # brick slot per lane: loaded cells keep theirs; the lanes of a newly
-    # allocated cell take its first lane's fresh id
+    # allocated cell take its first lane's fresh id (slot n takes the
+    # writes of the lanes that allocate nothing)
     seg = torch.cumsum(is_first.to(torch.int64), 0) - 1
-    seg_new_id = torch.zeros(n, dtype=torch.int32, device=dev)
-    seg_new_id[seg[allocates]] = new_brick_id[allocates]
+    seg_new_id = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    seg_new_id[torch.where(allocates, seg, torch.full_like(seg, n))] = (
+        new_brick_id)
     brick = torch.where(loaded, a.indices[safe_cell], seg_new_id[seg])
     brick = torch.where(s_valid, brick, torch.zeros_like(brick)).to(torch.int64)
 
     # cell -> brick index and status bit of the allocating lanes (distinct
     # cells whose bits are clear: the sum is the OR)
-    new_cells = s_cell[allocates]
-    a.indices[new_cells] = new_brick_id[allocates]
-    a.statuses.index_put_((new_cells // 32,), _bit(new_cells % 32),
-                          accumulate=True)
+    _put(a.indices, safe_cell, new_brick_id, allocates)
+    a.statuses.index_add_(0, safe_cell // 32, torch.where(
+        allocates, _bit(safe_cell % 32), torch.zeros_like(alloc_i)))
 
     # material windows for the new bricks, bump-allocated in rank order
     # (MaterialAllocator.zig:34-43)
     start_new = a.material_cursor + rank * BRICK_BITS
     fits = allocates & (new_brick_id < alloc)
-    a.start_indices[new_brick_id[fits].to(torch.int64)] = start_new[fits]
-    material_cursor = a.material_cursor + n_new * BRICK_BITS
-    active_bricks = a.active_bricks + n_new
+    _put(a.start_indices, new_brick_id.to(torch.int64).clamp(0, alloc - 1),
+         start_new, fits)
+    a.material_cursor.add_(n_new * BRICK_BITS)
+    a.active_bricks.add_(n_new)
 
     start_val = a.start_indices[brick.clamp(0, alloc - 1)] & 0x7FFFFFFF
     mat_addr = start_val.to(torch.int64) + s_nth
@@ -521,11 +539,23 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
     b_s = _bit(s_nth[wb] % 32)
     take = v_s & _run_ends(key)
     m_s = s_mat[wb]
+    b_sorted = brick[wb]
 
-    # material bytes
+    # material bytes: distinct voxels of the bricks below the last have
+    # distinct addresses
     addr = mat_addr[wb]
-    put = take & (addr < a.material_indices.numel())
-    a.material_indices[addr[put]] = m_s[put]
+    in_range = addr < a.material_indices.numel()
+    _put(a.material_indices, addr, m_s, take & (b_sorted < alloc - 1)
+         & in_range)
+    # the last brick's window also takes the bytes of the bricks past
+    # brick_alloc (their index clamps to it, as in the reference); at each
+    # address the valid lane last in cell order writes, as the reference's
+    # scatter does
+    clamped = v_s & (b_sorted >= alloc - 1) & in_range
+    slot = s_nth[wb]
+    last = torch.full((BRICK_BITS,), -1, dtype=wb.dtype, device=dev)
+    last.scatter_reduce_(0, slot, torch.where(clamped, wb, -1), "amax")
+    _put(a.material_indices, addr, m_s, clamped & (last[slot] == wb))
 
     # occupancy and dielectric bits: one read-modify-write per touched word
     if mat_is_diel is not None:
@@ -539,13 +569,12 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
     diel_or = _run_or(word_start, b_s, take & lane_diel)
     diel_clear = _run_or(word_start, b_s, take & ~lane_diel)
     rmw = word_start & v_s & (w_s < a.occupancy.numel())
-    w = w_s[rmw]
-    a.occupancy[w] = a.occupancy[w] | occ_or[rmw]
-    a.diel_mask[w] = (a.diel_mask[w] | diel_or[rmw]) & ~diel_clear[rmw]
+    w = w_s.clamp(0, a.occupancy.numel() - 1)
+    _put(a.occupancy, w, a.occupancy[w] | occ_or, rmw)
+    _put(a.diel_mask, w, (a.diel_mask[w] | diel_or) & ~diel_clear, rmw)
 
     # per-brick ir: a NaN (unset) brick adopts the lanes' ir, a differing
     # ir poisons it to NaN (brick_raytracer.comp:427 then skips nothing)
-    b_sorted = brick[wb]
     safe_b = b_sorted.clamp(0, alloc - 1)
     prev = a.brick_ir[safe_b]
     nan = torch.full_like(prev, float("nan"))
@@ -563,10 +592,16 @@ def apply_edits(static: GridStatic, arrays: GridArrays, xyz, material_index,
     lo, hi = lo[run], hi[run]
     merged = torch.where((lo == hi) & torch.isfinite(lo), lo, nan)
     put = brick_start & v_s & (hi > -inf) & (b_sorted < alloc)
-    a.brick_ir[b_sorted[put]] = merged[put]
-
-    return dataclasses.replace(a, active_bricks=active_bricks,
-                               material_cursor=material_cursor)
+    # a float delta is not exact (NaN, inf), so every lane that writes no
+    # brick of its own repeats the first writing lane's write (or, where
+    # no lane writes, brick 0's own value back to brick 0)
+    first = torch.argmax(put.to(torch.int32)).view(1)
+    some = put.any()
+    target = torch.where(some, torch.where(put, safe_b, safe_b[first]), 0)
+    value = torch.where(some, torch.where(put, merged, merged[first]),
+                        a.brick_ir[0])
+    a.brick_ir[target] = value
+    return a
 
 
 def remove_edits(static: GridStatic, arrays: GridArrays, xyz,
@@ -574,7 +609,8 @@ def remove_edits(static: GridStatic, arrays: GridArrays, xyz,
     """Clear a batch of voxels in device-resident arrays
     (zig_vulkan_tpu/core/grid.py:546-591): occupancy and dielectric bits
     only. Bricks are never freed, so statuses, indices, windows and the
-    skip field stay as they are. Updates the arrays in place."""
+    skip field stay as they are. Updates the arrays in place and returns
+    them."""
     a = arrays
     cells, alloc = static.cells, static.brick_alloc
     cell, nth = _voxel_cells(static, xyz)
@@ -588,10 +624,10 @@ def remove_edits(static: GridStatic, arrays: GridArrays, xyz,
     clear = _run_or(word_start, _bit(nth[order] % 32),
                     v_s & _run_starts(key))
     rmw = word_start & v_s
-    w = w_s[rmw]
-    a.occupancy[w] = a.occupancy[w] & ~clear[rmw]
-    a.diel_mask[w] = a.diel_mask[w] & ~clear[rmw]
-    return dataclasses.replace(a)
+    w = w_s.clamp(0, a.occupancy.numel() - 1)
+    _put(a.occupancy, w, a.occupancy[w] & ~clear, rmw)
+    _put(a.diel_mask, w, a.diel_mask[w] & ~clear, rmw)
+    return a
 
 
 def dense_materials(static: GridStatic, arrays: GridArrays):

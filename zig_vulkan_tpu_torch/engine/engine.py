@@ -21,26 +21,35 @@ wrappers, which a replay does not call).
 
 A graph bakes in the addresses of the scene's tensors. The edits write
 into them in place, so a replay sees them; `flush_grid` and a rebuild of
-the records (first frame, `empty_skip` flipped) drop every step, and
-`push_materials` / `push_albedo` write into the material table in place.
+the records (first frame, `empty_skip` flipped) drop every step and every
+edit graph, and `push_materials` / `push_albedo` write into the material
+table and its device-side dielectric classification in place.
 
 The scene's per-cell traversal records are built once, on the first frame,
 with the exact distance field, and cached. Voxel edits (`insert_voxels`,
 `remove_voxels`) update the scene arrays on the device and bring the cached
 records up to date in place, with the fast conservative field (the
-reference's dirty-range uploads, VoxelRT.zig:107-172). With
+reference's dirty-range uploads, VoxelRT.zig:107-172). As in the JAX
+engine, a batch is padded to `_EDIT_PAD` lanes times a power of two, and
+each padded size is an `engine.step.EditStep`: one pinned upload a batch
+and, on a CUDA device, one graph for each (insert or remove, records or
+none, their `empty_skip`) holding the edit and the refresh, captured once
+and replayed (the edit body never waits for the card). The cache keeps
+`_EDIT_SIZES` sizes, least recently used first out. `insert_voxels_op_by_op`
+and `remove_voxels_op_by_op` call the same bodies op by op. With
 `TraceConfig(empty_skip=False)` the frame runs the exact DDA and the records
 carry no distance field. Host-side mutable state is the camera and sun (the
 reference's push constants), the roamability mirror, the brick-count bound
 and the metrics ring.
 
 The profiling zones (`utils.profiling.zone`) carry the JAX engine's names:
-draw, device_sync, render_step, build_tables, edit_insert,
-refresh_tables_insert, edit_remove.
+draw, device_sync, render_step, build_tables, edit_insert (the edit and its
+refresh, one graph), edit_remove.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -59,7 +68,8 @@ from ..ops.tile_tracer import REGION_CELLS, region_grid
 from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
-from .step import PUSH_CONSTANTS, PushRing, Step, StepKey
+from .step import (EditStep, GraphedCall, PushRing, Step, StepKey,
+                   pack_frame, trace_from_pc)
 
 
 class VoxelRT:
@@ -84,6 +94,10 @@ class VoxelRT:
         self.arrays = grid.arrays.to_device(self.device)
         self.materials_host = materials
         self.mats = trace_mod.materials_to_device(materials, self.device)
+        # the edits' material classification, written in place on a push
+        is_diel, ir = _classification(materials)
+        self._mat_is_diel = torch.from_numpy(is_diel).to(self.device)
+        self._mat_ir = torch.from_numpy(ir).to(self.device)
 
         iw = int(config.internal_resolution_width)
         ih = int(config.internal_resolution_height)
@@ -119,6 +133,7 @@ class VoxelRT:
 
         self._step_cache = {}
         self._push = PushRing(self.device)
+        self._edit_cache = collections.OrderedDict()  # padded size -> EditStep
 
     def _track_host_grid(self, grid: BrickGrid) -> None:
         # host-side bound on the active bricks: the edit path never reads
@@ -139,8 +154,10 @@ class VoxelRT:
             self._tables = None
             self._dist = None
         if self._tables is None:
-            # the steps' graphs read the records they were captured with
+            # the steps' and edits' graphs read the records they were
+            # captured with
             self._step_cache.clear()
+            self._edit_cache.clear()
             with profiling.zone("build_tables"):
                 if self._dist is None:
                     self._dist = (trace_mod.distance_field(
@@ -239,14 +256,12 @@ class VoxelRT:
             enabled=key.denoiser_enabled)
 
         def body(pc, accum):
-            cam = trace_mod.basis_views(pc[0:12])
-            img = trace_mod.render_rows(
-                static, tables, material_indices, mats, cam,
+            img = trace_from_pc(
+                pc, static, tables, material_indices, mats,
                 key.internal_width, key.internal_height,
-                key.samples_per_pixel, key.max_bounce, pc[12:15],
-                pc[15:18], pc[18], key.sun_enabled,
-                max_steps=key.max_steps, sample_base=pc[21],
-                shadow_probe=key.sun_in_kernel, use_skip=key.empty_skip)
+                key.samples_per_pixel, key.max_bounce, key.sun_enabled,
+                max_steps=key.max_steps, shadow_probe=key.sun_in_kernel,
+                use_skip=key.empty_skip)
             if accum is not None:
                 # running mean over pose-static frames, in place
                 accum.add_(trace_mod._div(img - accum, pc[22] + 1.0))
@@ -268,16 +283,12 @@ class VoxelRT:
         its key holds the denoiser's values."""
         d = self.camera.d_camera
         sun = self.sun.device_data
-        pc = np.zeros(PUSH_CONSTANTS, dtype=np.float32)
-        pc[0:12] = trace_mod.camera_basis(d)
-        pc[12:15] = np.asarray(sun.position, np.float32)
-        pc[15:18] = np.asarray(sun.color, np.float32)
-        pc[18] = np.float32(sun.radius)
+        spp = int(d.samples_per_pixel)
+        pc = pack_frame(trace_mod.camera_basis(d), sun.position, sun.color,
+                        sun.radius, self._accum_count * spp
+                        if self.temporal_enabled else 0.0)
         pc[19] = np.float32(self.denoiser.distribution_bias)
         pc[20] = np.float32(self.denoiser.inverse_hue_tolerance)
-        spp = int(d.samples_per_pixel)
-        pc[21] = np.float32(self._accum_count * spp
-                            if self.temporal_enabled else 0.0)
         pc[22] = np.float32(self._accum_count)
         pc[23] = np.float32(min(int(self.denoiser.samples),
                                 denoise_mod.MAX_RUNTIME_SAMPLES))
@@ -316,12 +327,17 @@ class VoxelRT:
         self._tables = None
         self._dist = None
         self._step_cache.clear()
+        self._edit_cache.clear()
 
     def push_materials(self, materials: MaterialTable) -> None:
         """Replace the material table (VoxelRT.zig:85-88), written into the
-        device table in place: the steps keep their graphs."""
+        device table and the edits' dielectric classification in place: the
+        steps and the edits keep their graphs."""
         self.materials_host = materials
         self.mats.copy_(trace_mod.materials_to_device(materials, self.device))
+        is_diel, ir = _classification(materials)
+        self._mat_is_diel.copy_(torch.from_numpy(is_diel))
+        self._mat_ir.copy_(torch.from_numpy(ir))
 
     def push_albedo(self, index: int, albedo) -> None:
         """Update one material's albedo (VoxelRT.zig:90-92 pushAlbedo), in
@@ -361,11 +377,21 @@ class VoxelRT:
 
     # -- voxel edits (reference C4 call stack) -----------------------------------
 
+    _EDIT_PAD = 1024  # lanes of the smallest padded batch (the JAX engine's)
+    _EDIT_SIZES = 4   # padded sizes whose buffers and graphs are kept
+
     def _cells_of(self, xyz: np.ndarray) -> np.ndarray:
         """Grid cell ids (Y-flipped, Grid.zig:135/:206-211) for a batch."""
         st = self.grid_static
         fy = (st.voxel_dims[1] - 1) - xyz[:, 1]
         return grid_at(st, xyz[:, 0], fy, xyz[:, 2]).astype(np.int32)
+
+    def _padded(self, n: int) -> int:
+        """The batch's padded size: `_EDIT_PAD` times a power of two."""
+        size = self._EDIT_PAD
+        while size < n:
+            size *= 2
+        return size
 
     def _edit_batch(self, xyz) -> np.ndarray:
         xyz = np.atleast_2d(np.asarray(xyz, dtype=np.int32))
@@ -379,19 +405,37 @@ class VoxelRT:
     def insert_voxels(self, xyz, material_index) -> None:
         """Insert voxels on the device (the updateGridDelta analog,
         VoxelRT.zig:107-172): `core.grid.apply_edits`, then the cached
-        records' refresh (`ops.trace.refresh_tables_after_insert`).
+        records' refresh (`ops.trace.refresh_tables_after_insert`), one
+        replayed graph on a CUDA device.
 
         Raises MemoryError, before touching the scene, if the batch could
         exhaust `brick_alloc`. The check is a host-side bound (each distinct
         touched cell may need one new brick); only when the bound trips is
         the device read for the exact count."""
+        self._insert(xyz, material_index, GraphedCall.__call__)
+
+    def insert_voxels_op_by_op(self, xyz, material_index) -> None:
+        """`insert_voxels` through the same body called op by op (no graph)."""
+        self._insert(xyz, material_index, _call_body)
+
+    def remove_voxels(self, xyz) -> None:
+        """Remove voxels on the device (BASELINE config 3):
+        `core.grid.remove_edits`, then the touched records' refresh with
+        the cached skip field (bricks are never freed), one replayed graph
+        on a CUDA device."""
+        self._remove(xyz, GraphedCall.__call__)
+
+    def remove_voxels_op_by_op(self, xyz) -> None:
+        """`remove_voxels` through the same body called op by op."""
+        self._remove(xyz, _call_body)
+
+    def _insert(self, xyz, material_index, run) -> None:
         xyz = self._edit_batch(xyz)
         mats = np.asarray(material_index, dtype=np.uint8).ravel()
         if mats.shape[0] != xyz.shape[0]:
             raise ValueError("one material index per voxel")
         st = self.grid_static
-        cells = self._cells_of(xyz)
-        uniq_cells = np.unique(cells)
+        uniq_cells = np.unique(self._cells_of(xyz))
         if self._bricks_upper + uniq_cells.size > st.brick_alloc:
             statuses = self.arrays.statuses.cpu().numpy().view(np.uint32)
             loaded = (statuses[uniq_cells // 32]
@@ -409,39 +453,55 @@ class VoxelRT:
         # batch marks no region
         self._nonempty_regions.update(
             _regions_of_cells(st, uniq_cells).tolist())
-        dev = self.device
-        valid = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
-        table = self.materials_host
         with profiling.zone("edit_insert"):
-            self.arrays = apply_edits(
-                st, self.arrays, torch.from_numpy(xyz).to(dev),
-                torch.from_numpy(mats).to(dev), valid,
-                torch.from_numpy(np.asarray(table.mtype)
-                                 == MAT_DIELECTRIC).to(dev),
-                torch.from_numpy(np.asarray(table.type_data,
-                                            dtype=np.float32)).to(dev))
-        if self._tables is not None:
-            with profiling.zone("refresh_tables_insert"):
-                self._tables, self._dist = (
-                    trace_mod.refresh_tables_after_insert(
-                        st, self.arrays, self._tables,
-                        torch.from_numpy(cells).to(dev), valid,
-                        use_skip=self._tables_skip))
+            self._edit("insert", xyz, mats, run)
 
-    def remove_voxels(self, xyz) -> None:
-        """Remove voxels on the device (BASELINE config 3):
-        `core.grid.remove_edits`, then the touched records' refresh with
-        the cached skip field (bricks are never freed)."""
+    def _remove(self, xyz, run) -> None:
         xyz = self._edit_batch(xyz)
-        dev = self.device
-        valid = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
         with profiling.zone("edit_remove"):
-            self.arrays = remove_edits(self.grid_static, self.arrays,
-                                       torch.from_numpy(xyz).to(dev), valid)
-        if self._tables is not None:
-            self._tables = trace_mod.refresh_tables_after_remove(
-                self.grid_static, self.arrays, self._tables, self._dist,
-                torch.from_numpy(self._cells_of(xyz)).to(dev), valid)
+            self._edit("remove", xyz, None, run)
+
+    def _edit(self, op: str, xyz, mats, run) -> None:
+        """Upload the batch into its padded size's buffer and run the edit
+        graph of (`op`, the records' state) through `run`."""
+        size = self._padded(xyz.shape[0])
+        step = self._edit_cache.pop(size, None)
+        if step is None:
+            step = EditStep(size, self.device)
+        self._edit_cache[size] = step  # the most recently used, last
+        while len(self._edit_cache) > self._EDIT_SIZES:
+            self._edit_cache.popitem(last=False)
+        step.upload(xyz, mats)
+        records = self._tables is not None
+        key = (op, records, self._tables_skip if records else None)
+        run(step.graph(key, lambda: self._edit_body(*key)))
+
+    def _edit_body(self, op: str, records: bool, skip):
+        """The edit of `op` over an `EditStep`'s buffer, with the records'
+        refresh when they exist, on the scene's current tensors (whose
+        addresses a graph keeps). The body holds no reference to its step,
+        so an evicted step goes (and its graph's pool with it) at once."""
+        st = self.grid_static
+        arrays, tables, dist = self.arrays, self._tables, self._dist
+        is_diel, ir = self._mat_is_diel, self._mat_ir
+
+        def body(buf):
+            xyz, mats, live = EditStep.lanes(buf)
+            x, y, z = (xyz[:, i].to(torch.int64) for i in range(3))
+            cells = grid_at(st, x, (st.voxel_dims[1] - 1) - y, z)
+            if op == "insert":
+                apply_edits(st, arrays, xyz, mats, live, is_diel, ir)
+                if records:
+                    trace_mod.refresh_tables_after_insert(
+                        st, arrays, tables, cells, live, use_skip=skip,
+                        dist=dist)
+            else:
+                remove_edits(st, arrays, xyz, live)
+                if records:
+                    trace_mod.refresh_tables_after_remove(
+                        st, arrays, tables, dist, cells, live)
+
+        return body
 
     def nonempty_region_fraction(self) -> float:
         """The share of 4x16x16-cell regions that hold a loaded cell: the
@@ -506,6 +566,18 @@ class VoxelRT:
 
     def device_image_to_host(self, image) -> np.ndarray:
         return image.cpu().numpy()
+
+
+def _call_body(graphed: GraphedCall):
+    """`graphed`'s body on its arguments, op by op (no graph)."""
+    return graphed.body(*graphed.args)
+
+
+def _classification(materials: MaterialTable):
+    """(bool[256] dielectric, f32[256] ir) of a material table: what the
+    edits maintain `diel_mask` and `brick_ir` from."""
+    return (np.asarray(materials.mtype) == MAT_DIELECTRIC,
+            np.asarray(materials.type_data, dtype=np.float32))
 
 
 def _checked(image):

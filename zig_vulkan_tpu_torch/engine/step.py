@@ -1,4 +1,4 @@
-"""The compiled frame step: a frame captured once as a CUDA graph.
+"""The compiled frame step and edit steps: each captured once as a CUDA graph.
 
 The JAX engine compiles its frame into one program (`_build_step` under
 `jax.jit`), fed by one host-to-device transfer of packed push constants a
@@ -17,17 +17,57 @@ kernels a replay runs (`utils.profiling.kernel_launches`).
 
 `PushRing` makes each frame's push-constant upload a copy from pinned host
 memory on the current stream, without a synchronize.
+
+`EditStep` does the same for the voxel edits (the JAX engine's jitted
+`apply_edits` / `remove_edits` and records refresh): a batch padded to a
+fixed number of lanes is uploaded in one pinned copy into a static device
+buffer, and one graph per edit kind replays the edit and the refresh over
+it.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import trace as trace_mod
+
 PUSH_CONSTANTS = 24  # float32 values a frame (the JAX engine's layout)
 PUSH_SLOTS = 4       # pinned host buffers behind the uploads
+
+
+def pack_frame(basis, sun_position, sun_color, sun_radius,
+               sample_base) -> np.ndarray:
+    """The values a frame's trace reads, as a new f32[PUSH_CONSTANTS] in the
+    JAX engine's layout: camera origin, horizontal, vertical, lower-left
+    corner (0-11; `ops.trace.camera_basis`' array, or None to leave them 0),
+    sun position (12-14), colour (15-17), radius (18), sample base (21).
+    The engine adds the denoiser's and the temporal slots (19, 20, 22,
+    23)."""
+    pc = np.zeros(PUSH_CONSTANTS, dtype=np.float32)
+    if basis is not None:
+        pc[0:12] = basis
+    pc[12:15] = np.asarray(sun_position, np.float32)
+    pc[15:18] = np.asarray(sun_color, np.float32)
+    pc[18] = np.float32(sun_radius)
+    pc[21] = np.float32(sample_base)
+    return pc
+
+
+def trace_from_pc(pc, static, tables, material_indices, mats, width, height,
+                  spp, max_bounce, sun_enabled, **rows):
+    """`ops.trace.render_rows` with the camera, the sun and the sample base
+    read from the device push constants `pc` (`pack_frame`'s layout);
+    `rows` are its keyword arguments (max_steps, shadow_probe, use_skip, a
+    band's row0 and rows)."""
+    return trace_mod.render_rows(
+        static, tables, material_indices, mats,
+        trace_mod.basis_views(pc[0:12]), width, height, spp, max_bounce,
+        pc[12:15], pc[15:18], pc[18], sun_enabled, sample_base=pc[21],
+        **rows)
 
 
 class StepKey(NamedTuple):
@@ -116,28 +156,39 @@ class GraphedCall:
             for t in _tensors(result):
                 t.record_stream(current)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self.body(*self.args)
+            # captured on a stream of this device (torch's default capture
+            # stream belongs to the device of the process's first capture),
+            # with the garbage collector held: a collection could free
+            # another graph, and a graph may not be destroyed while a
+            # stream captures (that invalidates the capture)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    out = self.body(*self.args)
+            finally:
+                if collecting:
+                    gc.enable()
         self.graph, self.out = graph, out
         GraphedCall.captures += 1
         return result
 
 
 class PushRing:
-    """Uploads of a frame's push constants: a ring of PUSH_SLOTS pinned host
-    buffers, each behind the event of its last copy. A frame writes the
-    next buffer once the copy that last read it has run (so frames issued
-    back to back without a synchronize never rewrite a buffer a pending
-    copy still reads), then copies it to the step's device tensor with
-    `non_blocking` on the current stream. The host waits only when it runs
-    PUSH_SLOTS frames ahead of the card. On the CPU it is a plain copy."""
+    """Uploads of a frame's push constants (or of any host array of `numel`
+    `dtype` values): a ring of PUSH_SLOTS pinned host buffers, each behind
+    the event of its last copy. A call writes the next buffer once the copy
+    that last read it has run (so frames issued back to back without a
+    synchronize never rewrite a buffer a pending copy still reads), then
+    copies it to the device tensor with `non_blocking` on the current
+    stream. The host waits only when it runs PUSH_SLOTS uploads ahead of
+    the card. On the CPU it is a plain copy."""
 
-    def __init__(self, device):
+    def __init__(self, device, numel=PUSH_CONSTANTS, dtype=torch.float32):
         self.device = torch.device(device)
         self.next = 0
         if self.device.type == "cuda":
-            self.host = [torch.empty(PUSH_CONSTANTS, dtype=torch.float32,
-                                     pin_memory=True)
+            self.host = [torch.empty(numel, dtype=dtype, pin_memory=True)
                          for _ in range(PUSH_SLOTS)]
             self.events = [torch.cuda.Event() for _ in range(PUSH_SLOTS)]
 
@@ -176,3 +227,47 @@ class Step:
 
     def op_by_op(self):
         return self.body(self.pc, self.accum).clone()
+
+
+class EditStep:
+    """The edits of one padded batch size (the JAX engine's jitted
+    `apply_edits` / `remove_edits` at one batch shape): a static device
+    buffer int32[4 * size + 1] holding the lanes' voxel coordinates
+    ([size, 3]), their materials ([size]) and the count of live lanes, the
+    pinned ring that uploads a batch into it (one host-to-device copy an
+    edit), and one `GraphedCall` over the buffer for each edit kind the
+    caller names (`graph(key, make_body)`)."""
+
+    def __init__(self, size: int, device):
+        self.size = int(size)
+        self.buf = torch.zeros(4 * self.size + 1, dtype=torch.int32,
+                               device=device)
+        self.ring = PushRing(device, self.buf.numel(), torch.int32)
+        self.graphs = {}
+
+    def upload(self, xyz: np.ndarray, mats=None) -> None:
+        """Write a batch (int32[n, 3], uint8[n] or None) into the buffer;
+        the lanes from n on are zeros."""
+        s, n = self.size, xyz.shape[0]
+        host = np.zeros(4 * s + 1, dtype=np.int32)
+        host[:3 * n] = xyz.reshape(-1)
+        if mats is not None:
+            host[3 * s:3 * s + n] = mats
+        host[4 * s] = n
+        self.ring.upload(host, self.buf)
+
+    @staticmethod
+    def lanes(buf):
+        """(xyz int32[size, 3], materials int32[size], live bool[size]) as
+        views and device ops over an edit buffer `buf`."""
+        s = (buf.numel() - 1) // 4
+        live = torch.arange(s, device=buf.device) < buf[4 * s]
+        return buf[:3 * s].view(s, 3), buf[3 * s:4 * s], live
+
+    def graph(self, key, make_body) -> GraphedCall:
+        """The `GraphedCall` of `key`, over the buffer, its body made by
+        `make_body()` on first use."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = GraphedCall(make_body(), self.buf)
+        return g

@@ -236,7 +236,8 @@ def one_shot_tables(static: GridStatic, arrays: GridArrays,
 
 
 def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
-                                tables, cells, valid, use_skip: bool = True):
+                                tables, cells, valid, use_skip: bool = True,
+                                dist=None):
     """Bring cached tables up to date after an insert batch
     (zig_vulkan_tpu/ops/trace.py:354-373), in place: the conservative
     skip field is rebuilt whole (inserts can load new cells, lowering
@@ -246,15 +247,19 @@ def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
     `build_trace_tables(static, arrays, distance_field(static, arrays))`
     on every lane the traversal reads. (An empty cell's row also carries
     brick 0's words, which stay as they were when an edit changes brick 0,
-    as in the reference; no traversal reads them.)
+    as in the reference; no traversal reads them.) A `dist` tensor given
+    receives the field in place (the engine's cached field, whose address
+    its edit graphs hold).
 
     With `use_skip=False` (the exact DDA, which never reads lane 3) no
     field is built: the touched rows get distance 0, as
-    `no_skip_field` builds the whole table."""
+    `no_skip_field` builds the whole table (a `dist` given is that field
+    already)."""
     if use_skip:
-        dist = distance_field(static, arrays)
+        field = distance_field(static, arrays)
+        dist = field if dist is None else dist.copy_(field)
         tables[:, 3] = dist
-    else:
+    elif dist is None:
         dist = no_skip_field(static, arrays)
     _refresh_rows(static, arrays, tables, dist, cells, valid)
     return tables, dist
@@ -271,8 +276,17 @@ def refresh_tables_after_remove(static: GridStatic, arrays: GridArrays,
 
 
 def _refresh_rows(static, arrays, tables, dist, cells, valid):
-    safe = cells.to(torch.int64).clamp(0, static.cells - 1)[valid]
-    tables[safe] = _rows_for_cells(static, arrays, safe, dist[safe])
+    """Gather anew the rows of the `valid` lanes' cells, with no shape that
+    depends on the data: every lane writes a row, and an invalid lane
+    writes the row of the first valid lane's cell (the same row that lane
+    writes), or, in a batch with no valid lane, its own row unchanged."""
+    safe = cells.to(torch.int64).clamp(0, static.cells - 1)
+    first = torch.argmax(valid.to(torch.int32)).view(1)
+    cell = torch.where(valid, safe, safe[first])
+    rows = torch.where(valid.any(), _rows_for_cells(static, arrays, cell,
+                                                    dist[cell]),
+                       tables[cell])
+    tables[cell] = rows
 
 
 # -- first-hit traversal: the plain torch version of kernel A ------------------

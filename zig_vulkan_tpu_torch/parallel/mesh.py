@@ -8,13 +8,25 @@ gets the denoiser's halo exchange from XLA's partitioner. The same model
 here is one process that owns a tuple of `torch.device`s:
 
 - every distinct device holds one replica of the scene (`replicate_scene`);
+- the per-frame values (camera, sun, sample base) go to every distinct
+  device as one f32[24] of push constants in the engine's layout
+  (`engine.step`): one pinned upload a frame, then a copy between cards;
 - shard `i` traces rows `[i*rows, (i+1)*rows)` with `ops.trace.render_rows`
   on its device, under a CUDA stream of its own (kernels A and B launch on
   that stream);
 - with the denoiser on, a shard takes the halo rows it needs from its
-  neighbours' traced bands (`ops.denoise.band_input_rows`) by
-  device-to-device copy and post-processes its band of output rows;
+  neighbours' traced bands (`ops.denoise.band_input_rows`), read in place
+  on its own card or copied from another card, and post-processes its band
+  of output rows;
 - the bands are concatenated on the mesh's first device.
+
+On CUDA devices each shard's trace and post-process are CUDA graphs
+(`engine.step.GraphedCall`), captured on the first call for the replicas
+and records it is given and replayed on the shard's own stream; a post
+graph reads its neighbours' traced bands on its card where they lie, and
+a band from another card through a static slab that a copy fills between
+the replays. `ShardedStep.op_by_op` runs the same bodies op by op (on the
+CPU every call does).
 
 A device may appear in the mesh more than once: several shards of one card,
 each on its own stream (what the JAX package's virtual CPU devices are to
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,6 +60,8 @@ import torch
 
 from ..config import DenoiserConfig, TraceConfig
 from ..core.grid import GridArrays, GridStatic
+from ..engine.step import (PUSH_CONSTANTS, GraphedCall, PushRing,
+                           pack_frame, trace_from_pc)
 from ..ops import denoise as denoise_mod
 from ..ops import trace as trace_mod
 from ..utils.device import NoCudaDevice, cli_main
@@ -143,120 +158,257 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
                        trace_config: TraceConfig = TraceConfig()):
     """Build a multi-device render step.
 
-    Returns step(arrays_r, mats_r, cam, sun_position, sun_color, sun_radius,
-    tables=None, sample_base=0.0) -> f32[out_h, out_w, 3] on the mesh's
-    first device. `arrays_r` and `mats_r` are `replicate_scene`'s per-shard
-    tuples; `cam` is `ops.trace.camera_vectors`' dict (on any device); the
-    sun values are the host's, as `ops.trace.render_rows` takes them;
+    Returns a `ShardedStep`: step(arrays_r, mats_r, cam, sun_position,
+    sun_color, sun_radius, tables=None, sample_base=0.0) -> f32[out_h,
+    out_w, 3] on the mesh's first device. `arrays_r` and `mats_r` are
+    `replicate_scene`'s per-shard tuples; `cam` is `ops.trace.camera_vectors`'
+    dict (on any device); the sun values and `sample_base` are the host's;
     `tables` is a per-shard tuple of traversal records (`map_replicas` of
-    `ops.trace.build_trace_tables`), built here for every replica when the
-    caller brings none: engines and benchmarks pass the cache, so that a
-    frame costs the trace alone.
+    `ops.trace.build_trace_tables`), built here, outside the graphs, for
+    every replica when the caller brings none: engines and benchmarks pass
+    the cache, so that a frame costs the trace alone.
 
     The image equals the unsharded `render_rows` + `denoise.postprocess` bit
     for bit. `trace_config.max_steps`, `empty_skip` and `sun_in_kernel` act
     as in the engine. The JAX step's `use_pallas`, `tile_interpret`,
     `region_blocks` and `degraded` select among TPU kernel builds and
     serves; kernel A has one build for all of them, so they are left out."""
-    n = mesh.size
-    if height % n != 0:
-        raise ValueError(f"internal height {height} must divide the mesh "
-                         f"size {n}")
-    rows = height // n
-    out_w = int(out_width or width)
-    out_h = int(out_height or height)
-    use_skip = bool(trace_config.empty_skip)
-    # output rows of shard i, and the input rows they read
-    out_rows = [(i * out_h // n, (i + 1) * out_h // n) for i in range(n)]
-    in_rows = [denoise_mod.band_input_rows(r0, r1, out_h, height, denoiser)
-               for r0, r1 in out_rows]
-    cuda = [dev for dev in mesh.distinct if dev.type == "cuda"]
-    streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
-               for dev in mesh.devices]
-    if cuda:
-        from .. import _build
+    return ShardedStep(mesh, static, width=width, height=height, spp=spp,
+                       max_bounce=max_bounce, sun_enabled=sun_enabled,
+                       out_width=out_width, out_height=out_height,
+                       denoiser=denoiser, trace_config=trace_config)
 
-        _build.library()  # built before the first frame, not inside it
 
-    def on(i):
+class BandPlan:
+    """What a shard computes: the frame's static configuration, each
+    shard's rows, and the bodies of its trace and post-process. Graphs are
+    built over these bodies; the plan holds no graph, so a graph that goes
+    away takes no cycle of references with it."""
+
+    def __init__(self, static: GridStatic, n: int, *, width, height, spp,
+                 max_bounce, sun_enabled, out_width, out_height, denoiser,
+                 trace_config):
+        if height % n != 0:
+            raise ValueError(f"internal height {height} must divide the "
+                             f"mesh size {n}")
+        self.static = static
+        self.width, self.height = int(width), int(height)
+        self.spp, self.max_bounce = int(spp), int(max_bounce)
+        self.sun_enabled = bool(sun_enabled)
+        self.rows = self.height // n
+        self.out_w = int(out_width or width)
+        self.out_h = int(out_height or height)
+        self.denoiser = denoiser
+        self.trace_config = trace_config
+        self.use_skip = bool(trace_config.empty_skip)
+        # output rows of shard i, and the input rows they read
+        self.out_rows = [(i * self.out_h // n, (i + 1) * self.out_h // n)
+                         for i in range(n)]
+        self.in_rows = [denoise_mod.band_input_rows(
+            r0, r1, self.out_h, self.height, denoiser)
+            for r0, r1 in self.out_rows]
+        # without the denoiser at the same size, shard i's output rows are
+        # its traced rows
+        self.traced_is_output = (not denoiser.enabled and (
+            self.out_h, self.out_w) == (self.height, self.width))
+
+    def trace(self, i, pc, tables, material_indices, mats):
+        """Shard i's band of traced rows over its push constants `pc`."""
+        tc = self.trace_config
+        return trace_from_pc(
+            pc, self.static, tables, material_indices, mats, self.width,
+            self.height, self.spp, self.max_bounce, self.sun_enabled,
+            max_steps=int(tc.max_steps), shadow_probe=bool(tc.sun_in_kernel),
+            use_skip=self.use_skip, row0=i * self.rows, rows=self.rows)
+
+    def post(self, i, *pieces):
+        """Shard i's output rows from the pieces of its input rows."""
+        a = self.in_rows[i][0]
+        slab = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        return denoise_mod.postprocess(
+            slab, self.denoiser, self.out_h, self.out_w,
+            band=denoise_mod.Band(*self.out_rows[i], a, self.height))
+
+    def sources(self, i):
+        """(shard j, its input rows [r0, r1)) whose traced rows shard i's
+        post-process reads."""
+        a, b = self.in_rows[i]
+        rows = self.rows
+        return [(j, max(a, j * rows), min(b, (j + 1) * rows))
+                for j in range(a // rows, (b - 1) // rows + 1)]
+
+
+class ShardedStep:
+    """The row-sharded frame of `build_sharded_step` (the JAX package's
+    jitted `shard_map` step, zig_vulkan_tpu/parallel/mesh.py:127-134).
+
+    Calling it runs each shard's trace graph, then each shard's post-process
+    graph, on the shard's stream (captured on the first call, or on the
+    first call with other replicas or records: one set of graphs is kept;
+    op by op on the CPU). `op_by_op` calls the same bodies on the same
+    inputs without graphs. Both return a fresh image."""
+
+    def __init__(self, mesh: Mesh, static: GridStatic, **frame):
+        self.mesh = mesh
+        self.plan = BandPlan(static, mesh.size, **frame)
+        self.cuda = [dev for dev in mesh.distinct if dev.type == "cuda"]
+        self.streams = [torch.cuda.Stream(dev) if dev.type == "cuda"
+                        else None for dev in mesh.devices]
+        self.graphed = all(dev.type == "cuda" for dev in mesh.devices)
+        # the per-frame values on each distinct device, in the engine's
+        # push-constant layout (`engine.step.pack_frame`)
+        self.pcs = {dev: torch.zeros(PUSH_CONSTANTS, dtype=torch.float32,
+                                     device=dev) for dev in mesh.distinct}
+        self.push = PushRing(mesh.devices[0])
+        self.slabs = {}       # (shard, source shard) -> its halo rows' copy
+        self._inputs = None   # the replicas and records the graphs read
+        self._trace = None    # shard -> GraphedCall of its trace
+        self._post = None     # shard -> GraphedCall of its post-process
+        if self.cuda:
+            from .. import _build
+
+            _build.library()  # built before the first frame, not inside it
+
+    def __call__(self, arrays_r, mats_r, cam, sun_position, sun_color,
+                 sun_radius, tables=None, sample_base=0.0):
+        return self._frame(arrays_r, mats_r, cam, sun_position, sun_color,
+                           sun_radius, tables, sample_base, self.graphed)
+
+    def op_by_op(self, arrays_r, mats_r, cam, sun_position, sun_color,
+                 sun_radius, tables=None, sample_base=0.0):
+        """The same frame with each shard's bodies called op by op (no
+        graph): every kernel launch goes through its wrapper."""
+        return self._frame(arrays_r, mats_r, cam, sun_position, sun_color,
+                           sun_radius, tables, sample_base, False)
+
+    def _on(self, i):
         """Shard i's device and stream as the current ones."""
-        if streams[i] is None:
+        if self.streams[i] is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(streams[i])
+        return torch.cuda.stream(self.streams[i])
 
-    def step(arrays_r, mats_r, cam, sun_position, sun_color, sun_radius,
-             tables=None, sample_base=0.0):
+    def _recorded(self, i):
+        return (None if self.streams[i] is None
+                else self.streams[i].record_event())
+
+    def _frame(self, arrays_r, mats_r, cam, sun_position, sun_color,
+               sun_radius, tables, sample_base, graphed):
+        mesh, plan, devices = self.mesh, self.plan, self.mesh.devices
         if tables is None:
             tables = map_replicas(
-                mesh, lambda a: trace_mod.one_shot_tables(static, a, use_skip),
-                arrays_r)
-        cams = map_replicas(
-            mesh, lambda a: {k: v.to(a.statuses.device)
-                             for k, v in cam.items()}, arrays_r)
-        callers = {dev: torch.cuda.current_stream(dev) for dev in cuda}
-
-        def trace_shard(i):
-            with on(i):
-                if streams[i] is not None:
-                    streams[i].wait_stream(callers[mesh.devices[i]])
-                band = trace_mod.render_rows(
-                    static, tables[i], arrays_r[i].material_indices,
-                    mats_r[i], cams[i], width, height, spp, max_bounce,
-                    sun_position, sun_color, sun_radius, sun_enabled,
-                    max_steps=int(trace_config.max_steps),
-                    sample_base=sample_base,
-                    shadow_probe=bool(trace_config.sun_in_kernel),
-                    use_skip=use_skip, row0=i * rows, rows=rows)
-                return band, (None if streams[i] is None
-                              else streams[i].record_event())
-
-        def post_shard(i):
-            a, b = in_rows[i]
-            with on(i):
-                pieces = [_rows_from(j, traced, traced_at, streams, i,
-                                     mesh.devices[i], max(a, j * rows),
-                                     min(b, (j + 1) * rows))
-                          for j in range(a // rows, (b - 1) // rows + 1)]
-                slab = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
-                band = denoise_mod.postprocess(
-                    slab, denoiser, out_h, out_w,
-                    band=denoise_mod.Band(*out_rows[i], a, height))
-                return band, (None if streams[i] is None
-                              else streams[i].record_event())
-
+                mesh, lambda a: trace_mod.one_shot_tables(
+                    plan.static, a, plan.use_skip), arrays_r)
+        self._upload(cam, sun_position, sun_color, sun_radius, sample_base)
+        callers = {dev: torch.cuda.current_stream(dev) for dev in self.cuda}
+        for i, stream in enumerate(self.streams):
+            if stream is not None:
+                stream.wait_stream(callers[devices[i]])
+        inputs = tuple((self.pcs[devices[i]], tables[i],
+                        arrays_r[i].material_indices, mats_r[i])
+                       for i in range(mesh.size))
+        if graphed:
+            self._hold(inputs)
+        traced, traced_at = [], []
+        for i in range(mesh.size):
+            with self._on(i):
+                traced.append(self._traced(i, inputs[i], graphed))
+                traced_at.append(self._recorded(i))
         # every band is traced (its event recorded) before any shard reads
         # its neighbours' rows
-        traced, traced_at = zip(*map(trace_shard, range(n)))
-        bands, done_at = zip(*map(post_shard, range(n)))
-        for i, dev in enumerate(mesh.devices):
-            if streams[i] is not None:
+        bands, done_at = traced, traced_at
+        if not plan.traced_is_output:
+            bands, done_at = [], []
+            for i in range(mesh.size):
+                with self._on(i):
+                    pieces = [self._piece(i, j, r0, r1, traced, traced_at)
+                              for j, r0, r1 in plan.sources(i)]
+                    bands.append(self._posted(i, pieces, graphed))
+                    done_at.append(self._recorded(i))
+        for i, dev in enumerate(devices):
+            if self.streams[i] is not None:
                 callers[dev].wait_event(done_at[i])
-        first = mesh.devices[0]
+        first = devices[0]
         with (torch.cuda.device(first) if first.type == "cuda"
               else contextlib.nullcontext()):
             return torch.cat([band.to(first) for band in bands])
 
-    return step
+    def _hold(self, inputs):
+        """Graphs over `inputs`: kept while a call brings the same tensors,
+        made anew (captured on their first call) when it brings others."""
+        held = self._inputs
+        if held is not None and all(x is y for got, want in zip(inputs, held)
+                                    for x, y in zip(got, want)):
+            return
+        self._inputs = inputs
+        self._trace = [GraphedCall(functools.partial(self.plan.trace, i),
+                                   *inputs[i])
+                       for i in range(self.mesh.size)]
+        self._post = [None] * self.mesh.size
 
+    def _traced(self, i, args, graphed):
+        """Shard i's traced band: its body's, or its graph's static band."""
+        if not graphed:
+            return self.plan.trace(i, *args)
+        g = self._trace[i]
+        band = g()
+        if band is not g.out:
+            # the capture call returns its warm-up's band: the static band
+            # the post graphs read holds it too
+            g.out.copy_(band)
+        return g.out
 
-def _rows_from(j, traced, traced_at, streams, i, dev, r0, r1):
-    """Image rows [r0, r1) of shard j's traced band, on shard i's device
-    `dev`, ordered behind shard j's trace. Called with shard i's stream
-    current."""
-    rows = traced[j].shape[0]
-    piece = traced[j][r0 - j * rows:r1 - j * rows]
-    if j == i:
-        return piece
-    if streams[j] is None:
-        return piece.to(dev)
-    if piece.device == dev:
-        streams[i].wait_event(traced_at[j])
-        return piece
-    # a copy between cards runs on the source card's current stream; with
-    # shard j's stream current there it is ordered behind shard j's trace,
-    # and shard i's stream (still current on `dev`) waits for the copy
-    with torch.cuda.stream(streams[j]):
-        return piece.to(dev, non_blocking=True)
+    def _posted(self, i, pieces, graphed):
+        """Shard i's output rows: its body's, or its graph's, a graph over
+        the pieces of the call that captures it."""
+        if not graphed:
+            return self.plan.post(i, *pieces)
+        if self._post[i] is None:
+            self._post[i] = GraphedCall(functools.partial(self.plan.post, i),
+                                        *pieces)
+        return self._post[i]()
+
+    def _piece(self, i, j, r0, r1, traced, traced_at):
+        """Image rows [r0, r1) of shard j's traced band for shard i's
+        post-process, ordered behind shard j's trace; called with shard i's
+        stream current. On shard i's device the piece is a view; from
+        another card a copy fills shard i's static slab for shard j (the
+        slab a post graph reads)."""
+        rows = self.plan.rows
+        piece = traced[j][r0 - j * rows:r1 - j * rows]
+        dev = self.mesh.devices[i]
+        if j == i:
+            return piece
+        if piece.device == dev:
+            if self.streams[i] is not None:
+                self.streams[i].wait_event(traced_at[j])
+            return piece
+        slab = self.slabs.get((i, j))
+        if slab is None:
+            slab = self.slabs[(i, j)] = torch.empty(
+                piece.shape, dtype=piece.dtype, device=dev)
+        # a copy between cards runs on the source card's current stream;
+        # with shard j's stream current there it is ordered behind shard j's
+        # trace, and shard i's stream (still current on `dev`) waits for it
+        with self._on(j):
+            slab.copy_(piece, non_blocking=True)
+        return slab
+
+    def _upload(self, cam, sun_position, sun_color, sun_radius,
+                sample_base):
+        """The frame's push constants to every distinct device: one upload
+        from pinned memory (the camera, when it lies on a card, copied
+        there on the card), then a copy to each other card."""
+        basis = torch.cat([cam[k].reshape(3)
+                           for k in trace_mod.CAMERA_BASIS])
+        on_host = basis.device.type == "cpu"
+        pc = pack_frame(basis.numpy() if on_host else None, sun_position,
+                        sun_color, sun_radius, sample_base)
+        devices = self.mesh.distinct
+        self.push.upload(pc, self.pcs[devices[0]])
+        if not on_host:
+            self.pcs[devices[0]][0:12].copy_(basis)
+        for dev in devices[1:]:
+            self.pcs[dev].copy_(self.pcs[devices[0]], non_blocking=True)
 
 
 def render_image_sharded(mesh: Mesh, static: GridStatic, arrays: GridArrays,
