@@ -16,7 +16,7 @@ a replayed frame are counted in a `torch.profiler` trace of the card
 (`card_launches`).
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu (kernels A and B) with nvcc;
+2. build: compile csrc/*.cu (kernels A to E) with nvcc;
 3. kernel A (traversal) against its plain torch version on the card, on
    the default 512x256x512 scene: the frame's primary wavefront,
    bounce-like rays from its hit points, and the same rays with a
@@ -27,16 +27,18 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    tests/golden/flat_scene_renders.npz rendered on the card;
 6. the main path: `VoxelRT(...).draw()` at the default EngineConfig
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
-   with the kernels' launch counts through the wrappers and a replayed
-   frame's on the card;
-6b. the frame's 6 kernel A and 3 kernel B launches, captured from one
-   frame of the step's body run op by op and replayed one by one
-   (`frame_kernels`): each bit for bit
+   with the kernels' launch counts through the wrappers (6 A, 3 B, 1 C,
+   3 D, 1 E a frame) and a replayed frame's on the card;
+6b. the frame's 6 kernel A, 3 kernel B and 1 C, 3 D, 1 E launches,
+   captured from one frame of the step's body run op by op and replayed
+   one by one (`frame_kernels`): each bit for bit
    against its plain version, its device time warm and after an L2
    flush, its bound, kernel A's steps, warp-use shares and its time with
    no lane live, with only its slowest 1% of rays live and through the
    builds that divide (at a 0.3 cell, also bit for bit), kernel B's
-   `torch.index_select` time;
+   `torch.index_select` time, the plain versions' times of C, D and E
+   (kernel D's inputs restored before each call: it updates the ray state
+   in place);
 7. headline analogue: 1920x1080 primary rays through kernel A over the
    fly-through path's points (three passes), in Mray/s;
 8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148,
@@ -149,10 +151,16 @@ a replayed frame are counted in a `torch.profiler` trace of the card
 frame through `VoxelRT.render()` alone: the same lines from an older tree
 (copy this script over its checkout) give the numbers before the step.
 
+Every check of a frame's launches (`check_frame_launches`: phases 15-17
+and 19) also captures the frame's launches of kernels C, D and E (camera
+rays, shade, resolve: `ops.shade`) and holds each against its plain twin
+bit for bit; phases 6, 18 and 20 count them (phase 20: on both routes of
+each case, 1 C, one D a level and 1 E a frame; 1 C a pose frame).
+
 The line before the last is a JSON object with one entry per kernel build
-(its launches through the wrapper in this run, launches a replayed frame
-on the card, time, plain time, bound, share of the bound and, for kernel
-B, `index_select`'s time); the last line is
+and per shading kernel (its launches through the wrapper in this run,
+launches a replayed frame on the card, time, plain time, bound, share of
+the bound and, for kernel B, `index_select`'s time); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -255,19 +263,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, flush=None) -> float:
+def device_ms(fn, reps: int, flush=None, before=None) -> float:
     """Median device time of one call of `fn`, each of `reps` calls between
     its own CUDA events, with the host kept ahead of the card as in
     `cuda_ms`. With `flush` (a buffer larger than the L2), the buffer is
     written before each call, as the frame's glue evicts the L2 between
-    kernel launches."""
+    kernel launches. `before()` runs before each call, outside its events
+    (it restores the inputs of a call that updates them in place)."""
     import torch
 
+    if before is not None:
+        before()
     fn()  # warm
     torch.cuda.synchronize()
     pairs = [frame_events()[:2] for _ in range(reps)]
     torch.cuda._sleep(SLEEP_CYCLES)
     for start, end in pairs:
+        if before is not None:
+            before()
         if flush is not None:
             flush.zero_()
         start.record()
@@ -621,10 +634,11 @@ def step_times(fn, frames):
 
 
 def reset_counts():
-    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer
+    from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer
 
     tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
+    shade.reset_launch_counts()
 
 
 def read_counts():
@@ -633,6 +647,14 @@ def read_counts():
     a = tile_tracer.grid_hit_tiles
     return {"A": a.build_launches["default"], "A_all": a.launches,
             "B": lookup.table_lookup.launches}
+
+
+def read_shading_counts():
+    """Kernel C, D and E launches through their wrappers (`ops.shade`)."""
+    from zig_vulkan_tpu_torch.ops import shade
+
+    return {"C": shade.camera_rays.launches, "D": shade.shade.launches,
+            "E": shade.resolve.launches}
 
 
 def card_counts(launches, calls=1):
@@ -743,7 +765,7 @@ def sharded_default_frame(rt, devices, label, sizes):
     reset_counts()
     check_frame_launches(f"mesh {label} x{n}",
                          lambda: step.op_by_op(*args, tables=tables),
-                         per * n, levels * n)
+                         per * n, levels * n, renders=n)
     # a shard's launches in one step, measured: the last mesh's capture
     # call ran each shard's bodies twice (its warm-up and its capture)
     return dict(total, per_shard={k: counts[k] / (2 * n) for k in ("A", "B")})
@@ -927,7 +949,8 @@ def config5(dev, scale=1.0, frames=None):
     # the last mesh's launches (a band of rows a shard), op by op, against
     # their plain versions
     _, band_err, _, _ = check_frame_launches(f"config 5 {label}",
-                                             run.op_by_op, m.size, m.size)
+                                             run.op_by_op, m.size, m.size,
+                                             renders=m.size)
     err = max(err, band_err)
     del run
 
@@ -1315,9 +1338,16 @@ def headline_bench(dev, scale):
     # capture (6 A and 3 B, twice); the timed poses and 12 default frames
     # are replays (phase 20 traces both frames' replays on the card)
     a = 2 + 1 + 1 + 2 * 6
+    shading = read_shading_counts()
+    log("bench", **{f"launches_{k}": v for k, v in shading.items()})
     if made != 2 or counts != {"A": a, "A_all": a, "B": 2 * 3}:
         raise AssertionError(f"unexpected bench launches {counts} over "
                              f"{made} captures")
+    # kernel C: the pose frame's capture (twice), one pose op by op, the
+    # default frame's capture (twice); D and E: the default frame's
+    if shading != {"C": 2 + 1 + 2, "D": 2 * 3, "E": 2}:
+        raise AssertionError(f"unexpected bench launches of C, D and E "
+                             f"{shading}")
     return counts
 
 
@@ -1382,11 +1412,12 @@ def graph_pool_bytes(graph):
 
 
 def step_case(label, pair, routes, graph, between=lambda i: None,
-              htod_replay=1):
+              htod_replay=1, per_frame=(6, 1, 3, 1)):
     """Phase 20, one case. `routes` = {"replay": ..., "op_by_op": ...}, one
     frame each; `pair()` gives (replayed, op-by-op) results of one frame
     from the same state; `graph()` the case's CUDAGraph; `between(i)` the
-    host's work before frame i, outside the timings (moves). The first
+    host's work before frame i, outside the timings (moves); `per_frame`
+    the kernel A, C, D and E launches a frame. The first
     frame is the capture frame. Kernel launches are counted two
     ways: through the wrappers over the whole case (the capture frame's run
     and capture, and the op-by-op frames), and on the card from the traces
@@ -1432,27 +1463,33 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
     traced = {name: device_trace(fn, TRACE_FRAMES)
               for name, fn in routes.items()}
     wrapped = read_counts()
+    wrapped_shading = read_shading_counts()
     made = captures() - c0
     launches = {name: t["launches"] for name, t in traced.items()}
     out = dict(bit_equal=all(equal), frames_compared=len(equal),
                captures=made, frames=frame,
                wrapper_launches_A=wrapped["A_all"],
-               wrapper_launches_B=wrapped["B"])
+               wrapper_launches_B=wrapped["B"],
+               **{f"wrapper_launches_{k}": v
+                  for k, v in wrapped_shading.items()})
     for name in routes:
         dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times[name]))
         t = traced[name]
         out[name] = dict(
             launches_A=launches[name]["A_all"], launches_B=launches[name]["B"],
+            **{f"launches_{k}": launches[name][k] for k in "CDE"},
             median_device_ms=dev_ms, median_wall_ms=wall_ms,
             device_busy_ms=t["busy_ms"], idle_share=1 - t["busy_ms"] / wall_ms,
             device_events=t["events"], kernels=t["kernels"],
             htod_copies=t["htod"], htod_pageable=t["htod_pageable"],
             copies=json.dumps(t["copies"], separators=(",", ":")),
+            kernel_ms=json.dumps(t["kernel_ms"], separators=(",", ":")),
             peak_allocated_bytes=peak[name])
     out["replay"]["graph_pool_bytes"] = pool
     log("step", case=label, bit_equal=out["bit_equal"],
         frames_compared=len(equal), captures=made, frames=frame,
         wrapper_launches_A=wrapped["A_all"], wrapper_launches_B=wrapped["B"],
+        **{f"wrapper_launches_{k}": v for k, v in wrapped_shading.items()},
         seconds=f"{time.perf_counter() - t_case:.2f}")
     for name in routes:
         log("step", case=label, route=name, **{
@@ -1463,13 +1500,21 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
                              f"body")
     if made != 1:
         raise AssertionError(f"{label}: {made} captures, expected one")
-    # on the card, a replay runs every launch of kernels A and B (each
+    # on the card, a replay runs every launch of kernels A to E (each
     # build) that the body op by op runs
     if (launches["replay"] != launches["op_by_op"]
             or not launches["replay"]["A_all"] > 0 or not wrapped["A_all"] > 0):
         raise AssertionError(f"{label}: launches on the card differ between "
                              f"the routes or are missing: {launches}, "
                              f"{wrapped} through the wrappers")
+    # A, C, D and E a replayed frame, as the configuration sets them
+    a_frame, *shading = per_frame
+    got = launches["replay"]
+    if got["A_all"] != a_frame or any(got[k] != want
+                                      for k, want in zip("CDE", shading)):
+        raise AssertionError(f"{label}: expected {shading} C, D and E "
+                             f"launches beside {a_frame} A a replayed "
+                             f"frame, got {got}")
     if out["replay"]["htod_copies"] != htod_replay:
         raise AssertionError(f"{label}: {out['replay']['htod_copies']} "
                              f"host-to-device copies a replayed frame, "
@@ -1491,10 +1536,12 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
     cases = {}
 
     def engine_case(label, rt, between=lambda i: None):
+        levels = int(rt.camera.d_camera.max_bounce)
         cases[label] = step_case(
             label, lambda: both_routes(rt),
             {"replay": rt.render, "op_by_op": rt.render_op_by_op},
-            lambda: rt.step().graphed.graph, between)
+            lambda: rt.step().graphed.graph, between,
+            per_frame=(levels * frame_launches_per_level(rt), 1, levels, 1))
 
     def move(rt):
         def between(i):
@@ -1540,7 +1587,8 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
         "bench pose frame", pair,
         {"replay": lambda: frame(pose[0]), "op_by_op": op_by_op},
         lambda: frame.compiled.graph,
-        lambda i: pose.__setitem__(0, vecs[i % len(vecs)]), htod_replay=0)
+        lambda i: pose.__setitem__(0, vecs[i % len(vecs)]), htod_replay=0,
+        per_frame=(1, 1, 0, 0))
     return cases
 
 
@@ -1957,7 +2005,8 @@ def default_frame_trace(dev, scene, cfg):
         idle_share=f"{1 - t['busy_ms'] / wall_ms:.4f}",
         device_events=t["events"], kernels=t["kernels"],
         htod_copies=t["htod"], htod_pageable=t["htod_pageable"],
-        copies=json.dumps(t["copies"], separators=(",", ":")))
+        copies=json.dumps(t["copies"], separators=(",", ":")),
+        kernel_ms=json.dumps(t["kernel_ms"], separators=(",", ":")))
 
 
 def png_size(path):
@@ -2001,6 +2050,8 @@ def _clone(v):
         return v.clone()
     if isinstance(v, tuple):
         return tuple(_clone(a) for a in v)
+    if isinstance(v, dict):
+        return {k: _clone(a) for k, a in v.items()}
     return v
 
 
@@ -2027,31 +2078,93 @@ def capturing(module, name, store, keep=()):
 
 
 HIT_KEYS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
+SHADING = (("C", "camera_rays"), ("D", "shade"), ("E", "resolve"))
 
 
-def check_frame_launches(label, frame, want_a, want_b):
-    """One call of `frame()` with its launches of kernels A and B captured
+def compare_bits(got, want):
+    """({key: elements that differ}, the largest difference in a float
+    array, whether the two dicts of tensors are equal bit for bit: float32
+    as int32 patterns, so NaN lanes compare too)."""
+    import torch
+
+    bad, err = {}, 0.0
+    for k in want:
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            differs = a.view(torch.int32) != b.view(torch.int32)
+        else:
+            differs = a != b
+        bad[k] = int(differs.sum())
+        if bad[k] and a.is_floating_point():
+            d = (a[differs] - b[differs]).abs()
+            err = max(err, float(torch.nan_to_num(d, nan=float("inf"))
+                                 .max()))
+    return bad, err, set(got) == set(want) and not any(bad.values())
+
+
+def replay_shading(kind, args, kw):
+    """(kernel, plain) results of a captured launch of kernel C, D or E
+    (`SHADING`) on its own inputs: kernel C's rays; kernel D's outputs and
+    the state it updates in place (each run on a copy of the captured
+    state, keys `state.*`); kernel E's pixels."""
+    from zig_vulkan_tpu_torch.ops import shade
+
+    if kind == "C":
+        return (shade.camera_rays(*args, **kw),
+                shade.camera_rays_plain(*args, **kw))
+    if kind == "D":
+        runs = []
+        for fn in (shade.shade, shade.shade_plain):
+            state = _clone(args[0])
+            out = fn(state, *args[1:], **kw)
+            runs.append(dict(out, **{f"state.{k}": v
+                                     for k, v in state.items()}))
+        return tuple(runs)
+    return ({"pixels": shade.resolve(*args, **kw)},
+            {"pixels": shade.resolve_plain(*args, **kw)})
+
+
+def check_frame_launches(label, frame, want_a, want_b, renders=1):
+    """One call of `frame()` with its launches of kernels A to E captured
     (an engine frame through `render_op_by_op`: a graph's replay calls no
     wrapper); each launch is then replayed on its own inputs, on its own
     device, and
     held bit for bit against its plain version (kernel B also against
     `torch.index_select`). `want_a` and `want_b` are the launches the frame
-    must make. The replays move the launch counts: call it outside a
+    must make; it makes one kernel D launch a level (as many as B) and one
+    C and one E launch a `render_rows` call (`renders`: one a shard of a
+    sharded step). The replays move the launch counts: call it outside a
     counted run. Returns (the frame, the largest difference found, one
     dict per kernel A launch, the captured kernel B inputs)."""
     import torch
 
-    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
 
     cap_a, cap_b = [], []
-    with capturing(tile_tracer, "grid_hit_tiles", cap_a, keep=(0, 1, 2)), \
-            capturing(trace, "table_lookup", cap_b, keep=(0,)):
+    cap = {kind: [] for kind, _ in SHADING}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(capturing(tile_tracer, "grid_hit_tiles", cap_a,
+                                      keep=(0, 1, 2)))
+        stack.enter_context(capturing(trace, "table_lookup", cap_b,
+                                      keep=(0,)))
+        for kind, name in SHADING:
+            stack.enter_context(capturing(shade, name, cap[kind]))
         image = frame()
-    if len(cap_a) != want_a or len(cap_b) != want_b:
-        raise AssertionError(f"{label}: captured {len(cap_a)} A and "
-                             f"{len(cap_b)} B launches, expected {want_a} "
-                             f"and {want_b}")
+    want = {"C": renders, "D": want_b, "E": renders}
+    if (len(cap_a) != want_a or len(cap_b) != want_b
+            or any(len(cap[k]) != v for k, v in want.items())):
+        raise AssertionError(
+            f"{label}: captured {len(cap_a)} A, {len(cap_b)} B and "
+            f"{ {k: len(v) for k, v in cap.items()} } launches, expected "
+            f"{want_a}, {want_b} and {want}")
     err, rows, differ = 0.0, [], []
+    for kind, _ in SHADING:
+        for i, (args, kw) in enumerate(cap[kind]):
+            bad, e, same = compare_bits(*replay_shading(kind, args, kw))
+            err = max(err, e)
+            if not same:
+                differ.append({f"{kind} launch {i}": {
+                    k: v for k, v in bad.items() if v}})
     for i, (args, kw) in enumerate(cap_a):
         keys = HIT_KEYS + (("occluded",) if kw.get("shadow_targets") else ())
         got = tile_tracer.grid_hit_tiles(*args, **kw)
@@ -2074,6 +2187,7 @@ def check_frame_launches(label, frame, want_a, want_b):
                 and torch.equal(got, torch.index_select(mats, 1, idx))):
             differ.append({f"B launch {i}": int((got != plain).sum())})
     log(f"{label}: launches against plain", A=len(cap_a), B=len(cap_b),
+        **{k: len(v) for k, v in cap.items()},
         lanes_A=json.dumps(sorted({r["lanes"] for r in rows})),
         lanes_B=json.dumps(sorted({int(a[1].numel()) for a, _ in cap_b})),
         max_abs_err=err, differ=json.dumps(differ, separators=(",", ":")))
@@ -2083,7 +2197,23 @@ def check_frame_launches(label, frame, want_a, want_b):
     return image, err, rows, [args for args, _ in cap_b]
 
 
-TRACE_MARK = "chip_smoke: traced calls"
+TRACE_WARM_MARKS = 64      # marker kernels launched before a traced range
+MARK_CYCLES = 1000         # a marker kernel's spin, about half a microsecond
+
+
+def _marks(n=1):
+    """Every card synchronized, `n` marker kernels (`torch.cuda._sleep`,
+    `spin_kernel` in a trace) on each, every card synchronized again."""
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    for d in range(torch.cuda.device_count()):
+        with torch.cuda.device(d):
+            for _ in range(n):
+                torch.cuda._sleep(MARK_CYCLES)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
 
 
 def device_trace(fn, frames):
@@ -2092,11 +2222,18 @@ def device_trace(fn, frames):
     call, "events": those intervals a call, "htod": host-to-device copies a
     call, "htod_pageable": those from pageable memory, "kernels": kernels a
     call, "copies": {copy or memset kind: count a call}, "launches": kernel
-    A and B launches a call (`card_counts`)}. One call runs
-    first, synchronized, outside the counted range (a trace's first
-    device records may be lost). The intervals are the card's own; the
-    host runs slower under the profiler, so an idle share is taken against
-    wall time that was measured without it."""
+    A to E launches a call (`card_counts`), "kernel_ms": the device ms a
+    call of kernels A to E and of every other kernel ("other")}.
+
+    A trace may lose its first device records and its device timestamps may
+    sit earlier than the host's: filtered by the host's time, the pose
+    frame's first traced call (two kernels and a copy) was lost in whole or
+    in part. So one call and `TRACE_WARM_MARKS` marker kernels run first,
+    outside the counted range, and the range is read on each card's own
+    clock, between the last marker kernel before the calls and the one
+    after them, every card synchronized on both sides. The intervals are
+    the card's own; the host runs slower under the profiler, so an idle
+    share is taken against wall time that was measured without it."""
     import collections
 
     import torch
@@ -2106,17 +2243,32 @@ def device_trace(fn, frames):
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace_session(tmp):
             fn()
-            torch.cuda.synchronize()
-            with torch.profiler.record_function(TRACE_MARK):
-                for _ in range(frames):
-                    fn()
-                torch.cuda.synchronize()
+            _marks(TRACE_WARM_MARKS)
+            for _ in range(frames):
+                fn()
+            _marks()
         events = json.loads(Path(tmp, profiling.TRACE_FILE)
                             .read_text())["traceEvents"]
-    start = min(e["ts"] for e in events if e.get("name") == TRACE_MARK)
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-           and e["ts"] >= start]
+    on_card = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def card(e):
+        return e.get("args", {}).get("device", 0)
+
+    marks = collections.defaultdict(list)
+    for e in on_card:
+        if e["cat"] == "kernel" and "spin_kernel" in e["name"]:
+            marks[card(e)].append(e["ts"])
+    ranges = {}
+    for d, ts in marks.items():
+        if len(ts) < 2:
+            raise AssertionError(f"the trace lost the marker kernels of "
+                                 f"card {d}")
+        ts.sort()
+        ranges[d] = ts[-2], ts[-1]
+    dev = [e for e in on_card
+           if "spin_kernel" not in e["name"] and card(e) in ranges
+           and ranges[card(e)][0] < e["ts"] < ranges[card(e)][1]]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
     if not spans:
         raise AssertionError("the trace shows no activity on the card")
@@ -2134,7 +2286,14 @@ def device_trace(fn, frames):
                                  if e["cat"] != "kernel")
     launches = profiling.kernel_launches(e["name"] for e in dev
                                          if e["cat"] == "kernel")
+    kernel_ms = collections.Counter()
+    for e in dev:
+        if e["cat"] == "kernel":
+            kind = profiling.kernel_kind(e["name"])[0] or "other"
+            kernel_ms[kind] += e["dur"] / 1e3 / frames
     return dict(busy_ms=busy / 1e3 / frames, events=len(spans) / frames,
+                kernel_ms={k: round(v, 5) for k, v in sorted(
+                    kernel_ms.items())},
                 launches=card_counts(launches, frames),
                 htod=len(htod) / frames,
                 htod_pageable=sum("Pageable" in n for n in htod) / frames,
@@ -2150,26 +2309,99 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
     launch order, and the active lanes packed together), and the launch's
     time with no lane live, with only its slowest 1% of rays live and
     through the builds that divide (its own check and time); for B,
-    `torch.index_select`'s time on the same inputs; each launch's bound.
-    Returns {"A": [...], "B": [...]}, one dict per launch."""
+    `torch.index_select`'s time on the same inputs; for C, D and E (the
+    shading), each launch bit for bit against its plain version, its time
+    warm and after an L2 flush (kernel D's on its inputs restored before
+    each call: it updates the ray state in place) and its plain version's.
+    Each launch's bound. Returns {"A": [...], ..., "E": [...]}, one dict
+    per launch."""
     import torch
 
-    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
     from zig_vulkan_tpu_torch.utils import roofline
 
     cap_a, cap_b = [], []
-    with capturing(tile_tracer, "grid_hit_tiles", cap_a, keep=(0, 1, 2)), \
-            capturing(trace, "table_lookup", cap_b, keep=(0,)):
+    cap = {kind: [] for kind, _ in SHADING}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(capturing(tile_tracer, "grid_hit_tiles", cap_a,
+                                      keep=(0, 1, 2)))
+        stack.enter_context(capturing(trace, "table_lookup", cap_b,
+                                      keep=(0,)))
+        for kind, name in SHADING:
+            stack.enter_context(capturing(shade, name, cap[kind]))
         rt.render_op_by_op()
     levels = int(rt.camera.d_camera.max_bounce)
     per = frame_launches_per_level(rt)
-    if len(cap_a) != levels * per or len(cap_b) != levels:
-        raise AssertionError(f"captured {len(cap_a)} A and {len(cap_b)} B "
+    if (len(cap_a) != levels * per or len(cap_b) != levels
+            or [len(cap[k]) for k, _ in SHADING] != [1, levels, 1]):
+        raise AssertionError(f"captured {len(cap_a)} A, {len(cap_b)} B and "
+                             f"{[len(v) for v in cap.values()]} C, D, E "
                              f"launches of one frame")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                         device=rt.device)
     keys = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
-    rows = {"A": [], "B": []}
+    rows = {"A": [], "B": [], **{kind: [] for kind, _ in SHADING}}
+    for kind, name in SHADING:
+        for i, (args, kw) in enumerate(cap[kind]):
+            got, want = replay_shading(kind, args, kw)
+            bad, err, same = compare_bits(got, want)
+            if not same:
+                raise AssertionError(f"kernel {kind} on frame launch {i} "
+                                     f"differs from its plain version: "
+                                     f"{bad}")
+            wrapper = getattr(shade, name)
+            plain = getattr(shade, f"{name}_plain")
+            before = None
+            if kind == "D":
+                # the state kernel D updates in place, restored each call
+                work = _clone(args[0])
+
+                def before(work=work, state=args[0]):
+                    for k, v in state.items():
+                        work[k].copy_(v)
+                call_args = (work, *args[1:])
+            else:
+                call_args = args
+
+            def run(fn=wrapper, a=call_args, k=kw):
+                return fn(*a, **k)
+
+            def run_plain(fn=plain, a=call_args, k=kw):
+                return fn(*a, **k)
+
+            if kind == "C":
+                n = int(got["ox"].numel())
+                bound, by = roofline.camera_bound_ms(n, "tx" in got)
+                what = dict(lanes=n, sun_targets="tx" in got)
+            elif kind == "D":
+                state, hit = args[0], args[1]
+                n = int(state["ox"].numel())
+                active = int((state["bouncing"] & hit["found"]).sum())
+                bouncing = int(got["state.bouncing"].sum())
+                flags = dict(prev=kw.get("prev_occluded") is not None,
+                             next_key=bool(kw.get("next_key")),
+                             next_targets=bool(kw.get("next_targets")))
+                bound, by = roofline.shade_bound_ms(n, active, bouncing,
+                                                    args[3], **flags)
+                what = dict(level=i, lanes=n, active=active,
+                            bouncing_after=bouncing, sun_mode=args[3],
+                            **flags)
+            else:
+                n = int(args[0]["cr"].numel())
+                pixels = int(got["pixels"].shape[0])
+                pending = len(args) > 3 and args[3] is not None
+                bound, by = roofline.resolve_bound_ms(n, pixels, pending)
+                what = dict(lanes=n, pixels=pixels, pending_sun_term=pending)
+            row = dict(launch=f"{kind} {i}", **what, max_abs_err=err,
+                       ms=device_ms(run, FRAME_REPS, before=before),
+                       ms_l2_flushed=device_ms(run, FRAME_REPS, flush,
+                                               before=before),
+                       plain_ms=device_ms(run_plain, 3, before=before),
+                       bound_ms=bound, bound_by=by)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            rows[kind].append(row)
+            log(f"frame {kind}", **{k: (f"{v:.5f}" if isinstance(v, float)
+                                        else v) for k, v in row.items()})
     for i, (args, kw) in enumerate(cap_a):
         active = args[9]
         n = int(active.numel())
@@ -2793,7 +3025,10 @@ def ptxas_summary(text):
             name = (f"A {_build_name(t[1] == '1', t[2] == '1', t[3] == '1')}"
                     f"{' pow2' if t[4] == '1' else ''}"
                     if t else "B aligned" if "lookup_kernelILb1E" in m[1]
-                    else "B" if "lookup_kernel" in m[1] else m[1])
+                    else "B" if "lookup_kernel" in m[1]
+                    else "C" if "camera_rays_kernel" in m[1]
+                    else "D" if "shade_kernel" in m[1]
+                    else "E" if "resolve_kernel" in m[1] else m[1])
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
@@ -2990,8 +3225,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 6. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tile_tracer.reset_launch_counts()
-    lookup.table_lookup.launches = 0
+    reset_counts()  # every kernel's count, A to E
     c0 = captures()
     rt.draw()  # warm-up frame: the step's capture
 
@@ -3014,6 +3248,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # its capture); the replays call no wrapper
     launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "B": lookup.table_lookup.launches}
+    shading = read_shading_counts()
     made = captures() - c0
     if tile_tracer.grid_hit_tiles.launches != launches["A"]:
         raise AssertionError("the default frame launched another build of A")
@@ -3029,6 +3264,8 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         peak_bytes=peak, captures=made, launches_A=launches["A"],
         launches_B=launches["B"], replayed_frame_on_card_A=on_card["A_all"],
         replayed_frame_on_card_B=on_card["B"],
+        **{f"launches_{k}": v for k, v in shading.items()},
+        **{f"replayed_frame_on_card_{k}": on_card[k] for k in shading},
         shape=list(img.shape), distinct_colours=colours,
         min=float(img.min()), max=float(img.max()))
     if img.shape != (ih, iw, 3) or not np.isfinite(img).all():
@@ -3041,6 +3278,13 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
                              f"{launches}")
     if (on_card["A"], on_card["A_all"], on_card["B"]) != (6, 6, 3):
         raise AssertionError(f"expected 6 A and 3 B launches a replayed "
+                             f"frame on the card, got {on_card}")
+    # the shading kernels: one C and one E a frame, one D a level
+    if shading != {"C": 2, "D": 2 * 3, "E": 2}:
+        raise AssertionError(f"expected 1 C, 3 D and 1 E launches (its run "
+                             f"and its capture), got {shading}")
+    if tuple(on_card[k] for k in "CDE") != (1, 3, 1):
+        raise AssertionError(f"expected 1 C, 3 D and 1 E launches a replayed "
                              f"frame on the card, got {on_card}")
 
     # -- 6b. the frame's kernel launches, one by one --------------------------------
@@ -3218,8 +3462,38 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
              route="cuda", source="zig_vulkan_tpu_torch/csrc/lookup.cu",
              replaces="zig_vulkan_tpu/ops/lookup.py:29", **big["B"]),
     ]
+    # the shading kernels: their launches in the main path's run (the
+    # capture frame's run and capture), a replayed default frame's (phase
+    # 20's trace), and the default frame's launches of phase 6b (kernel D:
+    # the first level, all lanes live, with every level's time beside it)
+    for kind, name, src, replaces in (
+            ("C", "camera_rays (kernel C)", "camera.cu",
+             "zig_vulkan_tpu/ops/trace.py:1341"),
+            ("D", "shade (kernel D, one launch a bounce level)", "shade.cu",
+             "zig_vulkan_tpu/ops/trace.py:867"),
+            ("E", "resolve (kernel E)", "resolve.cu",
+             "zig_vulkan_tpu/ops/trace.py:1382")):
+        first = frame_rows[kind][0]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"zig_vulkan_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=shading[kind],
+            launches_per_frame=on_card[kind],
+            launches_per_replayed_frame=default_step["replay"][
+                f"launches_{kind}"],
+            launches_per_op_by_op_frame=default_step["op_by_op"][
+                f"launches_{kind}"],
+            max_abs_err=max(r["max_abs_err"] for r in frame_rows[kind]),
+            ms=first["ms"],
+            ms_l2_flushed=first["ms_l2_flushed"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            lanes=first["lanes"],
+            frame_launch_ms=[r["ms"] for r in frame_rows[kind]],
+            frame_launch_bound_ms=[r["bound_ms"] for r in frame_rows[kind]],
+            frame_launch_plain_ms=[r["plain_ms"] for r in frame_rows[kind]]))
     for k in kernels:
-        k.setdefault("library_ms", None)  # no PyTorch call traces a DDA
+        # no PyTorch call traces a DDA or computes the shading in one call
+        k.setdefault("library_ms", None)
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     log("done", script_seconds=f"{time.perf_counter() - t_start:.2f}")
     print(card, flush=True)

@@ -4,8 +4,9 @@ This file imports no JAX, so it also runs on a machine with a GPU and no
 JAX: `python -m pytest --noconftest tests/test_torch_kernels.py` (the
 suite's conftest.py imports JAX). The tests marked
 `cuda` build csrc/*.cu with nvcc and compare kernel A (traversal; its
-default, shadow and stats builds) and kernel B (material lookup) with their
-plain versions on the card, and the voxel edits on the card with the same
+default, shadow and stats builds), kernel B (material lookup) and kernels
+C, D and E (camera rays, shade, resolve: ops.shade) with their plain
+versions on the card, and the voxel edits on the card with the same
 edits on the CPU; where `torch.cuda.is_available()` is False they skip.
 Kernel A's NO_SKIP builds (`use_skip=False`, the exact DDA) are held against
 their twin and against the port's numpy oracle. The build helpers are
@@ -25,7 +26,15 @@ from zig_vulkan_tpu_torch.config import EngineConfig, TraceConfig
 from zig_vulkan_tpu_torch.core import grid as grid_mod
 from zig_vulkan_tpu_torch.engine.engine import VoxelRT, both_routes
 from zig_vulkan_tpu_torch.models import scenes
-from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+from zig_vulkan_tpu_torch.core.materials import (
+    MAT_DIELECTRIC,
+    MAT_EMISSIVE,
+    MAT_LAMBERTIAN,
+    MAT_METAL,
+    MAT_NONE,
+    MaterialTable,
+)
+from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
 from zig_vulkan_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -43,12 +52,31 @@ def test_trace_params_layout_matches_c_struct():
     assert P.n.offset == 72 and ctypes.sizeof(P) == 80
 
 
+def test_shading_args_layouts_match_the_c_structs():
+    """struct CameraArgs (csrc/camera.cu), ShadeArgs (shade.cu) and
+    ResolveArgs (resolve.cu): the pointers, then an int64 at its natural
+    8-byte alignment, then ints and floats, padded to 8 bytes."""
+    c, d, e = _build.CameraArgs, _build.ShadeArgs, _build.ResolveArgs
+    assert c.tz.offset == 15 * 8 and c.n.offset == 128
+    assert c.width.offset == 136 and c.row0.offset == 148
+    assert c.base.offset == 160 and c.sun_p.offset == 164
+    assert c.radius.offset == 176 and ctypes.sizeof(c) == 184
+    assert d.found.offset == 0 and d.radius_ptr.offset == 40 * 8
+    assert d.n.offset == 328 and d.sun.offset == 336
+    assert d.sun_c.offset == 352 and d.radius.offset == 364
+    assert ctypes.sizeof(d) == 368
+    assert e.out.offset == 80 and e.m.offset == 88 and e.gamma.offset == 104
+    assert e.sun_c.offset == 108 and ctypes.sizeof(e) == 120
+
+
 def test_library_named_by_sources_and_flags():
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libzvt_kernels_") and path.suffix == ".so"
-    assert {p.name for p in _build._sources()} >= {"traverse.cu", "lookup.cu"}
+    assert {p.name for p in _build._sources()} >= {
+        "traverse.cu", "lookup.cu", "camera.cu", "shade.cu", "resolve.cu"}
+    assert [p.name for p in _build._headers()] == ["shading.cuh"]
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
@@ -954,3 +982,262 @@ def test_two_shard_replays_equal_op_by_op_and_unsharded(scene_on_card, card):
         assert torch.equal(got, want), i
         assert torch.equal(got, rt.render()), i
     assert GraphedCall.captures - before == 2 * 2
+
+
+# -- kernels C, D and E (ops.shade) against their plain twins ----------------------
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _assert_same(got: dict, want: dict, what=""):
+    assert set(got) == set(want), what
+    for k in want:
+        assert got[k].shape == want[k].shape, (what, k)
+        assert _bits_equal(got[k], want[k]), (what, k)
+
+
+def _shade_table(card):
+    t = MaterialTable.empty()
+    t.set(0, MAT_DIELECTRIC, (0.117, 0.45, 0.85), 1.333)
+    t.set(1, MAT_LAMBERTIAN, (0.0, 0.6, 0.0))
+    t.set(2, MAT_METAL, (0.8, 0.8, 0.8), 0.3)
+    t.set(3, MAT_EMISSIVE, (1.0, 0.5, 0.25), 4.0)
+    t.set(4, MAT_NONE, (0.5, 0.5, 0.5))
+    t.set(5, MAT_DIELECTRIC, (0.9, 0.9, 0.9), 1.52)
+    t.set(6, MAT_METAL, (0.6, 0.3, 0.2), 0.0)
+    return trace.materials_to_device(t, card)
+
+
+_SUN = (np.float32([10.0, 30.0, 5.0]), np.float32([1.0, 0.9, 0.8]),
+        np.float32(2.0))
+
+
+def _lane_state(n, seed, card, mode):
+    """A ray state after some levels, made by numpy from `seed`: scattered
+    bouncing lanes, refracted lanes (ignore type dielectric, ir 1.333 or
+    1.52), colours, loop counts and a pending sun term."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-10.0, 10.0, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = {k: torch.from_numpy(np.ascontiguousarray(a[:, i])).to(card)
+            for k, a, i in zip(shade.RAY_KEYS, (o, o, o, d, d, d),
+                               (0, 1, 2, 0, 1, 2))}
+    state = shade.new_state(rays, mode)
+    refr = rng.random(n) < 0.3
+    state["ignore_type"].copy_(torch.from_numpy(
+        np.where(refr, MAT_DIELECTRIC, MAT_NONE).astype(np.int32)))
+    state["internal_refl"].copy_(torch.from_numpy(np.where(
+        refr, rng.choice(np.float32([1.333, 1.52]), n), 1.0)
+        .astype(np.float32)))
+    state["loop_count"].copy_(torch.from_numpy(
+        rng.integers(0, 3, n).astype(np.int32)))
+    state["bouncing"].copy_(torch.from_numpy(rng.random(n) < 0.8))
+    for k in shade.COLOUR_KEYS + (shade.PENDING_KEYS
+                                  if mode == shade.SUN_DEFERRED else ()):
+        state[k].copy_(torch.from_numpy(
+            rng.uniform(0.0, 2.0, n).astype(np.float32)))
+    return state, rng
+
+
+def _lane_hits(n, rng, card):
+    """Kernel A's and B's results of a level: misses, axis normals, hit
+    points in a box, every material type."""
+    axis = rng.integers(0, 3, n)
+    nrm = np.zeros((n, 3), np.float32)
+    nrm[np.arange(n), axis] = rng.choice(np.float32([-1.0, 1.0]), n)
+    p = rng.uniform(-8.0, 8.0, (n, 3)).astype(np.float32)
+    hit = dict(found=rng.random(n) < 0.8, px=p[:, 0], py=p[:, 1],
+               pz=p[:, 2], nx=nrm[:, 0], ny=nrm[:, 1], nz=nrm[:, 2],
+               index=rng.integers(0, 7, n).astype(np.int32),
+               occluded=rng.random(n) < 0.4)
+    hit = {k: torch.from_numpy(np.ascontiguousarray(v)).to(card)
+           for k, v in hit.items()}
+    looked = lookup.table_lookup(_shade_table(card), hit["index"])
+    return hit, looked
+
+
+def _clone_state(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+_MODES = {"no_sun": shade.SUN_OFF, "sun_in_kernel": shade.SUN_PROBE,
+          "sun": shade.SUN_DEFERRED}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("first", [True, False], ids=["first", "later"])
+def test_kernel_d_matches_plain(card, n, mode, first):
+    """Kernel D against `shade_plain` on the card: every state array, the
+    shadow mask and directions, the next key (NaN on unrefracted lanes)
+    and the next sun targets, bit for bit, on ragged lane counts."""
+    m = _MODES[mode]
+    state, rng = _lane_state(n, n + 7 * m, card, m)
+    hit, looked = _lane_hits(n, rng, card)
+    prev = None
+    if m == shade.SUN_DEFERRED and not first:
+        prev = torch.from_numpy(rng.random(n) < 0.5).to(card)
+    kw = dict(prev_occluded=prev, next_key=True,
+              next_targets=m == shade.SUN_PROBE)
+    want_state, got_state = _clone_state(state), _clone_state(state)
+    want = shade.shade_plain(want_state, hit, looked, m, *_SUN, **kw)
+    before = shade.shade.launches
+    got = shade.shade(got_state, hit, looked, m, *_SUN, **kw)
+    torch.cuda.synchronize()
+    assert shade.shade.launches == before + 1
+    _assert_same(got, want, "outputs")
+    _assert_same(got_state, want_state, "state")
+    refracted = ~torch.isnan(got["key"])
+    assert 0 < int(refracted.sum()) < n or n < 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp,band", [(1, None), (2, None), (3, (5, 17))])
+@pytest.mark.parametrize("sun", [False, True])
+@pytest.mark.parametrize("on_card", [False, True],
+                         ids=["host_values", "device_values"])
+def test_kernel_c_matches_plain(scene_on_card, card, spp, band, sun,
+                                on_card):
+    """Kernel C against `camera_rays_plain` on the card at a width that
+    leaves a ragged last block, bit for bit; the sample base and the sun's
+    values on the host or on the card (the engine's push constants)."""
+    rt = scene_on_card
+    w, h = 250, 37
+    row0, rows = band if band else (0, h)
+    cam = trace.camera_vectors(rt.camera.d_camera, card)
+    base, sun_p, radius = np.float32(3.0), _SUN[0], _SUN[2]
+    if on_card:
+        base, sun_p, radius = (torch.from_numpy(np.atleast_1d(v)).to(card)
+                               for v in (base, sun_p, radius))
+        base, radius = base[0], radius[0]
+    kw = dict(sun=(sun_p, radius) if sun else None)
+    want = shade.camera_rays_plain(cam, w, h, spp, base, row0, rows, **kw)
+    before = shade.camera_rays.launches
+    got = shade.camera_rays(cam, w, h, spp, base, row0, rows, **kw)
+    torch.cuda.synchronize()
+    assert shade.camera_rays.launches == before + 1
+    assert got["ox"].numel() == spp * rows * w
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 2, 3])
+@pytest.mark.parametrize("sun,pending", [(False, False), (True, False),
+                                         (True, True)])
+def test_kernel_e_matches_plain(card, spp, sun, pending):
+    """Kernel E against `resolve_plain` on the card: the pending sun term,
+    the sky of lanes that never hit, the tone map, the samples' sum,
+    division and square root; and the per-lane tone map."""
+    m = 4099
+    mode = shade.SUN_DEFERRED if pending else shade.SUN_OFF
+    state, rng = _lane_state(spp * m, spp, card, mode)
+    occ = (torch.from_numpy(rng.random(spp * m) < 0.5).to(card)
+           if pending else None)
+    sun_c = _SUN[1] if sun else None
+    want = shade.resolve_plain(state, spp, sun_c, occ)
+    before = shade.resolve.launches
+    got = shade.resolve(state, spp, sun_c, occ)
+    torch.cuda.synchronize()
+    assert shade.resolve.launches == before + 1
+    assert got.shape == (m, 3)
+    assert _bits_equal(got, want)
+    if spp == 1:
+        lanes = shade.resolve(state, 1, sun_c, occ, gamma=False)
+        assert _bits_equal(lanes, shade.resolve_plain(state, 1, sun_c, occ,
+                                                      gamma=False))
+
+
+@pytest.mark.cuda
+def test_shading_wrappers_reject_what_the_kernels_do_not_take(scene_on_card,
+                                                              card):
+    rt = scene_on_card
+    n = 1000
+    state, rng = _lane_state(n, 1, card, shade.SUN_DEFERRED)
+    hit, looked = _lane_hits(n, rng, card)
+    args = (hit, looked, shade.SUN_DEFERRED, *_SUN)
+    bad = dict(state, cr=state["cr"].double())
+    with pytest.raises(ValueError, match="float32"):
+        shade.shade(bad, *args)
+    bad = dict(state, dx=torch.zeros(2 * n, device=card)[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        shade.shade(bad, *args)
+    with pytest.raises(ValueError, match="on cuda"):
+        shade.shade(state, dict(hit, px=hit["px"].cpu()), *args[1:])
+    with pytest.raises(ValueError, match="sun_color"):
+        shade.shade(state, hit, looked, shade.SUN_DEFERRED, _SUN[0],
+                    torch.from_numpy(_SUN[1]), _SUN[2])
+    with pytest.raises(ValueError, match="prev_occluded"):
+        shade.shade(state, hit, looked, shade.SUN_OFF,
+                    prev_occluded=hit["found"])
+    cam = trace.camera_vectors(rt.camera.d_camera, card)
+    with pytest.raises(ValueError, match="sample_base"):
+        shade.camera_rays(cam, 64, 32, 1, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="contiguous"):
+        shade.camera_rays(dict(cam, origin=torch.zeros(6, device=card)[::2]),
+                          64, 32)
+    with pytest.raises(ValueError, match="int32"):
+        shade.resolve(dict(state, loop_count=state["loop_count"].long()), 1)
+    with pytest.raises(ValueError, match="whole samples"):
+        shade.resolve(state, 3)
+
+
+@pytest.mark.cuda
+def test_kernels_c_d_e_on_two_streams(scene_on_card, card):
+    """Two wavefronts, each on its own stream: C, D and E launch on the
+    current stream and equal their twins."""
+    rt = scene_on_card
+    cam = trace.camera_vectors(rt.camera.d_camera, card)
+    inputs = []
+    for seed in (1, 2):
+        state, rng = _lane_state(70_001, seed, card, shade.SUN_DEFERRED)
+        hit, looked = _lane_hits(70_001, rng, card)
+        inputs.append((state, hit, looked))
+    want = [(shade.camera_rays_plain(cam, 160 + i, 90, 2, 1.0 + i),
+             shade.shade_plain(_clone_state(st), h, lk, shade.SUN_DEFERRED,
+                               *_SUN),
+             shade.resolve_plain(st, 1, _SUN[1]))
+            for i, (st, h, lk) in enumerate(inputs)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for i, (s, (st, h, lk)) in enumerate(zip(streams, inputs)):
+        with torch.cuda.stream(s):
+            got.append((shade.camera_rays(cam, 160 + i, 90, 2, 1.0 + i),
+                        shade.resolve(st, 1, _SUN[1]),
+                        shade.shade(_clone_state(st), h, lk,
+                                    shade.SUN_DEFERRED, *_SUN)))
+    torch.cuda.synchronize()
+    for (rays, colour, out), (w_rays, w_out, w_colour) in zip(got, want):
+        _assert_same(rays, w_rays)
+        _assert_same(out, w_out)
+        assert _bits_equal(colour, w_colour)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sun_in_kernel", [False, True])
+def test_replayed_step_runs_kernels_c_d_e(card, sun_in_kernel):
+    """The engine's step with the shading kernels inside: each replay equals
+    the body op by op bit for bit; op by op a frame (3 levels, sun) makes 1
+    C, 3 D and 1 E launch through the wrappers, and a replay runs the same
+    launches on the card without calling them."""
+    rt = _step_engine(card)
+    rt.trace_config = TraceConfig(sun_in_kernel=sun_in_kernel)
+    rt.render()
+    for _ in range(2):
+        rt.camera.turn_yaw(0.05)
+        got, want = both_routes(rt)
+        assert torch.equal(got, want)
+    shade.reset_launch_counts()
+    rt.render_op_by_op()
+    assert (shade.camera_rays.launches, shade.shade.launches,
+            shade.resolve.launches) == (1, 3, 1)
+    rt.render()
+    assert shade.shade.launches == 3
+    replayed = _card_launches(rt.render, 2)
+    assert (replayed["C"], replayed["D"], replayed["E"]) == (1, 3, 1)
+    assert replayed["A"] == (3 if sun_in_kernel else 6)

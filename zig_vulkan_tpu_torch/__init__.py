@@ -8,9 +8,11 @@ names follow the reference's, so each counterpart is found at once:
 `python -m zig_vulkan_tpu_torch.app.run`.
 
 The reference's two Pallas kernels are hand-written CUDA here
-(`csrc/traverse.cu`, `csrc/lookup.cu`, built by `_build.py`); every
-other step is eager torch. Each kernel's wrapper runs a plain torch version
-for CPU tensors and launches the kernel for CUDA tensors.
+(`csrc/traverse.cu`, `csrc/lookup.cu`, built by `_build.py`), and so is
+the trace's shading, which XLA fuses in the reference (`csrc/camera.cu`,
+`shade.cu`, `resolve.cu`; `ops/shade.py`); the denoiser and the rest are
+torch ops. Each kernel's wrapper runs a plain torch version for CPU
+tensors and launches the kernel for CUDA tensors.
 
 This package never imports JAX or `zig_vulkan_tpu`.
 """

@@ -1,6 +1,6 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with `nvcc` into one shared library with a plain C
+The sources (and the headers they include, csrc/*.cuh) compile with `nvcc` into one shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes seconds.
 Each source compiles in its own nvcc process, all started together, and one
 more links them. The library goes to `build/` inside this package (ignored
@@ -53,6 +53,63 @@ class TraceParams(ctypes.Structure):
     ]
 
 
+def _pointers(*names):
+    return [(name, _P) for name in names]
+
+
+class CameraArgs(ctypes.Structure):
+    """Mirror of `struct CameraArgs` in csrc/camera.cu (kernel C)."""
+
+    _fields_ = _pointers(
+        "origin", "horizontal", "vertical", "lower_left", "base_ptr",
+        "sun_p_ptr", "radius_ptr", "ox", "oy", "oz", "dx", "dy", "dz",
+        "tx", "ty", "tz") + [
+        ("n", ctypes.c_int64),
+        ("width", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("spp", ctypes.c_int),
+        ("row0", ctypes.c_float),
+        ("w1", ctypes.c_float),
+        ("h1", ctypes.c_float),
+        ("base", ctypes.c_float),
+        ("sun_p", ctypes.c_float * 3),
+        ("radius", ctypes.c_float),
+    ]
+
+
+class ShadeArgs(ctypes.Structure):
+    """Mirror of `struct ShadeArgs` in csrc/shade.cu (kernel D)."""
+
+    _fields_ = _pointers(
+        "found", "px", "py", "pz", "nx", "ny", "nz", "occluded",
+        "albedo_r", "albedo_g", "albedo_b", "mtype", "type_data",
+        "ox", "oy", "oz", "dx", "dy", "dz", "internal_refl", "ignore_type",
+        "loop_count", "bouncing", "cr", "cg", "cb",
+        "pr", "pg", "pb", "prev_occluded",
+        "active", "shx", "shy", "shz", "key", "tx", "ty", "tz",
+        "sun_p_ptr", "sun_c_ptr", "radius_ptr") + [
+        ("n", ctypes.c_int64),
+        ("sun", ctypes.c_int),
+        ("sun_p", ctypes.c_float * 3),
+        ("sun_c", ctypes.c_float * 3),
+        ("radius", ctypes.c_float),
+    ]
+
+
+class ResolveArgs(ctypes.Structure):
+    """Mirror of `struct ResolveArgs` in csrc/resolve.cu (kernel E)."""
+
+    _fields_ = _pointers(
+        "cr", "cg", "cb", "loop_count", "dy", "pr", "pg", "pb", "occluded",
+        "sun_c_ptr", "out") + [
+        ("m", ctypes.c_int64),
+        ("spp", ctypes.c_int),
+        ("sun", ctypes.c_int),
+        ("gamma", ctypes.c_int),
+        ("sun_c", ctypes.c_float * 3),
+    ]
+
+
 # C entry points: name -> argtypes; every one returns cudaGetLastError()
 _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
@@ -62,6 +119,10 @@ _SIGNATURES = {
     "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 25,
     # tables, n_tables, size, idx, n, out, stream
     "zvt_table_lookup": [_P, _I32, _I32, _P, _I64, _P, _P],
+    # args, stream
+    "zvt_camera_rays": [ctypes.POINTER(CameraArgs), _P],
+    "zvt_shade": [ctypes.POINTER(ShadeArgs), _P],
+    "zvt_resolve": [ctypes.POINTER(ResolveArgs), _P],
 }
 
 _LIB = None
@@ -85,9 +146,13 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libzvt_kernels_{h.hexdigest()[:16]}.so"

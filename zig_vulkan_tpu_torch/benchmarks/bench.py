@@ -54,7 +54,7 @@ from ..engine.benchmark import PATH_POINTS
 from ..engine.engine import VoxelRT, device_name
 from ..engine.step import GraphedCall
 from ..models import scenes
-from ..ops import tile_tracer
+from ..ops import shade, tile_tracer
 from ..ops import trace as trace_mod
 from ..oracle import cpu_tracer as oracle
 from ..utils.device import cli_main, resolve_device, sync
@@ -125,9 +125,9 @@ def _parity_check(sc, tables, material_indices, width: int,
 class PoseFrame:
     """The bench's compiled pose frame (the counterpart of `bench.py:
     make_frame`, 190-200): a pose's camera rays, read from the static
-    f32[12] buffer `camera`, their normalization and one kernel A launch,
-    captured once as a CUDA graph (`engine.step.GraphedCall`; the body op
-    by op on the CPU). Calling it with a pose's vectors (an f32[12] device
+    f32[12] buffer `camera` and normalized (one kernel C launch), and one
+    kernel A launch, captured once as a CUDA graph
+    (`engine.step.GraphedCall`; the body op by op on the CPU). Calling it with a pose's vectors (an f32[12] device
     tensor of `ops.trace.camera_basis`) copies them into the buffer and
     runs the frame; the hits it returns are the graph's static outputs,
     which the next pose overwrites."""
@@ -143,12 +143,11 @@ class PoseFrame:
         self.compiled = GraphedCall(self.body, self.camera)
 
     def body(self, camera):
-        r = trace_mod._camera_rays_soa(trace_mod.basis_views(camera),
-                                       self.width, self.height, 0)
-        rays = (a.contiguous() for a in (*r[:3], *trace_mod._norm3(*r[3:])))
-        return tile_tracer.grid_hit_tiles(self.static, self.tables,
-                                          self.material_indices, *rays,
-                                          self.on)
+        rays = shade.camera_rays(trace_mod.basis_views(camera), self.width,
+                                 self.height)
+        return tile_tracer.grid_hit_tiles(
+            self.static, self.tables, self.material_indices,
+            *(rays[k] for k in shade.RAY_KEYS), self.on)
 
     def __call__(self, vectors):
         self.camera.copy_(vectors)

@@ -9,9 +9,15 @@ through
 1. the first-hit traversal, `ops.tile_tracer.grid_hit_tiles` (kernel A on
    CUDA, `_grid_hit_soa` below on the CPU);
 2. the material lookup, `ops.lookup.table_lookup` (kernel B on CUDA);
-3. the shading glue in this module: lambertian / metal / dielectric /
-   emissive scatter, a sun-shadow ray (a second traversal, or traced by
-   the same kernel A thread with `shadow_probe`), background and tone map.
+3. the shading, `ops.shade.shade` (kernel D on CUDA): lambertian /
+   metal / dielectric / emissive scatter and the ray-state update;
+4. the sun-shadow ray: a second traversal, or traced by the same kernel A
+   thread with `shadow_probe`.
+
+The camera rays before the first level (kernel C) and the background,
+tone map and sample resolve after the last (kernel E) are `ops.shade`'s
+too; this module holds the traversal's plain version, the scene tables and
+the entry points.
 
 Colours do not depend on lane order (every random number is a hash of hit
 positions and ray directions), so the wavefront stays in pixel order: the
@@ -35,14 +41,7 @@ import torch
 
 from ..config import BRICK_DIMENSION, BRICK_WORDS, TraceConfig
 from ..core.grid import GridArrays, GridStatic
-from ..core.materials import (
-    MAT_DIELECTRIC,
-    MAT_EMISSIVE,
-    MAT_LAMBERTIAN,
-    MAT_METAL,
-    MAT_NONE,
-    MaterialTable,
-)
+from ..core.materials import MAT_DIELECTRIC, MaterialTable
 from . import rng
 from .lookup import table_lookup
 
@@ -601,6 +600,44 @@ def _rand_vec3_range_soa(cox, coy, lo, hi):
     return v[:, 0], v[:, 1], v[:, 2]
 
 
+def _trace_levels(static: GridStatic, tables, material_indices, mats,
+                  state: dict, max_bounce: int, mode: int, sun,
+                  targets=None, max_steps: int = 768, use_skip: bool = True):
+    """The bounce levels of a wavefront: per level kernel A's scatter
+    launch, kernel B's material lookup, kernel D's shading (`ops.shade`,
+    the ray `state` updated in place) and, with SUN_DEFERRED, kernel A's
+    shadow launch. `sun` = (position, colour, radius); `targets` are the
+    first level's sun targets (SUN_PROBE). Returns the last shadow
+    launch's hits (SUN_DEFERRED with a level), else None."""
+    from . import shade
+    from .tile_tracer import grid_hit_tiles  # imports this module
+
+    key = occluded = None
+    for level in range(max_bounce):
+        last = level == max_bounce - 1
+        h = grid_hit_tiles(static, tables, material_indices,
+                           *(state[k] for k in shade.RAY_KEYS),
+                           state["bouncing"], ray_key=key,
+                           max_steps=max_steps, shadow_targets=targets,
+                           use_skip=use_skip)
+        looked = table_lookup(mats, h["index"])
+        out = shade.shade(state, h, looked, mode, *sun,
+                          prev_occluded=occluded, next_key=not last,
+                          next_targets=mode == shade.SUN_PROBE and not last)
+        # dielectric-skip state exists only after a refraction: the first
+        # level has no key
+        key = out.get("key")
+        targets = (tuple(out[k] for k in shade.TARGET_KEYS)
+                   if "tx" in out else None)
+        if mode == shade.SUN_DEFERRED:
+            occluded = grid_hit_tiles(
+                static, tables, material_indices, h["px"], h["py"],
+                h["pz"], *(out[k] for k in shade.SHADOW_KEYS),
+                out["active"], max_steps=max_steps,
+                use_skip=use_skip)["found"]
+    return occluded
+
+
 def _ray_color_soa(static: GridStatic, tables, material_indices,
                    mats, ox, oy, oz, dx, dy, dz,
                    max_bounce: int, sun_position, sun_enabled: bool,
@@ -617,157 +654,28 @@ def _ray_color_soa(static: GridStatic, tables, material_indices,
     traversal (kernel A's shadow build) instead of a second traversal; the
     colours are the same. `use_skip=False` traces every ray with the exact
     cell-by-cell DDA (kernel A's NO_SKIP builds; the records' distance lane
-    is then never read).
+    is then never read). The levels run through kernels A, B and D and the
+    tone map through kernel E (`_trace_levels`, `ops.shade`).
     Returns (r, g, b) f32[N] each, in lane order."""
-    from .tile_tracer import grid_hit_tiles  # imports this module
+    from . import shade
 
-    def hit(hox, hoy, hoz, hdx, hdy, hdz, mask, ray_key=None, targets=None):
-        return grid_hit_tiles(static, tables, material_indices,
-                              hox, hoy, hoz, hdx, hdy, hdz, mask,
-                              ray_key=ray_key, max_steps=max_steps,
-                              shadow_targets=targets, use_skip=use_skip)
-
-    n = ox.shape[0]
-    dev = ox.device
     dx, dy, dz = _norm3(dx, dy, dz)
-    zf = torch.zeros(n, dtype=F32, device=dev)
-    cr, cg, cb = zf, zf, zf
-    internal_refl = torch.ones(n, dtype=F32, device=dev)
-    ignore_type = torch.full((n,), MAT_NONE, dtype=torch.int32, device=dev)
-    loop_count = torch.zeros(n, dtype=torch.int32, device=dev)
-    bouncing = torch.ones(n, dtype=torch.bool, device=dev)
-    nan = torch.full((n,), float("nan"), dtype=F32, device=dev)
-    sun_p = _vec3(sun_position)
-    sun_c = _vec3(sun_color)
-    radius = sun_radius if torch.is_tensor(sun_radius) else _F(sun_radius)
-
-    # original direction for the background of never-hit rays
-    odx, ody, odz = dx, dy, dz
-    probe = shadow_probe and sun_enabled
-
-    for bounce_i in range(max_bounce):
-        # the jittered sun target depends on the incoming direction only
-        tgt = sun_targets(dx, dy, dz, sun_p, radius) if sun_enabled else None
-        if bounce_i == 0:
-            # dielectric-skip state exists only after a refraction
-            key = None
-        else:
-            # per-ray dielectric skip key: NaN (skip nothing) unless the
-            # ray was refracted (brick_raytracer.comp:427)
-            key = torch.where(ignore_type == MAT_DIELECTRIC, internal_refl,
-                              nan)
-        h = hit(ox, oy, oz, dx, dy, dz, bouncing, ray_key=key,
-                targets=tgt if probe else None)
-        active = bouncing & h["found"]
-
-        ar, ag, ab, mtype_f, type_data = table_lookup(mats, h["index"])
-        mtype = mtype_f.to(torch.int32)
-        is_emissive = mtype == MAT_EMISSIVE
-        known = (mtype <= MAT_DIELECTRIC) | is_emissive
-        loop_count = loop_count + (active & known).to(torch.int32)
-
-        px, py, pz = h["px"], h["py"], h["pz"]
-        nx, ny, nz = h["nx"], h["ny"], h["nz"]
-        cox = px + pz
-        coy = py + pz
-
-        # lambertian (brick_raytracer.comp:539-544)
-        rx, ry, rz = _rand_vec3_range_soa(cox, coy, -0.4, 0.4)
-        lamx, lamy, lamz = _norm3(nx + rx, ny + ry, nz + rz)
-
-        # metal (brick_raytracer.comp:546-551)
-        dn = _dot3(dx, dy, dz, nx, ny, nz)
-        refx = dx - 2.0 * dn * nx
-        refy = dy - 2.0 * dn * ny
-        refz = dz - 2.0 * dn * nz
-        fuzz = type_data
-        mx, my, mz = _rand_vec3_range_soa(cox, coy, -fuzz, fuzz)
-        metx, mety, metz = _norm3(refx + mx, refy + my, refz + mz)
-        met_ok = _dot3(metx, mety, metz, nx, ny, nz) > 0
-
-        # dielectric (brick_raytracer.comp:576-596)
-        ex, ey, ez = _rand_vec3_range_soa(cox, coy, -0.05, 0.05)
-        dnx, dny, dnz = _norm3(nx + ex, ny + ey, nz + ez)
-        ir = type_data
-        eta = ir / internal_refl
-        c1 = -_dot3(dx, dy, dz, dnx, dny, dnz)
-        w = eta * c1
-        c2m = (w - eta) * (w + eta)
-        should_refract = c2m >= -1.0
-        wk = w - torch.sqrt(torch.clamp(1.0 + c2m, min=0.0))
-        tx = eta * dx + wk * dnx
-        ty = eta * dy + wk * dny
-        tz = eta * dz + wk * dnz
-        rnd = rng.rand3(torch.stack([px, py, pz], dim=-1))
-        do_refract = should_refract & (rnd > 0.5)
-        ddn = _dot3(dx, dy, dz, dnx, dny, dnz)
-        rfx = dx - 2.0 * ddn * dnx
-        rfy = dy - 2.0 * ddn * dny
-        rfz = dz - 2.0 * ddn * dnz
-        diex, diey, diez = _norm3(
-            torch.where(do_refract, tx, rfx),
-            torch.where(do_refract, ty, rfy),
-            torch.where(do_refract, tz, rfz))
-
-        is_lam = mtype == MAT_LAMBERTIAN
-        is_met = mtype == MAT_METAL
-        is_die = mtype == MAT_DIELECTRIC
-        sdx = torch.where(is_lam, lamx, torch.where(is_met, metx, diex))
-        sdy = torch.where(is_lam, lamy, torch.where(is_met, mety, diey))
-        sdz = torch.where(is_lam, lamz, torch.where(is_met, metz, diez))
-        # emissive paths terminate (superset; see core.materials)
-        result = is_lam | (is_met & met_ok) | (~is_lam & ~is_met & is_die)
-        refracted = is_die & do_refract
-        new_ignore = torch.where(refracted, MAT_DIELECTRIC,
-                                 MAT_NONE).to(torch.int32)
-        new_internal = torch.where(refracted, ir, 1.0)
-
-        # emissive contribution: albedo * strength, unshadowed
-        emit = active & is_emissive
-        cr = cr + torch.where(emit, ar * type_data, zf)
-        cg = cg + torch.where(emit, ag * type_data, zf)
-        cb = cb + torch.where(emit, ab * type_data, zf)
-        sun_or_diffuse = active & ~is_emissive
-
-        if sun_enabled:
-            if probe:
-                occluded = h["occluded"]
-            else:
-                shx, shy, shz = shadow_dirs(h, tgt)
-                occluded = hit(px, py, pz, shx, shy, shz, active)["found"]
-            lit = sun_or_diffuse & ~occluded
-            cr = cr + torch.where(lit, ar * sun_c[0], zf)
-            cg = cg + torch.where(lit, ag * sun_c[1], zf)
-            cb = cb + torch.where(lit, ab * sun_c[2], zf)
-        else:
-            cr = cr + torch.where(sun_or_diffuse, ar, zf)
-            cg = cg + torch.where(sun_or_diffuse, ag, zf)
-            cb = cb + torch.where(sun_or_diffuse, ab, zf)
-
-        bouncing = active & result
-        ox = torch.where(active, px, ox)
-        oy = torch.where(active, py, oy)
-        oz = torch.where(active, pz, oz)
-        dx = torch.where(bouncing, sdx, dx)
-        dy = torch.where(bouncing, sdy, dy)
-        dz = torch.where(bouncing, sdz, dz)
-        internal_refl = torch.where(active, new_internal, internal_refl)
-        ignore_type = torch.where(active, new_ignore, ignore_type)
-
-    # background for never-hit rays (brick_raytracer.comp:260-262); a ray
-    # that never hits keeps its original direction
-    never = loop_count == 0
-    t = 0.5 * (ody + 1.0)
-    bgr = (1.0 - t) + t * 0.5
-    bgg = (1.0 - t) + t * _c(0.7)
-    bgb = (1.0 - t) + t * 1.0
-    if sun_enabled:
-        bgr, bgg, bgb = bgr * sun_c[0], bgg * sun_c[1], bgb * sun_c[2]
-    cr = cr + torch.where(never, bgr, zf)
-    cg = cg + torch.where(never, bgg, zf)
-    cb = cb + torch.where(never, bgb, zf)
-    # color/(color+1) tone map (brick_raytracer.comp:264)
-    return cr / (cr + 1.0), cg / (cg + 1.0), cb / (cb + 1.0)
+    rays = dict(zip(shade.RAY_KEYS, (
+        a.clone(memory_format=torch.contiguous_format)
+        for a in (ox, oy, oz, dx, dy, dz))))
+    mode = shade.sun_mode(sun_enabled, shadow_probe)
+    radius = shade._radius(sun_radius)
+    targets = (sun_targets(rays["dx"], rays["dy"], rays["dz"],
+                           _vec3(sun_position), radius)
+               if mode == shade.SUN_PROBE else None)
+    state = shade.new_state(rays, mode)
+    occluded = _trace_levels(static, tables, material_indices, mats, state,
+                             max_bounce, mode,
+                             (sun_position, sun_color, sun_radius), targets,
+                             max_steps, use_skip)
+    color = shade.resolve(state, 1, sun_color if sun_enabled else None,
+                          occluded, gamma=False)
+    return color.unbind(-1)
 
 
 # -- camera rays and the frame --------------------------------------------------
@@ -850,6 +758,8 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     the per-sample jitter seed, not lane position. For the same reason, and
     because every operation rounds once, the rows `row0 .. row0 + rows - 1`
     rendered as a band equal those rows of the whole frame bit for bit.
+    The camera rays are kernel C, each level kernels A, B and D (and A
+    again for the sun rays), the resolve kernel E (`ops.shade`).
 
     `sample_base` offsets the per-sample jitter seed (sample s uses
     sample_base + s, in float32); temporal accumulation passes
@@ -861,23 +771,23 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     (f32[3]), `sun_radius` and `sample_base` (0-d). Then nothing on the
     path reads them back or copies from the host (the engine's compiled
     step passes views of its push constants)."""
+    from . import shade
+
     w, h = int(width), int(height)
     rows = h if rows is None else int(rows)
-    if torch.is_tensor(sample_base):
-        seeds = [sample_base + _c(s) for s in range(spp)]
-    else:
-        seeds = [_F(_F(sample_base) + _F(s)) for s in range(spp)]
-    samples = [_camera_rays_soa(cam, w, h, seed, row0=row0, rows=rows)
-               for seed in seeds]
-    oxs, oys, ozs, rdx, rdy, rdz = (
-        torch.cat([sm[i] for sm in samples]) for i in range(6))
-    cr, cg, cb = _ray_color_soa(
-        static, tables, material_indices, mats, oxs, oys, ozs,
-        rdx, rdy, rdz, max_bounce, sun_position, sun_enabled, sun_color,
-        sun_radius, max_steps, shadow_probe=shadow_probe, use_skip=use_skip)
-    color = torch.stack([cr, cg, cb], dim=-1).reshape(spp, rows * w, 3)
-    color = color.sum(dim=0)
-    color = torch.sqrt(_div(color, spp))
+    mode = shade.sun_mode(sun_enabled, shadow_probe)
+    probe = mode == shade.SUN_PROBE
+    rays = shade.camera_rays(cam, w, h, spp, sample_base, row0, rows,
+                             sun=(sun_position, sun_radius) if probe
+                             else None)
+    state = shade.new_state(rays, mode)
+    occluded = _trace_levels(
+        static, tables, material_indices, mats, state, max_bounce, mode,
+        (sun_position, sun_color, sun_radius),
+        tuple(rays[k] for k in shade.TARGET_KEYS) if probe else None,
+        max_steps, use_skip)
+    color = shade.resolve(state, spp, sun_color if sun_enabled else None,
+                          occluded)
     return color.reshape(rows, w, 3)
 
 

@@ -70,25 +70,46 @@ _TRAVERSE = re.compile(
     r"(?:true|false)>|ILb([01])ELb([01])ELb([01])ELb[01]E)")
 
 
+# the symbols of kernels B to E (csrc/lookup.cu, camera.cu, shade.cu,
+# resolve.cu)
+_KERNELS = (("lookup_kernel", "B"), ("camera_rays_kernel", "C"),
+            ("shade_kernel", "D"), ("resolve_kernel", "E"))
+
+
 def kernel_launches(names) -> dict:
     """Launches of the port's kernels among `names`, the names of the
     kernels a trace shows on the card: kernel A per build (the build names
-    of `ops.tile_tracer`) and in all ("A"), kernel B ("B"). A CUDA graph's
-    replay runs its kernels without calling their wrappers, so their
-    launch counters miss them; a trace of the card counts them."""
-    from ..ops.tile_tracer import _BUILDS, _build_name
+    of `ops.tile_tracer`) and in all ("A"), kernels B to E ("B", "C", "D",
+    "E"). A CUDA graph's replay runs its kernels without calling their
+    wrappers, so their launch counters miss them; a trace of the card
+    counts them."""
+    from ..ops.tile_tracer import _BUILDS
 
-    counts = dict(dict.fromkeys(_BUILDS, 0), A=0, B=0)
+    counts = dict(dict.fromkeys(_BUILDS, 0), A=0,
+                  **dict.fromkeys((k for _, k in _KERNELS), 0))
     for name in names:
-        m = _TRAVERSE.search(name)
-        if m:
-            shadow, stats, skip = (g in ("true", "1")
-                                   for g in m.groups() if g is not None)
-            counts[_build_name(shadow, stats, skip)] += 1
-            counts["A"] += 1
-        elif "lookup_kernel" in name:
-            counts["B"] += 1
+        kind, build = kernel_kind(name)
+        if build is not None:
+            counts[build] += 1
+        if kind is not None:
+            counts[kind] += 1
     return counts
+
+
+def kernel_kind(name: str):
+    """(the port's kernel, "A" to "E", or None; kernel A's build or None)
+    of a kernel name a trace shows on the card."""
+    from ..ops.tile_tracer import _build_name
+
+    m = _TRAVERSE.search(name)
+    if m:
+        shadow, stats, skip = (g in ("true", "1")
+                               for g in m.groups() if g is not None)
+        return "A", _build_name(shadow, stats, skip)
+    for symbol, key in _KERNELS:
+        if symbol in name:
+            return key, None
+    return None, None
 
 
 @contextlib.contextmanager

@@ -23,6 +23,15 @@ SHADOW builds are not in `n_step`, so this count too is low, never high.
 Kernel B (csrc/lookup.cu) reads one int32 index and writes one f32 per
 table a lane; its tables (a few KiB) are read once per block.
 
+Kernels C, D and E (csrc/camera.cu, shade.cu, resolve.cu) read and write
+flat arrays, every lane once: their bytes are counted from the arrays each
+launch reads and writes (kernel D skips the state writes that would store
+the value read, so those count for the lanes that change), and their
+operations from the source, by hand: the float operations of each lane's
+hashes, square roots and selects (`CAMERA_OPS`, `SHADE_OPS`,
+`RESOLVE_OPS_PER_SAMPLE`), leaving out index arithmetic; both counts are
+low, never high.
+
 `warp_use_share` measures divergence from a stats build's `n_step`: the
 share of lane-iterations that do work when lanes 32w..32w+31 run together
 as warp w until the longest of them is done. `slowest_lanes` picks the rays
@@ -92,6 +101,116 @@ def traverse_bound_ms(n: int, hits: int, iterations: int,
     (the first traversal only: a SHADOW build's sun rays are left out)."""
     return bound_ms(traverse_bytes(n, hits, has_key, shadow, stats),
                     iterations * MIN_OPS_PER_ITERATION)
+
+
+# float operations of the shared device functions (csrc/shading.cuh),
+# counted by hand: hsin 19 (2 to reduce, 1 floor, 1 subtract of the
+# multiple, a square, 6 Horner steps of 2, the last multiply), rand2 its
+# two products and sum, hsin, a multiply and fract (2); rand_vec3_range
+# three rand2 with a multiply-add each and the 4 adds of the chained seeds;
+# rand1 a multiply, hsin, a multiply and fract; rand3 rand1, 2 adds and
+# rand2; norm3 3 squares, 2 adds, a root, a reciprocal and 3 multiplies;
+# hash12 24; a sun target rand_vec3_range, the 2 seed adds, a negation and
+# a subtraction for the range, 3 adds
+_HSIN = 19
+_RAND2 = 3 + _HSIN + 3
+_RAND_VEC3 = 3 * (_RAND2 + 2) + 4
+_RAND3 = (1 + _HSIN + 3) + 2 + _RAND2
+_NORM3 = 10
+_DOT3 = 5
+_HASH12 = 24
+_SUN_TARGET = _RAND_VEC3 + 4 + 3
+
+# kernel C a lane: two hash12, the seed and jitter factors (8), u and v (4),
+# the direction (3 x 4), its normalization; a sun target with targets
+CAMERA_OPS = 2 * _HASH12 + 8 + 4 + 12 + _NORM3
+# kernel D a lane: the lambertian (rand_vec3_range, 3 adds, norm3), the
+# metal (a dot, the reflection 9, the fuzz range 2, rand_vec3_range, 3
+# adds, norm3, a dot and a compare), the dielectric (rand_vec3_range, 3
+# adds, norm3, the division, a dot and a negation, 3 for w and c2m, the
+# compare, add, clamp, root and subtract 5, rand3 and its compare, a dot,
+# the two candidate directions 18 and norm3), the colour (about 12 adds,
+# multiplies and selects); with a shadow launch the target, the direction
+# (3 subtracts, norm3) and the 3 pending products; sun targets of the next
+# level
+SHADE_OPS = ((_RAND_VEC3 + 3 + _NORM3)
+             + (_DOT3 + 9 + 2 + _RAND_VEC3 + 3 + _NORM3 + _DOT3 + 1)
+             + (_RAND_VEC3 + 3 + _NORM3 + 1 + _DOT3 + 1 + 3 + 5 + _RAND3
+                + 1 + _DOT3 + 18 + _NORM3)
+             + 12)
+SHADE_SHADOW_OPS = _SUN_TARGET + 3 + _NORM3 + 3
+SHADE_TARGET_OPS = _SUN_TARGET
+# kernel E a lane: the pending term (3), the sky (2 + 9, 3 with the sun),
+# its add (3), the tone map (6), the sum (3); a pixel: 3 divisions and 3
+# roots
+RESOLVE_OPS_PER_SAMPLE = 3 + 11 + 3 + 3 + 6 + 3
+RESOLVE_OPS_PER_PIXEL = 6
+
+RAY_BYTES = 6 * 4             # origin and direction
+STATE_READ_BYTES = (1 + 6 * 4 + 5 * 4 + 3 * 4 + 4 + 4 + 4 + 1 + 3 * 4)
+# found, hit point and normal, the five looked-up values, direction,
+# internal reflection, ignore type, loop count, bouncing, colour
+
+
+def camera_bytes(n: int, targets: bool = False) -> int:
+    """Bytes of one kernel C launch over `n` lanes: the rays (and sun
+    targets) written, the basis, sample base and sun values read."""
+    return n * (RAY_BYTES + (TARGET_BYTES if targets else 0)) + 4 * (
+        12 + 1 + (4 if targets else 0))
+
+
+def shade_bytes(n: int, active: int, bouncing: int, mode: int,
+                prev: bool = False, next_key: bool = False,
+                next_targets: bool = False) -> int:
+    """Bytes of one kernel D launch over `n` lanes, `active` of them hit
+    and `bouncing` of them bounce on (`ops.shade.sun_mode`'s `mode`;
+    `prev`: a pending term from the previous level is added)."""
+    from ..ops import shade
+
+    per = STATE_READ_BYTES + 4 + 1 + 3 * 4  # + loop count, bouncing, colour
+    if mode == shade.SUN_PROBE:
+        per += OCCLUDED_BYTES
+    if mode == shade.SUN_DEFERRED:
+        per += 3 * 4 + 1 + 3 * 4  # pending, the shadow mask and directions
+    if prev:
+        per += 3 * 4 + OCCLUDED_BYTES
+    if next_key:
+        per += KEY_BYTES
+    if next_targets:
+        per += TARGET_BYTES
+    # origin, internal reflection and ignore type of the lanes that hit;
+    # the direction of the lanes that bounce on
+    return n * per + active * (3 * 4 + 4 + 4) + bouncing * 3 * 4 + 4 * 7
+
+
+def resolve_bytes(n: int, pixels: int, pending: bool = False) -> int:
+    """Bytes of one kernel E launch: colour, loop count and direction's y
+    of the `n` lanes (and the pending term and its shadow hits), the
+    `pixels` RGB values written."""
+    per = 3 * 4 + 4 + 4 + ((3 * 4 + OCCLUDED_BYTES) if pending else 0)
+    return n * per + pixels * 3 * 4 + 3 * 4
+
+
+def camera_bound_ms(n: int, targets: bool = False):
+    return bound_ms(camera_bytes(n, targets),
+                    n * (CAMERA_OPS + (_SUN_TARGET if targets else 0)))
+
+
+def shade_bound_ms(n: int, active: int, bouncing: int, mode: int,
+                   prev: bool = False, next_key: bool = False,
+                   next_targets: bool = False):
+    from ..ops import shade
+
+    ops = SHADE_OPS + (SHADE_SHADOW_OPS if mode == shade.SUN_DEFERRED
+                       else 0) + (SHADE_TARGET_OPS if next_targets else 0)
+    return bound_ms(shade_bytes(n, active, bouncing, mode, prev, next_key,
+                                next_targets), n * ops)
+
+
+def resolve_bound_ms(n: int, pixels: int, pending: bool = False):
+    return bound_ms(resolve_bytes(n, pixels, pending),
+                    n * RESOLVE_OPS_PER_SAMPLE
+                    + pixels * RESOLVE_OPS_PER_PIXEL)
 
 
 def warp_use_share(n_step) -> float:
