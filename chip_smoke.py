@@ -16,7 +16,7 @@ a replayed frame are counted in a `torch.profiler` trace of the card
 (`card_launches`).
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu (kernels A to E) with nvcc;
+2. build: compile csrc/*.cu (kernels A to F) with nvcc;
 3. kernel A (traversal) against its plain torch version on the card, on
    the default 512x256x512 scene: the frame's primary wavefront,
    bounce-like rays from its hit points, and the same rays with a
@@ -28,17 +28,19 @@ a replayed frame are counted in a `torch.profiler` trace of the card
 6. the main path: `VoxelRT(...).draw()` at the default EngineConfig
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
    with the kernels' launch counts through the wrappers (6 A, 3 B, 1 C,
-   3 D, 1 E a frame) and a replayed frame's on the card;
-6b. the frame's 6 kernel A, 3 kernel B and 1 C, 3 D, 1 E launches,
+   3 D, 1 E, 1 F a frame) and a replayed frame's on the card;
+6b. the frame's 6 kernel A, 3 kernel B and 1 C, 3 D, 1 E, 1 F launches,
    captured from one frame of the step's body run op by op and replayed
    one by one (`frame_kernels`): each bit for bit
    against its plain version, its device time warm and after an L2
    flush, its bound, kernel A's steps, warp-use shares and its time with
    no lane live, with only its slowest 1% of rays live and through the
    builds that divide (at a 0.3 cell, also bit for bit), kernel B's
-   `torch.index_select` time, the plain versions' times of C, D and E
+   `torch.index_select` time, the plain versions' times of C, D, E and F
    (kernel D's inputs restored before each call: it updates the ray state
-   in place);
+   in place); kernel F also on the frame's image to 5/4 of its size, with
+   the denoiser and as the resample alone, the latter beside
+   `torch.nn.functional.grid_sample`'s time;
 7. headline analogue: 1920x1080 primary rays through kernel A over the
    fly-through path's points (three passes), in Mray/s;
 8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148,
@@ -75,9 +77,10 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     the JAX package's format, `cached_default_scene` cold and warm,
     `stream_into_engine(terrain_regions(...))` into an empty engine against
     the host terrain build, and the native C++ builder where g++ exists.
-15. the mesh (parallel/mesh.py): (a) the denoiser on 1, 2, 4 and 8 bands
-    with their halos against the whole image, a seeded random 1024x576
-    image to 1280x720 and at equal size, bit for bit; (b) the default
+15. the mesh (parallel/mesh.py): (a) the post-process (kernel F) on 1, 2,
+    4 and 8 bands with their halos against the whole image and each against
+    its plain version, a seeded random 1024x576 image denoised at equal
+    size and to 1280x720 and resampled alone to 1280x720, bit for bit; (b) the default
     frame's configuration through `build_sharded_step` over 1, 2 and 4
     shards of the card, each first call (each shard's graphs' capture)
     equal bit for bit to `render_image` + `postprocess`, its captures and
@@ -114,15 +117,16 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     chained frames);
 19. the entry module: `entry.entry()`'s render step (64x48, two levels, the
     denoiser) on the card against the same step on the CPU, where the
-    kernels' plain versions run (no pixel differs by 1e-5); its 4 A and 2 B
-    launches, each against its plain version bit for bit;
+    kernels' plain versions run (no pixel differs by 1e-5); its 4 A, 2 B
+    and 1 F launches, each against its plain version bit for bit;
 20. the compiled step (`engine.step`): the default frame, config 4's
     temporal frames, config 5's 4K frame, the default frame after a change
     of the denoiser's `samples`, and the bench's pose frame (config 3's
     edit frames are phase 21's), each run as a replay and op by op (the
     body called directly): the replay's image equal to the op-by-op one
-    bit for bit, the captures (one a key), kernel A and B launches a
-    frame on each route, median ms of each route in turns by CUDA events
+    bit for bit, the captures (one a key), kernel A to F launches a
+    frame on each route, one more op-by-op frame's kernel F launch against
+    its plain version, median ms of each route in turns by CUDA events
     and by the host clock, device-busy ms and idle share and host-to-device
     copies a frame from a `torch.profiler` trace of each route, and peak
     allocated and reserved bytes of each;
@@ -153,14 +157,17 @@ frame through `VoxelRT.render()` alone: the same lines from an older tree
 
 Every check of a frame's launches (`check_frame_launches`: phases 15-17
 and 19) also captures the frame's launches of kernels C, D and E (camera
-rays, shade, resolve: `ops.shade`) and holds each against its plain twin
-bit for bit; phases 6, 18 and 20 count them (phase 20: on both routes of
-each case, 1 C, one D a level and 1 E a frame; 1 C a pose frame).
+rays, shade, resolve: `ops.shade`) and F (the post-process:
+`ops.denoise`) and holds each against its plain twin bit for bit (kernel
+F's NaN positions equal, their payloads the card's); phases 6, 18 and 20
+count them (phase 20: on both routes of each case, 1 C, one D a level, 1 E
+and, with the denoiser, 1 F a frame; 1 C a pose frame).
 
 The line before the last is a JSON object with one entry per kernel build
-and per shading kernel (its launches through the wrapper in this run,
-launches a replayed frame on the card, time, plain time, bound, share of
-the bound and, for kernel B, `index_select`'s time); the last line is
+and per shading kernel and one for kernel F (its launches through the
+wrapper in this run, launches a replayed frame on the card, time, plain
+time, bound, share of the bound and, for kernel B, `index_select`'s time,
+for kernel F `grid_sample`'s on the resample alone); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -634,11 +641,12 @@ def step_times(fn, frames):
 
 
 def reset_counts():
-    from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer
+    from zig_vulkan_tpu_torch.ops import denoise, lookup, shade, tile_tracer
 
     tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
     shade.reset_launch_counts()
+    denoise.reset_launch_counts()
 
 
 def read_counts():
@@ -650,11 +658,12 @@ def read_counts():
 
 
 def read_shading_counts():
-    """Kernel C, D and E launches through their wrappers (`ops.shade`)."""
-    from zig_vulkan_tpu_torch.ops import shade
+    """Kernel C, D and E launches through their wrappers (`ops.shade`) and
+    kernel F's (`ops.denoise`)."""
+    from zig_vulkan_tpu_torch.ops import denoise, shade
 
     return {"C": shade.camera_rays.launches, "D": shade.shade.launches,
-            "E": shade.resolve.launches}
+            "E": shade.resolve.launches, "F": denoise.postprocess.launches}
 
 
 def card_counts(launches, calls=1):
@@ -680,7 +689,11 @@ def captures():
 
 
 def halo_check(dev, width, height):
-    """Phase 15a: the banded denoiser against the whole image."""
+    """Phase 15a: the post-process on 1, 2, 4 and 8 bands with their halos
+    (kernel F on each band's slab) against its plain version and against
+    the whole image's kernel F launch, which is held against its plain
+    version too; the denoiser at the image's size and to 5/4 of it, and the
+    resample alone to 5/4 of it. Returns kernel F's launches."""
     import torch
 
     from zig_vulkan_tpu_torch.config import DenoiserConfig
@@ -688,29 +701,53 @@ def halo_check(dev, width, height):
 
     img = torch.from_numpy(np.random.default_rng(15).random(
         (height, width, 3), dtype=np.float32)).to(dev)
-    dn = DenoiserConfig(enabled=True)
-    for out_h, out_w in ((height, width), (height * 5 // 4, width * 5 // 4)):
+    up = (height * 5 // 4, width * 5 // 4)
+    reset_counts()
+    for dn, (out_h, out_w) in ((DenoiserConfig(enabled=True), (height, width)),
+                               (DenoiserConfig(enabled=True), up),
+                               (DenoiserConfig(enabled=False), up)):
         whole = denoise.postprocess(img, dn, out_h, out_w)
-        equal, halos = {}, {}
+        bad, err, plain_same = compare_post(
+            whole, denoise.postprocess_plain(img, dn, out_h, out_w))
+        equal, halos, against_plain = {}, {}, {}
         for n in HALO_BANDS:
             rows = out_h // n
-            bands = []
+            bands, same = [], True
             for i in range(n):
                 r0, r1 = i * rows, (i + 1) * rows if i < n - 1 else out_h
                 a, b = denoise.band_input_rows(r0, r1, out_h, height, dn)
-                bands.append(denoise.postprocess(
-                    img[a:b].clone(), dn, out_h, out_w,
-                    band=denoise.Band(r0, r1, a, height)))
+                slab = img[a:b].clone()
+                band = denoise.Band(r0, r1, a, height)
+                bands.append(denoise.postprocess(slab, dn, out_h, out_w,
+                                                 band=band))
+                b_bad, b_err, b_same = compare_post(
+                    bands[-1], denoise.postprocess_plain(slab, dn, out_h,
+                                                         out_w, band=band))
+                same = same and b_same
+                err = max(err, b_err)
                 if i == n // 2:
                     halos[n] = [a, b]
             equal[n] = bool(torch.equal(torch.cat(bands), whole))
+            against_plain[n] = same
         log("mesh halo", image=f"{width}x{height}", out=f"{out_w}x{out_h}",
-            bands=list(HALO_BANDS),
+            denoiser=dn.enabled, bands=list(HALO_BANDS),
+            whole_against_plain=plain_same, whole_differ=bad,
+            max_abs_err=err,
+            bands_against_plain=json.dumps(against_plain,
+                                           separators=(",", ":")),
             equal=json.dumps(equal, separators=(",", ":")),
             middle_band_input_rows=json.dumps(halos, separators=(",", ":")))
+        if not (plain_same and all(against_plain.values())):
+            raise AssertionError("kernel F on the bands or the whole image "
+                                 "differs from its plain version")
         if not all(equal.values()):
-            raise AssertionError("the banded denoiser differs from the whole "
-                                 "image")
+            raise AssertionError("the banded post-process differs from the "
+                                 "whole image")
+    launched = read_shading_counts()["F"]
+    if launched != 3 * (1 + sum(HALO_BANDS)):
+        raise AssertionError(f"expected one kernel F launch an image and a "
+                             f"band, got {launched}")
+    return launched
 
 
 def sharded_default_frame(rt, devices, label, sizes):
@@ -735,6 +772,7 @@ def sharded_default_frame(rt, devices, label, sizes):
                              rt.trace_config, tables=rt.tables())
     want = denoise.postprocess(img, rt.denoiser, oh, ow)
     per = levels * frame_launches_per_level(rt)
+    post = post_launches(rt.denoiser, rt.internal_resolution, (ow, oh))
     total = {"A": 0, "A_all": 0, "B": 0}
     for n in sizes:
         step, args, tables = sharded_default_step(rt, devices[:n])
@@ -743,32 +781,36 @@ def sharded_default_frame(rt, devices, label, sizes):
         got = step(*args, tables=tables)
         torch.cuda.synchronize()
         counts = read_counts()
+        posted = read_shading_counts()["F"]
         made = captures() - c0
         total = {k: total[k] + counts[k] for k in total}
         same = bool(torch.equal(got, want))
         log("mesh", mesh=label, shards=n, replicas=len(step.mesh.distinct),
             equals_unsharded=same, captures=made, launches_A=counts["A"],
-            launches_B=counts["B"], shape=list(got.shape),
+            launches_B=counts["B"], launches_F=posted, shape=list(got.shape),
             device=str(got.device))
         if not same or got.device != want.device:
             raise AssertionError(f"the {n}-shard frame differs from the "
                                  f"unsharded one")
         # the capture call: each shard's trace and post-process graphs,
         # their warm-ups and captures through the wrappers
-        if made != 2 * n or counts != {"A": 2 * per * n, "A_all": 2 * per * n,
-                                       "B": 2 * levels * n}:
-            raise AssertionError(f"expected {2 * n} captures and {per} A and "
-                                 f"{levels} B launches a shard twice, got "
-                                 f"{made} and {counts}")
-    # the bands' launches (a band's lanes, each shard's replica), op by
-    # op, against their plain versions
+        if (made != 2 * n or posted != 2 * post * n
+                or counts != {"A": 2 * per * n, "A_all": 2 * per * n,
+                              "B": 2 * levels * n}):
+            raise AssertionError(f"expected {2 * n} captures and {per} A, "
+                                 f"{levels} B and {post} F launches a shard "
+                                 f"twice, got {made}, {counts} and {posted} "
+                                 f"F")
+    # the bands' launches (a band's lanes, each shard's replica and its
+    # post-process), op by op, against their plain versions
     reset_counts()
     check_frame_launches(f"mesh {label} x{n}",
                          lambda: step.op_by_op(*args, tables=tables),
-                         per * n, levels * n, renders=n)
+                         per * n, levels * n, renders=n, posts=post * n)
     # a shard's launches in one step, measured: the last mesh's capture
     # call ran each shard's bodies twice (its warm-up and its capture)
-    return dict(total, per_shard={k: counts[k] / (2 * n) for k in ("A", "B")})
+    return dict(total, per_shard=dict(
+        {k: counts[k] / (2 * n) for k in ("A", "B")}, F=posted / (2 * n)))
 
 
 def sharded_default_step(rt, devices):
@@ -803,7 +845,7 @@ def mesh_phase(dev, rt):
     from zig_vulkan_tpu_torch.parallel import mesh as pmesh
 
     iw, ih = rt.internal_resolution
-    halo_check(dev, iw, ih)
+    halo_launches = halo_check(dev, iw, ih)
     one = pmesh.make_mesh([dev]).devices[0]
     counts = sharded_default_frame(rt, [one] * max(MESH_SIZES), "one card",
                                    MESH_SIZES)
@@ -811,7 +853,8 @@ def mesh_phase(dev, rt):
     pmesh.dryrun_multichip(4, device=None if dev.type == "cuda" else dev)
     dry = read_counts()
     log("mesh", dryrun_shards=4, launches_A=dry["A_all"],
-        launches_B=dry["B"])
+        launches_B=dry["B"], launches_F=read_shading_counts()["F"],
+        halo_check_launches_F=halo_launches)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 1
     log("mesh", cards=cards,
         note="the frame over distinct cards runs where there are several")
@@ -1088,8 +1131,11 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
                                  f"the card, got {on_card}")
         moved = (image - first).abs().mean().item()
         # one more frame, its launches against their plain versions
+        post = post_launches(rt.denoiser, rt.internal_resolution,
+                             rt.output_resolution)
         _, e, rows, _ = check_frame_launches(f"config {number}",
-                                             rt.render_op_by_op, per, levels)
+                                             rt.render_op_by_op, per, levels,
+                                             posts=post)
         err = max(err, e)
         log(f"config {number}", frame_launches=json.dumps(
             rows, separators=(",", ":")))
@@ -1108,7 +1154,8 @@ def baseline_configs(dev, scene, scale=1.0, frames=None):
         # engine also renders from the pose that looks at the block.
         configs.look_at_emissive_block(rt)
         _, e, rows, _ = check_frame_launches(
-            "config 4, the block in view", rt.render_op_by_op, per, levels)
+            "config 4, the block in view", rt.render_op_by_op, per, levels,
+            posts=post)
         err = max(err, e)
         seen = [r["emissive"] for r in rows]
         log("config 4", pose="the block in view", frame_launches=json.dumps(
@@ -1344,9 +1391,9 @@ def headline_bench(dev, scale):
         raise AssertionError(f"unexpected bench launches {counts} over "
                              f"{made} captures")
     # kernel C: the pose frame's capture (twice), one pose op by op, the
-    # default frame's capture (twice); D and E: the default frame's
-    if shading != {"C": 2 + 1 + 2, "D": 2 * 3, "E": 2}:
-        raise AssertionError(f"unexpected bench launches of C, D and E "
+    # default frame's capture (twice); D, E and F: the default frame's
+    if shading != {"C": 2 + 1 + 2, "D": 2 * 3, "E": 2, "F": 2}:
+        raise AssertionError(f"unexpected bench launches of C, D, E and F "
                              f"{shading}")
     return counts
 
@@ -1367,6 +1414,7 @@ def entry_step(dev):
     got = fn(*args)
     torch.cuda.synchronize()
     counts = read_counts()
+    posted = read_shading_counts()["F"]
     plain_fn, plain_args = entry.entry("cpu")
     want = plain_fn(*plain_args)
     diff = (got.cpu() - want).abs().amax(-1)
@@ -1374,7 +1422,7 @@ def entry_step(dev):
         max_abs=float(diff.max()), mean_abs=float(diff.mean()),
         share_over_1e_3=float((diff > 1e-3).float().mean()),
         finite=bool(torch.isfinite(got).all()), launches_A=counts["A"],
-        launches_B=counts["B"])
+        launches_B=counts["B"], launches_F=posted)
     if (tuple(got.shape) != (48, 64, 3) or got.device.type != dev.type
             or not torch.isfinite(got).all()):
         raise AssertionError("the entry step's image has the wrong shape, "
@@ -1382,10 +1430,11 @@ def entry_step(dev):
     if not diff.max() < 1e-5:
         raise AssertionError("the entry step on the card differs from the "
                              "step on plain versions")
-    if counts != {"A": 4, "A_all": 4, "B": 2}:
-        raise AssertionError(f"expected 4 A and 2 B launches in the entry "
-                             f"step, got {counts}")
-    _, err, _, _ = check_frame_launches("entry", lambda: fn(*args), 4, 2)
+    if counts != {"A": 4, "A_all": 4, "B": 2} or posted != 1:
+        raise AssertionError(f"expected 4 A, 2 B and 1 F launches in the "
+                             f"entry step, got {counts} and {posted} F")
+    _, err, _, _ = check_frame_launches("entry", lambda: fn(*args), 4, 2,
+                                        posts=1)
     return dict(counts, max_abs_err=err)
 
 
@@ -1412,12 +1461,12 @@ def graph_pool_bytes(graph):
 
 
 def step_case(label, pair, routes, graph, between=lambda i: None,
-              htod_replay=1, per_frame=(6, 1, 3, 1)):
+              htod_replay=1, per_frame=(6, 1, 3, 1, 1)):
     """Phase 20, one case. `routes` = {"replay": ..., "op_by_op": ...}, one
     frame each; `pair()` gives (replayed, op-by-op) results of one frame
     from the same state; `graph()` the case's CUDAGraph; `between(i)` the
     host's work before frame i, outside the timings (moves); `per_frame`
-    the kernel A, C, D and E launches a frame. The first
+    the kernel A, C, D, E and F launches a frame. The first
     frame is the capture frame. Kernel launches are counted two
     ways: through the wrappers over the whole case (the capture frame's run
     and capture, and the op-by-op frames), and on the card from the traces
@@ -1477,7 +1526,7 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
         t = traced[name]
         out[name] = dict(
             launches_A=launches[name]["A_all"], launches_B=launches[name]["B"],
-            **{f"launches_{k}": launches[name][k] for k in "CDE"},
+            **{f"launches_{k}": launches[name][k] for k in "CDEF"},
             median_device_ms=dev_ms, median_wall_ms=wall_ms,
             device_busy_ms=t["busy_ms"], idle_share=1 - t["busy_ms"] / wall_ms,
             device_events=t["events"], kernels=t["kernels"],
@@ -1500,19 +1549,19 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
                              f"body")
     if made != 1:
         raise AssertionError(f"{label}: {made} captures, expected one")
-    # on the card, a replay runs every launch of kernels A to E (each
+    # on the card, a replay runs every launch of kernels A to F (each
     # build) that the body op by op runs
     if (launches["replay"] != launches["op_by_op"]
             or not launches["replay"]["A_all"] > 0 or not wrapped["A_all"] > 0):
         raise AssertionError(f"{label}: launches on the card differ between "
                              f"the routes or are missing: {launches}, "
                              f"{wrapped} through the wrappers")
-    # A, C, D and E a replayed frame, as the configuration sets them
+    # A, C, D, E and F a replayed frame, as the configuration sets them
     a_frame, *shading = per_frame
     got = launches["replay"]
     if got["A_all"] != a_frame or any(got[k] != want
-                                      for k, want in zip("CDE", shading)):
-        raise AssertionError(f"{label}: expected {shading} C, D and E "
+                                      for k, want in zip("CDEF", shading)):
+        raise AssertionError(f"{label}: expected {shading} C, D, E and F "
                              f"launches beside {a_frame} A a replayed "
                              f"frame, got {got}")
     if out["replay"]["htod_copies"] != htod_replay:
@@ -1537,11 +1586,27 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
 
     def engine_case(label, rt, between=lambda i: None):
         levels = int(rt.camera.d_camera.max_bounce)
+        post = post_launches(rt.denoiser, rt.internal_resolution,
+                             rt.output_resolution)
         cases[label] = step_case(
             label, lambda: both_routes(rt),
             {"replay": rt.render, "op_by_op": rt.render_op_by_op},
             lambda: rt.step().graphed.graph, between,
-            per_frame=(levels * frame_launches_per_level(rt), 1, levels, 1))
+            per_frame=(levels * frame_launches_per_level(rt), 1, levels, 1,
+                       post))
+        # one more frame op by op: its kernel F launch against the plain
+        # version
+        cap = {}
+        with capturing_posts(cap):
+            rt.render_op_by_op()
+        err, differ = check_posts(cap)
+        log("step", case=label, post_calls=len(cap["postprocess"]),
+            F_against_plain_max_abs_err=err,
+            differ=json.dumps(differ, separators=(",", ":")))
+        if differ:
+            raise AssertionError(f"{label}: kernel F differs from its plain "
+                                 f"version")
+        cases[label]["F_max_abs_err"] = err
 
     def move(rt):
         def between(i):
@@ -1588,7 +1653,7 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
         {"replay": lambda: frame(pose[0]), "op_by_op": op_by_op},
         lambda: frame.compiled.graph,
         lambda i: pose.__setitem__(0, vecs[i % len(vecs)]), htod_replay=0,
-        per_frame=(1, 1, 0, 0))
+        per_frame=(1, 1, 0, 0, 0))
     return cases
 
 
@@ -1875,7 +1940,7 @@ def shard_case(label, n, routes, unsharded, move, want_captures):
     """Phase 21d, one mesh: the capture call, then frames moved between
     calls, each as a replay, op by op and the unsharded replayed frame, bit
     for bit; ms of each in turns; a trace of the replays (busy ms, the idle
-    share on one shard, kernel A and B launches a step on the card) beside
+    share on one shard, kernel A, B and F launches a step on the card) beside
     the op-by-op step's launches through the wrappers (each a launch on the
     card)."""
     import torch
@@ -1911,16 +1976,18 @@ def shard_case(label, n, routes, unsharded, move, want_captures):
                 **idle_share(t["busy_ms"], wall_ms, n),
                 device_events=t["events"],
                 launches_A=t["launches"]["A_all"],
-                launches_B=t["launches"]["B"], htod_copies=t["htod"])
+                launches_B=t["launches"]["B"], launches_F=t["launches"]["F"],
+                htod_copies=t["htod"])
     out["op_by_op"].update(launches_A=wrapped["A_all"],
-                           launches_B=wrapped["B"])
+                           launches_B=wrapped["B"],
+                           launches_F=read_shading_counts()["F"])
     log("shards", case=label, shards=n, captures=made,
         bit_equal=out["bit_equal"], frames_compared=len(equal))
     for name in runs:
         log("shards", case=label, shards=n, route=name, **{
             k: (f"{v:.4f}" if isinstance(v, float) else v)
             for k, v in out[name].items()})
-    launches = {name: (out[name]["launches_A"], out[name]["launches_B"])
+    launches = {name: tuple(out[name][f"launches_{k}"] for k in "ABF")
                 for name in routes}
     if not out["bit_equal"]:
         raise AssertionError(f"{label} over {n} shards: a replay differs "
@@ -2124,8 +2191,68 @@ def replay_shading(kind, args, kw):
             {"pixels": shade.resolve_plain(*args, **kw)})
 
 
-def check_frame_launches(label, frame, want_a, want_b, renders=1):
-    """One call of `frame()` with its launches of kernels A to E captured
+# kernel F's wrappers that frames call (ops.denoise): the engine's step and
+# the sharded step's post-process call `postprocess`, the entry step
+# `denoise`; each launches kernel F at most once a call
+POSTS = ("postprocess", "denoise")
+
+
+def compare_post(got, want):
+    """(elements that differ, the largest difference, whether equal): kernel
+    F's image against its plain version's, bit for bit by int32 views with
+    NaN positions equal (a NaN's payload is the card's arithmetic's)."""
+    import torch
+
+    if got.shape != want.shape:
+        return max(got.numel(), want.numel()), float("inf"), False
+    nan = torch.isnan(got) & torch.isnan(want)
+    differs = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+    bad, err = int(differs.sum()), 0.0
+    if bad:
+        d = (got[differs] - want[differs]).abs()
+        err = float(torch.nan_to_num(d, nan=float("inf")).max())
+    return bad, err, bad == 0
+
+
+@contextlib.contextmanager
+def capturing_posts(store):
+    """The calls of kernel F's wrappers (`POSTS`) inside the block,
+    appended to store[name] as `capturing` does."""
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    with contextlib.ExitStack() as stack:
+        for name in POSTS:
+            stack.enter_context(capturing(denoise, name,
+                                          store.setdefault(name, [])))
+        yield
+
+
+def check_posts(cap):
+    """Each captured call of kernel F's wrappers replayed on its own inputs
+    against the wrapper's plain version (`<name>_plain`): (the largest
+    difference, [the calls that differ])."""
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    err, differ = 0.0, []
+    for name in POSTS:
+        for i, (args, kw) in enumerate(cap.get(name, [])):
+            bad, e, same = compare_post(
+                getattr(denoise, name)(*args, **kw),
+                getattr(denoise, f"{name}_plain")(*args, **kw))
+            err = max(err, e)
+            if not same:
+                differ.append({f"F {name} {i}": bad})
+    return err, differ
+
+
+def post_launches(denoiser, internal, output) -> int:
+    """Kernel F's launches a frame: one with the denoiser on or a resample
+    to another size, none where the traced rows are the output."""
+    return int(bool(denoiser.enabled) or tuple(internal) != tuple(output))
+
+
+def check_frame_launches(label, frame, want_a, want_b, renders=1, posts=0):
+    """One call of `frame()` with its launches of kernels A to F captured
     (an engine frame through `render_op_by_op`: a graph's replay calls no
     wrapper); each launch is then replayed on its own inputs, on its own
     device, and
@@ -2133,14 +2260,17 @@ def check_frame_launches(label, frame, want_a, want_b, renders=1):
     `torch.index_select`). `want_a` and `want_b` are the launches the frame
     must make; it makes one kernel D launch a level (as many as B) and one
     C and one E launch a `render_rows` call (`renders`: one a shard of a
-    sharded step). The replays move the launch counts: call it outside a
+    sharded step) and `posts` kernel F launches (one a denoised frame or
+    shard); each call of kernel F's wrappers is replayed against its plain
+    version too. The replays move the launch counts: call it outside a
     counted run. Returns (the frame, the largest difference found, one
     dict per kernel A launch, the captured kernel B inputs)."""
     import torch
 
-    from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
+    from zig_vulkan_tpu_torch.ops import (denoise, lookup, shade,
+                                          tile_tracer, trace)
 
-    cap_a, cap_b = [], []
+    cap_a, cap_b, cap_f = [], [], {}
     cap = {kind: [] for kind, _ in SHADING}
     with contextlib.ExitStack() as stack:
         stack.enter_context(capturing(tile_tracer, "grid_hit_tiles", cap_a,
@@ -2149,15 +2279,20 @@ def check_frame_launches(label, frame, want_a, want_b, renders=1):
                                       keep=(0,)))
         for kind, name in SHADING:
             stack.enter_context(capturing(shade, name, cap[kind]))
+        stack.enter_context(capturing_posts(cap_f))
+        f0 = denoise.postprocess.launches
         image = frame()
+        launched_f = denoise.postprocess.launches - f0
     want = {"C": renders, "D": want_b, "E": renders}
     if (len(cap_a) != want_a or len(cap_b) != want_b
-            or any(len(cap[k]) != v for k, v in want.items())):
+            or any(len(cap[k]) != v for k, v in want.items())
+            or launched_f != posts):
         raise AssertionError(
-            f"{label}: captured {len(cap_a)} A, {len(cap_b)} B and "
-            f"{ {k: len(v) for k, v in cap.items()} } launches, expected "
-            f"{want_a}, {want_b} and {want}")
-    err, rows, differ = 0.0, [], []
+            f"{label}: captured {len(cap_a)} A, {len(cap_b)} B, "
+            f"{ {k: len(v) for k, v in cap.items()} } and {launched_f} F "
+            f"launches, expected {want_a}, {want_b}, {want} and {posts}")
+    err, differ = check_posts(cap_f)
+    rows = []
     for kind, _ in SHADING:
         for i, (args, kw) in enumerate(cap[kind]):
             bad, e, same = compare_bits(*replay_shading(kind, args, kw))
@@ -2187,7 +2322,7 @@ def check_frame_launches(label, frame, want_a, want_b, renders=1):
                 and torch.equal(got, torch.index_select(mats, 1, idx))):
             differ.append({f"B launch {i}": int((got != plain).sum())})
     log(f"{label}: launches against plain", A=len(cap_a), B=len(cap_b),
-        **{k: len(v) for k, v in cap.items()},
+        **{k: len(v) for k, v in cap.items()}, F=launched_f,
         lanes_A=json.dumps(sorted({r["lanes"] for r in rows})),
         lanes_B=json.dumps(sorted({int(a[1].numel()) for a, _ in cap_b})),
         max_abs_err=err, differ=json.dumps(differ, separators=(",", ":")))
@@ -2199,11 +2334,19 @@ def check_frame_launches(label, frame, want_a, want_b, renders=1):
 
 TRACE_WARM_MARKS = 64      # marker kernels launched before a traced range
 MARK_CYCLES = 1000         # a marker kernel's spin, about half a microsecond
+TRACE_END_MARKS = 8        # longer marker kernels launched after it
+END_MARK_CYCLES = 20_000   # their spin: 10 us or more at 2 GHz or less
+END_MARK_MIN_US = 5.0      # a marker kernel at least this long is an end mark
+TRACE_HEAD_S = 0.05        # host seconds a trace is open before the card's
+TRACE_TAIL_S = 0.05        # work, and after it
+TRACE_TRIES = 3            # traces taken at most where one lost its markers
+trace_retries = 0          # traces taken again in this run (the done line)
 
 
-def _marks(n=1):
-    """Every card synchronized, `n` marker kernels (`torch.cuda._sleep`,
-    `spin_kernel` in a trace) on each, every card synchronized again."""
+def _marks(n=1, cycles=MARK_CYCLES):
+    """Every card synchronized, `n` marker kernels (`torch.cuda._sleep` of
+    `cycles`, `spin_kernel` in a trace) on each, every card synchronized
+    again."""
     import torch
 
     for d in range(torch.cuda.device_count()):
@@ -2211,7 +2354,7 @@ def _marks(n=1):
     for d in range(torch.cuda.device_count()):
         with torch.cuda.device(d):
             for _ in range(n):
-                torch.cuda._sleep(MARK_CYCLES)
+                torch.cuda._sleep(cycles)
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
 
@@ -2222,56 +2365,78 @@ def device_trace(fn, frames):
     call, "events": those intervals a call, "htod": host-to-device copies a
     call, "htod_pageable": those from pageable memory, "kernels": kernels a
     call, "copies": {copy or memset kind: count a call}, "launches": kernel
-    A to E launches a call (`card_counts`), "kernel_ms": the device ms a
-    call of kernels A to E and of every other kernel ("other")}.
+    A to F launches a call (`card_counts`), "kernel_ms": the device ms a
+    call of kernels A to F and of every other kernel ("other")}.
 
     A trace may lose its first device records and its device timestamps may
     sit earlier than the host's: filtered by the host's time, the pose
     frame's first traced call (two kernels and a copy) was lost in whole or
     in part. So one call and `TRACE_WARM_MARKS` marker kernels run first,
     outside the counted range, and the range is read on each card's own
-    clock, between the last marker kernel before the calls and the one
-    after them, every card synchronized on both sides. The intervals are
-    the card's own; the host runs slower under the profiler, so an idle
-    share is taken against wall time that was measured without it."""
+    clock, between the last marker kernel before the calls and the first
+    one after them, every card synchronized on both sides. A trace may
+    lose its last records too: so `TRACE_END_MARKS` longer marker kernels
+    follow the calls, told from the warm-up ones by their duration. On an
+    H100 about one trace in 200 of a replayed default frame lost every
+    record up to some point after its start: all of them (once, and once
+    in the ~45 traces of a whole run of this script) or its warm-up
+    markers (once). So the trace is open `TRACE_HEAD_S` before the card's
+    first work and `TRACE_TAIL_S` after its last, and a trace that lost a
+    card's markers is taken again, up to `TRACE_TRIES` times (counted in
+    `trace_retries`). The intervals are the card's own; the host runs
+    slower under the profiler, so an idle share is taken against wall time
+    that was measured without it."""
     import collections
 
     import torch
 
     from zig_vulkan_tpu_torch.utils import profiling
 
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace_session(tmp):
-            fn()
-            _marks(TRACE_WARM_MARKS)
-            for _ in range(frames):
-                fn()
-            _marks()
-        events = json.loads(Path(tmp, profiling.TRACE_FILE)
-                            .read_text())["traceEvents"]
-    on_card = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-
     def card(e):
         return e.get("args", {}).get("device", 0)
 
-    marks = collections.defaultdict(list)
-    for e in on_card:
-        if e["cat"] == "kernel" and "spin_kernel" in e["name"]:
-            marks[card(e)].append(e["ts"])
-    ranges = {}
-    for d, ts in marks.items():
-        if len(ts) < 2:
-            raise AssertionError(f"the trace lost the marker kernels of "
-                                 f"card {d}")
-        ts.sort()
-        ranges[d] = ts[-2], ts[-1]
+    global trace_retries
+    for attempt in range(TRACE_TRIES):
+        trace_retries += attempt > 0
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace_session(tmp):
+                time.sleep(TRACE_HEAD_S)
+                fn()
+                _marks(TRACE_WARM_MARKS)
+                for _ in range(frames):
+                    fn()
+                _marks(TRACE_END_MARKS, END_MARK_CYCLES)
+                time.sleep(TRACE_TAIL_S)
+            events = json.loads(Path(tmp, profiling.TRACE_FILE)
+                                .read_text())["traceEvents"]
+        on_card = [e for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        # each card's range: from its last warm-up marker to the first end
+        # marker after it
+        marks = collections.defaultdict(lambda: ([], []))
+        for e in on_card:
+            if e["cat"] == "kernel" and "spin_kernel" in e["name"]:
+                marks[card(e)][e["dur"] >= END_MARK_MIN_US].append(e["ts"])
+        ranges = {}
+        for d, (warm, end) in marks.items():
+            after = [t for t in end if warm and t > max(warm)]
+            if after:
+                ranges[d] = max(warm), min(after)
+        if marks and len(ranges) == len(marks):
+            break
+    else:
+        raise AssertionError(
+            f"{TRACE_TRIES} traces lost their marker kernels: "
+            f"{len(on_card)} records on the card, (warm-up, end) markers "
+            f"{ {d: tuple(map(len, m)) for d, m in marks.items()} }")
     dev = [e for e in on_card
            if "spin_kernel" not in e["name"] and card(e) in ranges
            and ranges[card(e)][0] < e["ts"] < ranges[card(e)][1]]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
     if not spans:
-        raise AssertionError("the trace shows no activity on the card")
+        raise AssertionError(f"the trace shows no activity on the card "
+                             f"between its markers ({len(on_card)} records "
+                             f"on the card in all)")
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -2313,14 +2478,17 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
     shading), each launch bit for bit against its plain version, its time
     warm and after an L2 flush (kernel D's on its inputs restored before
     each call: it updates the ray state in place) and its plain version's.
-    Each launch's bound. Returns {"A": [...], ..., "E": [...]}, one dict
-    per launch."""
+    Each launch's bound. For F (the post-process), the frame's launch, and
+    on the same image the resampling denoiser and the resample alone to
+    5/4 of its size (the latter beside `grid_sample`): each bit for bit
+    against its plain version, warm and L2-flushed times, plain time,
+    bound. Returns {"A": [...], ..., "F": [...]}, one dict per launch."""
     import torch
 
     from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
     from zig_vulkan_tpu_torch.utils import roofline
 
-    cap_a, cap_b = [], []
+    cap_a, cap_b, cap_f = [], [], {}
     cap = {kind: [] for kind, _ in SHADING}
     with contextlib.ExitStack() as stack:
         stack.enter_context(capturing(tile_tracer, "grid_hit_tiles", cap_a,
@@ -2329,18 +2497,22 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
                                       keep=(0,)))
         for kind, name in SHADING:
             stack.enter_context(capturing(shade, name, cap[kind]))
+        stack.enter_context(capturing_posts(cap_f))
         rt.render_op_by_op()
     levels = int(rt.camera.d_camera.max_bounce)
     per = frame_launches_per_level(rt)
     if (len(cap_a) != levels * per or len(cap_b) != levels
-            or [len(cap[k]) for k, _ in SHADING] != [1, levels, 1]):
-        raise AssertionError(f"captured {len(cap_a)} A, {len(cap_b)} B and "
+            or [len(cap[k]) for k, _ in SHADING] != [1, levels, 1]
+            or len(cap_f["postprocess"]) != 1):
+        raise AssertionError(f"captured {len(cap_a)} A, {len(cap_b)} B, "
                              f"{[len(v) for v in cap.values()]} C, D, E "
-                             f"launches of one frame")
+                             f"and {len(cap_f['postprocess'])} F launches "
+                             f"of one frame")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                         device=rt.device)
     keys = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
-    rows = {"A": [], "B": [], **{kind: [] for kind, _ in SHADING}}
+    rows = {"A": [], "B": [], **{kind: [] for kind, _ in SHADING},
+            "F": post_kernels(*cap_f["postprocess"][0][0], flush)}
     for kind, name in SHADING:
         for i, (args, kw) in enumerate(cap[kind]):
             got, want = replay_shading(kind, args, kw)
@@ -2485,6 +2657,80 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows["B"].append(row)
         log("frame B", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                          for k, v in row.items()})
+    return rows
+
+
+def post_kernels(img, config, out_h, out_w, flush):
+    """Phase 6b's kernel F rows: the frame's post-process of `img` at
+    (`config`, out_h, out_w), then the denoiser and the resample alone to
+    5/4 of the image's size, each launch bit for bit against its plain
+    version, its device time warm and after an L2 flush, its plain
+    version's, its bound; for the resample alone also
+    `torch.nn.functional.grid_sample`'s time on the same image (bilinear,
+    border padding, align_corners=False: the same sampling up to the
+    rounding of its coordinates), a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as tf
+
+    from zig_vulkan_tpu_torch.config import DenoiserConfig
+    from zig_vulkan_tpu_torch.ops import denoise
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    ih, iw = int(img.shape[0]), int(img.shape[1])
+    up = (ih * 5 // 4, iw * 5 // 4)
+    rows = []
+    for what, dn, (oh, ow) in (
+            ("frame", config, (out_h, out_w)),
+            ("resampling denoiser", DenoiserConfig(**{
+                **dataclasses.asdict(config), "enabled": True}), up),
+            ("resample alone", DenoiserConfig(enabled=False), up)):
+        def run(dn=dn, oh=oh, ow=ow):
+            return denoise.postprocess(img, dn, oh, ow)
+
+        def run_plain(dn=dn, oh=oh, ow=ow):
+            return denoise.postprocess_plain(img, dn, oh, ow)
+
+        got = run()
+        bad, err, same = compare_post(got, run_plain())
+        if not same:
+            raise AssertionError(f"kernel F ({what}) differs from its plain "
+                                 f"version in {bad} values")
+        if not dn.enabled:
+            mode, taps = denoise.RESAMPLE_ONLY, 0
+        else:
+            mode = denoise.SHIFTED if (oh, ow) == (ih, iw) else denoise.RESAMPLE
+            taps = len(denoise.spiral_taps(int(dn.samples))["x0"])
+        bound, by = roofline.denoise_bound_ms(ih * iw, oh * ow, taps, mode)
+        row = dict(launch=f"F {what}", image=f"{iw}x{ih}", out=f"{ow}x{oh}",
+                   mode=mode, taps=taps, max_abs_err=err,
+                   ms=device_ms(run, FRAME_REPS),
+                   ms_l2_flushed=device_ms(run, FRAME_REPS, flush),
+                   plain_ms=device_ms(run_plain, 3), bound_ms=bound,
+                   bound_by=by)
+        if not dn.enabled:
+            nchw = img.permute(2, 0, 1)[None].contiguous()
+            gx, gy = ((torch.arange(n, dtype=torch.float32, device=img.device)
+                       + 0.5) / n * 2.0 - 1.0 for n in (ow, oh))
+            yy, xx = torch.meshgrid(gy, gx, indexing="ij")
+            grid = torch.stack([xx, yy], -1)[None].contiguous()
+
+            def library(nchw=nchw, grid=grid):
+                return tf.grid_sample(nchw, grid, mode="bilinear",
+                                      padding_mode="border",
+                                      align_corners=False)
+
+            diff = float((library()[0].permute(1, 2, 0) - got).abs().max())
+            if not diff < 1e-4:
+                raise AssertionError(f"grid_sample differs from the resample "
+                                     f"by {diff}")
+            row.update(library_ms=device_ms(library, FRAME_REPS),
+                       library_ms_l2_flushed=device_ms(library, FRAME_REPS,
+                                                       flush),
+                       library_max_abs_diff=diff)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log("frame F", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
                           for k, v in row.items()})
     return rows
 
@@ -3028,7 +3274,8 @@ def ptxas_summary(text):
                     else "B" if "lookup_kernel" in m[1]
                     else "C" if "camera_rays_kernel" in m[1]
                     else "D" if "shade_kernel" in m[1]
-                    else "E" if "resolve_kernel" in m[1] else m[1])
+                    else "E" if "resolve_kernel" in m[1]
+                    else "F" if "denoise_kernel" in m[1] else m[1])
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
@@ -3225,7 +3472,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 6. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # every kernel's count, A to E
+    reset_counts()  # every kernel's count, A to F
     c0 = captures()
     rt.draw()  # warm-up frame: the step's capture
 
@@ -3279,13 +3526,14 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     if (on_card["A"], on_card["A_all"], on_card["B"]) != (6, 6, 3):
         raise AssertionError(f"expected 6 A and 3 B launches a replayed "
                              f"frame on the card, got {on_card}")
-    # the shading kernels: one C and one E a frame, one D a level
-    if shading != {"C": 2, "D": 2 * 3, "E": 2}:
-        raise AssertionError(f"expected 1 C, 3 D and 1 E launches (its run "
-                             f"and its capture), got {shading}")
-    if tuple(on_card[k] for k in "CDE") != (1, 3, 1):
-        raise AssertionError(f"expected 1 C, 3 D and 1 E launches a replayed "
-                             f"frame on the card, got {on_card}")
+    # the shading kernels: one C and one E a frame, one D a level; the
+    # post-process: one F a frame
+    if shading != {"C": 2, "D": 2 * 3, "E": 2, "F": 2}:
+        raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches (its "
+                             f"run and its capture), got {shading}")
+    if tuple(on_card[k] for k in "CDEF") != (1, 3, 1, 1):
+        raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches a "
+                             f"replayed frame on the card, got {on_card}")
 
     # -- 6b. the frame's kernel launches, one by one --------------------------------
     t0 = time.perf_counter()
@@ -3382,7 +3630,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     widest = shards21[("default frame", max(MESH_SIZES))]
     shard_launches = {
         route: {k: widest[route][f"launches_{k}"] / max(MESH_SIZES)
-                for k in ("A", "B")} for route in ("replay", "op_by_op")}
+                for k in ("A", "B", "F")} for route in ("replay", "op_by_op")}
     # the default build's and kernel B's launches of phases 11, 15, 17, 18
     # and 19 (config 5's stand in rows of their own)
     later = {k: sum(c[k] for c in (fly_counts, mesh_counts, config_counts,
@@ -3491,11 +3739,43 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
             frame_launch_ms=[r["ms"] for r in frame_rows[kind]],
             frame_launch_bound_ms=[r["bound_ms"] for r in frame_rows[kind]],
             frame_launch_plain_ms=[r["plain_ms"] for r in frame_rows[kind]]))
+    # the post-process: its launches as the shading kernels' (and a shard's
+    # of the sharded step), the default frame's launch of phase 6b; no
+    # PyTorch call denoises, so `library_ms` is grid_sample's on the
+    # resample alone, with kernel F's own time in that mode beside it
+    frame_f, denoised_f, alone_f = frame_rows["F"]
+    kernels.append(dict(
+        name="postprocess (kernel F: the sirBird denoiser and the resample, "
+             "one launch a frame)", route="cuda",
+        source="zig_vulkan_tpu_torch/csrc/denoise.cu",
+        replaces="zig_vulkan_tpu/ops/denoise.py:167",
+        launches=shading["F"], launches_per_frame=on_card["F"],
+        launches_per_replayed_frame=default_step["replay"]["launches_F"],
+        launches_per_op_by_op_frame=default_step["op_by_op"]["launches_F"],
+        launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"]["F"],
+        launches_per_shard_of_a_sharded_replay=shard_launches["replay"]["F"],
+        launches_per_shard_of_a_sharded_op_by_op_frame=shard_launches[
+            "op_by_op"]["F"],
+        max_abs_err=max(r["max_abs_err"] for r in frame_rows["F"]),
+        ms=frame_f["ms"], ms_l2_flushed=frame_f["ms_l2_flushed"],
+        plain_ms=frame_f["plain_ms"], bound_ms=frame_f["bound_ms"],
+        bound_by=frame_f["bound_by"], image=frame_f["image"],
+        taps=frame_f["taps"], library_ms=alone_f["library_ms"],
+        library_ms_of=f"torch.nn.functional.grid_sample, the resample alone "
+                      f"{alone_f['image']} to {alone_f['out']}",
+        resample_alone_ms=alone_f["ms"],
+        resample_alone_bound_ms=alone_f["bound_ms"],
+        resample_alone_bound_by=alone_f["bound_by"],
+        resample_alone_plain_ms=alone_f["plain_ms"],
+        resampling_denoiser_ms=denoised_f["ms"],
+        resampling_denoiser_bound_ms=denoised_f["bound_ms"],
+        resampling_denoiser_plain_ms=denoised_f["plain_ms"]))
     for k in kernels:
         # no PyTorch call traces a DDA or computes the shading in one call
         k.setdefault("library_ms", None)
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
-    log("done", script_seconds=f"{time.perf_counter() - t_start:.2f}")
+    log("done", script_seconds=f"{time.perf_counter() - t_start:.2f}",
+        trace_retries=trace_retries)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

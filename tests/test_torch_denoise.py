@@ -1,6 +1,8 @@
 """Denoiser and resample of zig_vulkan_tpu_torch against the JAX package's.
 
-The port's `ops.denoise` is plain torch (the reference's is XLA, not
+On CPU tensors the port's `ops.denoise` wrappers run their plain torch
+twins (on the card they launch kernel F, which tests/test_torch_kernels.py
+holds against these twins bit for bit; the reference's filter is XLA, not
 Pallas). Same input, same knobs: the outputs agree within 1e-5 (the
 jitted reference contracts multiply-adds into FMAs and evaluates `pow`
 its own way); the golden image of tests/golden/denoiser_golden.npz is

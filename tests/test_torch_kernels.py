@@ -6,8 +6,9 @@ suite's conftest.py imports JAX). The tests marked
 `cuda` build csrc/*.cu with nvcc and compare kernel A (traversal; its
 default, shadow and stats builds), kernel B (material lookup) and kernels
 C, D and E (camera rays, shade, resolve: ops.shade) with their plain
-versions on the card, and the voxel edits on the card with the same
-edits on the CPU; where `torch.cuda.is_available()` is False they skip.
+versions on the card, kernel F (the post-process: ops.denoise) with its
+plain version on every mode, band and knob, and the voxel edits on the
+card with the same edits on the CPU; where `torch.cuda.is_available()` is False they skip.
 Kernel A's NO_SKIP builds (`use_skip=False`, the exact DDA) are held against
 their twin and against the port's numpy oracle. The build helpers are
 tested everywhere. The compiled steps (the frame, the edits, the sharded
@@ -22,7 +23,8 @@ import pytest
 import torch
 
 from zig_vulkan_tpu_torch import _build
-from zig_vulkan_tpu_torch.config import EngineConfig, TraceConfig
+from zig_vulkan_tpu_torch.config import (DenoiserConfig, EngineConfig,
+                                         TraceConfig)
 from zig_vulkan_tpu_torch.core import grid as grid_mod
 from zig_vulkan_tpu_torch.engine.engine import VoxelRT, both_routes
 from zig_vulkan_tpu_torch.models import scenes
@@ -34,7 +36,7 @@ from zig_vulkan_tpu_torch.core.materials import (
     MAT_NONE,
     MaterialTable,
 )
-from zig_vulkan_tpu_torch.ops import lookup, shade, tile_tracer, trace
+from zig_vulkan_tpu_torch.ops import denoise, lookup, shade, tile_tracer, trace
 from zig_vulkan_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -75,7 +77,8 @@ def test_library_named_by_sources_and_flags():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libzvt_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {
-        "traverse.cu", "lookup.cu", "camera.cu", "shade.cu", "resolve.cu"}
+        "traverse.cu", "lookup.cu", "camera.cu", "shade.cu", "resolve.cu",
+        "denoise.cu"}
     assert [p.name for p in _build._headers()] == ["shading.cuh"]
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -1241,3 +1244,237 @@ def test_replayed_step_runs_kernels_c_d_e(card, sun_in_kernel):
     replayed = _card_launches(rt.render, 2)
     assert (replayed["C"], replayed["D"], replayed["E"]) == (1, 3, 1)
     assert replayed["A"] == (3 if sun_in_kernel else 6)
+
+
+# -- kernel F: the post-process -----------------------------------------------------
+
+def _f_same(got, want):
+    """Bit for bit by int32 views, NaN positions equal (a NaN's payload is
+    whatever the card's arithmetic made of it)."""
+    if got.shape != want.shape:
+        return False
+    same = got.view(torch.int32) == want.view(torch.int32)
+    return bool((same | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _f_image(card, h, w, seed, kind="uniform"):
+    """An f32[h, w, 3] image made by numpy from `seed`: values in [0, 1),
+    or with zeros, NaN, inf, negatives and large HDR values sprinkled in
+    ("special"), or all zero ("zeros")."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 1.0, (h, w, 3)).astype(np.float32)
+    if kind == "zeros":
+        img[:] = 0.0
+    if kind == "special":
+        pick = rng.random((h, w))
+        img[pick < 0.05] = 0.0
+        img[(pick >= 0.05) & (pick < 0.07), 1] = np.nan
+        img[(pick >= 0.07) & (pick < 0.09), 0] = np.inf
+        img[(pick >= 0.09) & (pick < 0.15)] *= -1.0
+        img[(pick >= 0.15) & (pick < 0.25)] *= 1e4
+    return torch.from_numpy(img).to(card)
+
+
+def _f_out(mode, h, w):
+    """(output rows, columns, denoiser on) of a kernel F mode."""
+    if mode == "same":
+        return h, w, True
+    if mode == "down":
+        return max(1, h * 2 // 3), max(1, w * 2 // 3), True
+    return h + h // 4 + 1, w + w // 4 + 1, mode == "up"
+
+
+def _f_both(img, cfg, out_h, out_w, band=None):
+    """(kernel F's result, the plain version's, kernel F's launches)."""
+    want = denoise.postprocess_plain(img, cfg, out_h, out_w, band)
+    before = denoise.postprocess.launches
+    got = denoise.postprocess(img, cfg, out_h, out_w, band)
+    torch.cuda.synchronize()
+    return got, want, denoise.postprocess.launches - before
+
+
+_F_MODES = ("same", "up", "down", "resample_only")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (5, 7), (576, 1024), (1080, 1920)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", _F_MODES)
+def test_kernel_f_matches_plain(card, shape, mode):
+    """Kernel F against `postprocess_plain` on the card at the default
+    denoiser: the shifted path at equal size, the resampling path up and
+    down, and the resample alone; one launch each."""
+    h, w = shape
+    out_h, out_w, on = _f_out(mode, h, w)
+    img = _f_image(card, h, w, h + w)
+    got, want, launches = _f_both(img, DenoiserConfig(enabled=on), out_h,
+                                  out_w)
+    assert launches == 1
+    assert got.shape == (out_h, out_w, 3)
+    assert _f_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [1, 8, 20, 32])
+@pytest.mark.parametrize("masked", [False, True], ids=["static", "masked"])
+@pytest.mark.parametrize("mode", ["same", "up"])
+def test_kernel_f_samples(card, samples, masked, mode):
+    """Each spiral length, the static loop and the runtime `samples` over
+    the masked MAX_RUNTIME_SAMPLES spiral, bit for bit against the plain
+    version; the masked spiral equals the static loop."""
+    h, w = 97, 161
+    out_h, out_w, _ = _f_out(mode, h, w)
+    img = _f_image(card, h, w, samples)
+    kw = (dict(samples=float(samples), max_samples=32) if masked
+          else dict(samples=samples))
+    want = denoise.denoise_plain(img, out_shape=(out_h, out_w), **kw)
+    got = denoise.denoise(img, out_shape=(out_h, out_w), **kw)
+    torch.cuda.synchronize()
+    assert _f_same(got, want)
+    static = denoise.denoise(img, samples=samples, out_shape=(out_h, out_w))
+    assert torch.equal(got.view(torch.int32), static.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel_multiplier", [1.0, 1.5, 3.0])
+@pytest.mark.parametrize("mode", ["same", "up", "down"])
+def test_kernel_f_pixel_multiplier(card, pixel_multiplier, mode):
+    h, w = 120, 200
+    out_h, out_w, _ = _f_out(mode, h, w)
+    img = _f_image(card, h, w, 3)
+    cfg = DenoiserConfig(pixel_multiplier=pixel_multiplier)
+    got, want, launches = _f_both(img, cfg, out_h, out_w)
+    assert launches == 1 and _f_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", [0.0, 1.0, 0.5, -0.5, -1.0, 2.0, 3.0,
+                                      -2.0, 8.0, 20.0, 7.3])
+@pytest.mark.parametrize("kind", ["uniform", "special"])
+def test_kernel_f_hue_exponents(card, exponent, kind):
+    """`inverse_hue_tolerance` at each exponent ATen's pow treats apart (a
+    fill, a copy, sqrt, rsqrt, the reciprocal and the products) and at
+    powf's, bit for bit against the plain version."""
+    img = _f_image(card, 64, 96, 11, kind)
+    cfg = DenoiserConfig(inverse_hue_tolerance=exponent)
+    for out_h, out_w in ((64, 96), (80, 120)):
+        got, want, _ = _f_both(img, cfg, out_h, out_w)
+        assert _f_same(got, want), (out_h, out_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["special", "zeros"])
+@pytest.mark.parametrize("mode", _F_MODES)
+def test_kernel_f_special_values(card, kind, mode):
+    """Zeros (a centre of length 0), NaN, inf, negatives and large HDR
+    values: NaN in the same pixels, every other value bit for bit."""
+    h, w = 75, 133
+    out_h, out_w, on = _f_out(mode, h, w)
+    img = _f_image(card, h, w, 5, kind)
+    got, want, _ = _f_both(img, DenoiserConfig(enabled=on), out_h, out_w)
+    assert _f_same(got, want)
+    if kind == "special" and on:
+        assert bool(torch.isnan(got).any()) and bool(
+            torch.isfinite(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", _F_MODES)
+def test_kernel_f_bands(card, n, mode):
+    """Output rows in `n` bands, each from its slab of `band_input_rows`
+    (the halo included): each band equals its plain version and the rows
+    of the whole image's result, bit for bit."""
+    h, w = 144, 256
+    out_h, out_w, on = _f_out(mode, h, w)
+    cfg = DenoiserConfig(enabled=on)
+    img = _f_image(card, h, w, n)
+    whole = denoise.postprocess(img, cfg, out_h, out_w)
+    bands = []
+    for i in range(n):
+        r0, r1 = i * out_h // n, (i + 1) * out_h // n
+        a, b = denoise.band_input_rows(r0, r1, out_h, h, cfg)
+        band = denoise.Band(r0, r1, a, h)
+        got, want, launches = _f_both(img[a:b].clone(), cfg, out_h, out_w,
+                                      band)
+        assert launches == 1 and _f_same(got, want), i
+        bands.append(got)
+    assert torch.equal(torch.cat(bands).view(torch.int32),
+                       whole.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_kernel_f_refuses_what_it_does_not_take(card):
+    img = _f_image(card, 40, 64, 1)
+    cfg = DenoiserConfig()
+    with pytest.raises(ValueError, match="float32"):
+        denoise.postprocess(img.double(), cfg, 40, 64)
+    with pytest.raises(ValueError, match="float32"):
+        denoise.postprocess(torch.zeros(40, 64, 4, device=card), cfg, 40, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        denoise.postprocess(img.transpose(0, 1), cfg, 64, 40)
+    with pytest.raises(ValueError, match="no pixel"):
+        denoise.postprocess(torch.zeros(0, 64, 3, device=card), cfg, 40, 64)
+    with pytest.raises(ValueError, match="at most 33 taps"):
+        denoise.denoise(img, samples=40.0, max_samples=40)
+    # masked taps are not launched: 4 live taps of a 41-tap spiral
+    assert _f_same(denoise.denoise(img, samples=3.0, max_samples=40),
+                   denoise.denoise_plain(img, samples=3.0, max_samples=40))
+    # a band whose slab lacks the halo rows the spiral reads
+    a, b = denoise.band_input_rows(20, 30, 40, 40, cfg)
+    with pytest.raises(ValueError, match="read image rows"):
+        denoise.postprocess(img[20:30].clone(), cfg, 40, 64,
+                            band=denoise.Band(20, 30, 20, 40))
+    with pytest.raises(ValueError, match="output rows"):
+        denoise.postprocess(img[a:b].clone(), cfg, 40, 64,
+                            band=denoise.Band(20, 50, a, 40))
+    # a CPU tensor goes to the plain version, and launches nothing
+    before = denoise.postprocess.launches
+    cpu = denoise.postprocess(img.cpu(), cfg, 40, 64)
+    assert denoise.postprocess.launches == before
+    assert _f_same(cpu, denoise.postprocess_plain(img.cpu(), cfg, 40, 64))
+    # at the input's size the resample alone is the rows themselves
+    assert torch.equal(denoise.bilinear_resample(img, 40, 64), img)
+    assert denoise.postprocess.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_f_on_two_streams(card):
+    """Two images, each on its own stream: kernel F launches on the current
+    stream and equals its plain version."""
+    cfg = DenoiserConfig()
+    imgs = [_f_image(card, 300, 500, seed) for seed in (1, 2)]
+    want = [denoise.postprocess_plain(img, cfg, 300, 500) for img in imgs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, img in zip(streams, imgs):
+        with torch.cuda.stream(s):
+            got.append(denoise.postprocess(img, cfg, 300, 500))
+    torch.cuda.synchronize()
+    assert all(_f_same(g, w_) for g, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["resampling", "same size", "temporal"])
+def test_replayed_step_launches_kernel_f_once(card, case):
+    """The engine's denoised step (256x144 to 320x180, or at 256x144, or
+    with the temporal mean): each replay equals the body op by op bit for
+    bit; op by op a frame makes one kernel F launch through the wrapper,
+    and a trace of the card shows one a frame on both routes."""
+    rt = _step_engine(card, temporal=case == "temporal")
+    if case == "same size":
+        rt.set_resolutions(output=(256, 144))
+    rt.render()
+    for _ in range(2):
+        if case != "temporal":  # the temporal mean runs over a still pose
+            rt.camera.turn_yaw(0.05)
+        got, want = both_routes(rt)
+        assert torch.equal(got, want)
+    denoise.reset_launch_counts()
+    rt.render_op_by_op()
+    assert denoise.postprocess.launches == 1
+    rt.render()
+    assert denoise.postprocess.launches == 1
+    assert _card_launches(rt.render, 2)["F"] == 1
+    assert _card_launches(rt.render_op_by_op, 1)["F"] == 1

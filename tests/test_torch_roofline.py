@@ -130,3 +130,35 @@ def test_slowest_lanes_without_active_lanes():
     n_step = torch.ones(64, dtype=torch.int32)
     none = torch.zeros(64, dtype=torch.bool)
     assert not bool(roofline.slowest_lanes(n_step, none).any())
+
+
+def test_denoise_bound_of_the_default_frame():
+    """Kernel F on the default frame: 589,824 pixels, 21 taps of 98
+    operations (powf as 20) and 13 a pixel, 1.22 G operations (18.2 us at
+    67 TFLOP/s) against 14.2 MB read and written (4.2 us): bound by
+    operations."""
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    n = 1024 * 576
+    assert roofline.DENOISE_SAMPLE_OPS + roofline.DENOISE_TAP_OPS == 98
+    ops = roofline.denoise_ops(n, 21, denoise.SHIFTED)
+    assert ops == n * (21 * 98 + 13)
+    assert roofline.denoise_bytes(n, n) == n * 24
+    ms, by = roofline.denoise_bound_ms(n, n, 21, denoise.SHIFTED)
+    assert by == "operations" and math.isclose(ms, ops / 67e12 * 1e3)
+    assert 0.0182 < ms < 0.0183
+
+
+def test_denoise_resample_alone_is_bound_by_bytes():
+    """1024x576 to 1280x720 without the denoiser: 41 operations a pixel
+    (two coordinates and a sample) stay under 18.1 MB of pixels (5.4 us);
+    the resampling denoiser adds 12 operations a tap and the centre."""
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    n_in, n_out = 1024 * 576, 1280 * 720
+    ms, by = roofline.denoise_bound_ms(n_in, n_out, 0, denoise.RESAMPLE_ONLY)
+    assert by == "bytes"
+    assert math.isclose(ms, 12 * (n_in + n_out) / 3.35e12 * 1e3)
+    assert roofline.denoise_ops(n_out, 0, denoise.RESAMPLE_ONLY) == 41 * n_out
+    assert (roofline.denoise_ops(1, 21, denoise.RESAMPLE)
+            - roofline.denoise_ops(1, 21, denoise.SHIFTED)) == 21 * 12 + 41

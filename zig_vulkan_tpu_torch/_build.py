@@ -110,6 +110,24 @@ class ResolveArgs(ctypes.Structure):
     ]
 
 
+DENOISE_MAX_TAPS = 33  # csrc/denoise.cu: ops.denoise.MAX_RUNTIME_SAMPLES + 1
+
+
+class DenoiseArgs(ctypes.Structure):
+    """Mirror of `struct DenoiseArgs` in csrc/denoise.cu (kernel F)."""
+
+    _fields_ = _pointers("img", "out") + [
+        (name, ctypes.c_int) for name in (
+            "w_in", "height", "a", "w_out", "h_out", "r0", "r1", "mode",
+            "hue_pow", "n_taps")] + [
+        ("hue_exp", ctypes.c_float),
+        ("sat_exp", ctypes.c_float),
+        ("x0", ctypes.c_int * DENOISE_MAX_TAPS),
+        ("y0", ctypes.c_int * DENOISE_MAX_TAPS)] + [
+        (name, ctypes.c_float * DENOISE_MAX_TAPS) for name in (
+            "fx", "fy", "gx", "gy", "ou", "ov", "influence")]
+
+
 # C entry points: name -> argtypes; every one returns cudaGetLastError()
 _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
@@ -123,6 +141,7 @@ _SIGNATURES = {
     "zvt_camera_rays": [ctypes.POINTER(CameraArgs), _P],
     "zvt_shade": [ctypes.POINTER(ShadeArgs), _P],
     "zvt_resolve": [ctypes.POINTER(ResolveArgs), _P],
+    "zvt_denoise": [ctypes.POINTER(DenoiseArgs), _P],
 }
 
 _LIB = None

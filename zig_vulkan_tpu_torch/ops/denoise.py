@@ -8,8 +8,19 @@ blit from internal to output resolution (Pipeline.zig:103-127).
 The spiral's sample offsets are uniform across pixels (image.frag:47-53),
 so each tap is a uniformly shifted bilinear resample of the whole image:
 at equal input and output resolution a shift is four clamped row/column
-reorders and two lerps. Plain tensor operations; no kernel of the
-reference's is here (the JAX version is XLA, not Pallas).
+reorders and two lerps. The JAX package leaves the filter to XLA, which
+fuses it into the frame's program; here it is kernel F (csrc/denoise.cu),
+one launch for the whole post-process of an image: `denoise`,
+`bilinear_resample` and `postprocess` launch it for CUDA tensors. The
+spiral's taps depend only on the knobs and the sizes, so the wrapper
+computes them on the host (`spiral_taps`) and passes them by value with
+the launch. `postprocess.launches` counts kernel F's launches, whichever
+wrapper made them.
+
+Each wrapper runs its plain torch twin (`denoise_plain`,
+`bilinear_resample_plain`, `postprocess_plain`: the torch code the frame
+ran before) for CPU tensors, and only for those; the twins are what the
+kernel is held against on the card, bit for bit.
 
 Every function also works on a band of output rows from a slab of input
 rows (`Band`): the row-sharded step (parallel.mesh) denoises each shard's
@@ -21,11 +32,13 @@ pixel, so the bands equal the rows of the whole image's result bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import DenoiserConfig
 
 F32 = torch.float32
@@ -136,8 +149,8 @@ def _resample_taps(img, out_h: int, out_w: int, ox=None, oy=None,
                    fx[None, :, None], fy[:, None, None])
 
 
-def bilinear_resample(img, out_h: int, out_w: int, band: Band = None):
-    """Clamp-to-edge bilinear resample (the GraphicsPipeline blit analog)."""
+def bilinear_resample_plain(img, out_h: int, out_w: int, band: Band = None):
+    """The plain torch version of `bilinear_resample`."""
     w = img.shape[1]
     band = band or _whole(img, out_h)
     if (out_h, out_w) == (band.height, w):
@@ -179,11 +192,12 @@ def _length3(v):
                       + v[..., 2:3] * v[..., 2:3])
 
 
-def denoise(img, samples=20, distribution_bias=0.6,
-            pixel_multiplier: float = 1.5, inverse_hue_tolerance=20.0,
-            out_shape=None, max_samples: int | None = None,
-            band: Band = None):
-    """sirBirdDenoise (image.frag:31-71) on an f32[H, W, 3] image.
+def denoise_plain(img, samples=20, distribution_bias=0.6,
+                  pixel_multiplier: float = 1.5, inverse_hue_tolerance=20.0,
+                  out_shape=None, max_samples: int | None = None,
+                  band: Band = None):
+    """The plain torch version of `denoise`: sirBirdDenoise
+    (image.frag:31-71) on an f32[H, W, 3] image.
 
     If `out_shape` = (out_h, out_w) differs from the input, the filter
     samples the input as the reference's fragment shader does running at
@@ -228,7 +242,7 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
     sample_radius = np.sqrt(samples_f, dtype=np.float32)
     sample_true_radius = _F(0.5) / (sample_radius * sample_radius)
 
-    center = bilinear_resample(img, out_h, out_w, band)
+    center = bilinear_resample_plain(img, out_h, out_w, band)
     center_len = _length3(center)
     center_norm = center / torch.clamp(center_len, min=_F(1e-12).item())
 
@@ -266,17 +280,230 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
     return denoised / influence_sum
 
 
+def postprocess_plain(img, config: DenoiserConfig, out_h: int, out_w: int,
+                      band: Band = None):
+    """The plain torch version of `postprocess`."""
+    if config.enabled:
+        return denoise_plain(img, out_shape=(out_h, out_w), band=band,
+                             **_knobs(config))
+    return bilinear_resample_plain(img, out_h, out_w, band)
+
+
+def _knobs(config: DenoiserConfig) -> dict:
+    return dict(samples=int(config.samples),
+                distribution_bias=config.distribution_bias,
+                pixel_multiplier=config.pixel_multiplier,
+                inverse_hue_tolerance=config.inverse_hue_tolerance)
+
+
+# -- kernel F ------------------------------------------------------------------
+
+# kernel F's modes (csrc/denoise.cu)
+SHIFTED = 0        # the denoiser at equal input and output size
+RESAMPLE = 1       # the denoiser at another output size
+RESAMPLE_ONLY = 2  # the bilinear resample alone
+
+# the branches ATen's torch.pow(tensor, exponent) takes on CUDA
+# (csrc/denoise.cu's POW_*): exponents 0 and 1 (a fill and a copy), then
+# 0.5, -0.5 and -1 (sqrt, rsqrt, reciprocal), 2, 3 and -2 (products);
+# every other exponent goes to powf
+POW_POWF = 0
+_POW_BRANCHES = {0.0: 1, 1.0: 2, 0.5: 3, -0.5: 4, -1.0: 5, 2.0: 6, 3.0: 7,
+                 -2.0: 8}
+SAT_EXPONENT = 8.0  # sat = pow(max(1 - |tap_len - center_len|, 0), 8)
+
+_TAP_FIELDS = ("x0", "y0", "fx", "fy", "gx", "gy", "ou", "ov", "influence")
+
+
+def pow_branch(exponent) -> int:
+    """Kernel F's branch for `torch.pow(x, exponent)` on CUDA."""
+    return _POW_BRANCHES.get(float(exponent), POW_POWF)
+
+
+def _tap_count(samples, max_samples):
+    """(taps the spiral runs, `samples` as a float, whether taps past it
+    are masked), as `denoise` dispatches to `_sir_bird`."""
+    if max_samples is None and isinstance(samples, (int, np.integer)):
+        return int(samples) + 1, float(samples), False
+    return (int(max_samples or MAX_RUNTIME_SAMPLES) + 1, float(samples),
+            True)
+
+
+def spiral_taps(samples=20, distribution_bias=0.6,
+                pixel_multiplier: float = 1.5, width: int = 1,
+                height: int = 1, max_samples: int | None = None) -> dict:
+    """Kernel F's tap table: {field: numpy array, one entry a live tap in
+    spiral order}, the float32 scalars `_sir_bird` computes for the tap of
+    an image of `height` x `width` input pixels: the integer shifts `x0`,
+    `y0` and the fractions `fx`, `fy`, `gx` = 1 - fx, `gy` = 1 - fy of
+    `bilinear_sample_shifted`; the texture-coordinate offsets `ou` = ox /
+    width and `ov` = oy / height of `_resample_taps`; `influence`,
+    pixel_influence cubed. Masked taps (past `samples` with the runtime
+    path) are left out, as `_sir_bird` skips them."""
+    n_taps, samples_f, mask = _tap_count(samples, max_samples)
+    samples_f = _F(samples_f)
+    bias = _F(distribution_bias)
+    radius = np.sqrt(samples_f, dtype=np.float32)
+    true_radius = _F(0.5) / (radius * radius)
+    rows = []
+    for i, (ox, oy) in enumerate(spiral_offsets(n_taps - 1,
+                                                float(pixel_multiplier))):
+        ox, oy = _F(ox), _F(oy)
+        if mask and _F(i) > samples_f:
+            continue
+        radius2 = np.power(np.maximum(_F(ox * ox + oy * oy), _F(0.0)), bias,
+                           dtype=np.float32)
+        p = _F(1.0) - true_radius * radius2
+        x0, y0 = int(np.floor(float(ox))), int(np.floor(float(oy)))
+        fx, fy = _F(float(ox) - x0), _F(float(oy) - y0)
+        rows.append((x0, y0, fx, fy, _F(1.0) - fx, _F(1.0) - fy,
+                     ox / _F(width), oy / _F(height), p * p * p))
+    cols = list(zip(*rows)) or [()] * len(_TAP_FIELDS)
+    return {k: np.asarray(v, dtype=np.int32 if k in ("x0", "y0")
+                          else np.float32)
+            for k, v in zip(_TAP_FIELDS, cols)}
+
+
+def _neighbours(i: int, n_out: int, n_in: int, off=None):
+    """`_sample_coords`' clamped neighbours (i0, i1) of output pixel `i`,
+    in float32 on the host."""
+    u = (_F(i) + _F(0.5)) / _F(n_out)
+    if off is not None:
+        u = u + off
+    x0 = int(np.floor(u * _F(n_in) - _F(0.5)))
+    return min(max(x0, 0), n_in - 1), min(max(x0 + 1, 0), n_in - 1)
+
+
+def rows_read(taps, mode: int, r0: int, r1: int, out_h: int, height: int):
+    """The image rows [lo, hi) kernel F reads for output rows [r0, r1):
+    the rows of `band_input_rows` that this launch's taps select."""
+    if mode == SHIFTED:
+        lo, hi = r0, r1
+        for y0 in taps["y0"]:
+            lo = min(lo, min(max(r0 + int(y0), 0), height - 1))
+            hi = max(hi, min(max(r1 + int(y0), 0), height - 1) + 1)
+        return lo, hi
+    offsets = [None] + (list(taps["ov"]) if mode == RESAMPLE else [])
+    lo = min(_neighbours(r0, out_h, height, off)[0] for off in offsets)
+    hi = max(_neighbours(r1 - 1, out_h, height, off)[1] for off in offsets)
+    return lo, hi + 1
+
+
+def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
+            hue_exp: float = 0.0):
+    """Kernel F on the CUDA tensor `img`: the denoiser with the tap table
+    `taps` (`spiral_taps`), or the resample alone without it."""
+    dev = img.device
+    if dev.type != "cuda":
+        raise ValueError(f"postprocess: unsupported device {dev}")
+    if img.dtype != F32 or img.dim() != 3 or img.shape[2] != 3:
+        raise ValueError(f"postprocess: the image must be float32[H, W, 3], "
+                         f"got {img.dtype}{list(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError("postprocess: the image must be contiguous")
+    rows_in, w = int(img.shape[0]), int(img.shape[1])
+    band = band or _whole(img, out_h)
+    h = int(band.height)
+    if taps is None:
+        mode = RESAMPLE_ONLY
+    else:
+        mode = SHIFTED if (out_h, out_w) == (h, w) else RESAMPLE
+    n_taps = 0 if taps is None else len(taps["x0"])
+    if n_taps > _build.DENOISE_MAX_TAPS:
+        raise ValueError(f"postprocess: kernel F takes at most "
+                         f"{_build.DENOISE_MAX_TAPS} taps, got {n_taps}")
+    if not (0 <= band.r0 <= band.r1 <= out_h and 0 <= band.a
+            and band.a + rows_in <= h):
+        raise ValueError(f"postprocess: output rows [{band.r0}, {band.r1}) "
+                         f"of {out_h}, slab rows [{band.a}, "
+                         f"{band.a + rows_in}) of {h}")
+    if max(rows_in * w, out_h * out_w) >= 2**31:
+        raise ValueError("postprocess: kernel F takes fewer than 2^31 pixels")
+    out = torch.empty((band.r1 - band.r0, out_w, 3), dtype=F32, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    if rows_in * w == 0:
+        raise ValueError("postprocess: the image has no pixel to sample")
+    lo, hi = rows_read(taps, mode, band.r0, band.r1, out_h, h)
+    if lo < band.a or hi > band.a + rows_in:
+        raise ValueError(f"postprocess: output rows [{band.r0}, {band.r1}) "
+                         f"read image rows [{lo}, {hi}), the slab holds "
+                         f"[{band.a}, {band.a + rows_in})")
+    a = _build.DenoiseArgs()
+    a.img, a.out = img.data_ptr(), out.data_ptr()
+    a.w_in, a.height, a.a = w, h, band.a
+    a.w_out, a.h_out, a.r0, a.r1 = out_w, out_h, band.r0, band.r1
+    a.mode, a.n_taps = mode, n_taps
+    a.hue_pow, a.hue_exp = pow_branch(hue_exp), hue_exp
+    a.sat_exp = SAT_EXPONENT
+    if n_taps:
+        for k in _TAP_FIELDS:
+            getattr(a, k)[:n_taps] = taps[k].tolist()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.zvt_denoise(ctypes.byref(a), stream)
+    _build.check(status, "zvt_denoise")
+    postprocess.launches += 1
+    return out
+
+
+def _denoise(img, samples, distribution_bias, pixel_multiplier,
+             inverse_hue_tolerance, out_shape, max_samples, band):
+    w = img.shape[1]
+    h = img.shape[0] if band is None else band.height
+    out_h, out_w = out_shape if out_shape is not None else (h, w)
+    taps = spiral_taps(samples, distribution_bias, pixel_multiplier, w, h,
+                       max_samples)
+    return _launch(img, int(out_h), int(out_w), band, taps,
+                   float(_F(inverse_hue_tolerance)))
+
+
+def _resample(img, out_h, out_w, band):
+    band = band or _whole(img, out_h)
+    if (out_h, out_w) == (band.height, img.shape[1]):
+        return img[band.r0 - band.a:band.r1 - band.a]  # the rows themselves
+    return _launch(img, int(out_h), int(out_w), band)
+
+
+def denoise(img, samples=20, distribution_bias=0.6,
+            pixel_multiplier: float = 1.5, inverse_hue_tolerance=20.0,
+            out_shape=None, max_samples: int | None = None,
+            band: Band = None):
+    """sirBirdDenoise (image.frag:31-71) on an f32[H, W, 3] image: kernel F
+    on a CUDA tensor, `denoise_plain` on a CPU one (see it for the
+    arguments)."""
+    if img.device.type == "cpu":
+        return denoise_plain(img, samples, distribution_bias,
+                             pixel_multiplier, inverse_hue_tolerance,
+                             out_shape, max_samples, band)
+    return _denoise(img, samples, distribution_bias, pixel_multiplier,
+                    inverse_hue_tolerance, out_shape, max_samples, band)
+
+
+def bilinear_resample(img, out_h: int, out_w: int, band: Band = None):
+    """Clamp-to-edge bilinear resample (the GraphicsPipeline blit analog):
+    kernel F on a CUDA tensor; at the input's size the rows themselves."""
+    if img.device.type == "cpu":
+        return bilinear_resample_plain(img, out_h, out_w, band)
+    return _resample(img, out_h, out_w, band)
+
+
 def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int,
                 band: Band = None):
-    """The full presentation pass: denoise (if enabled) + resample. With
-    `band`, `img` is the band's slab and the result the band's rows."""
+    """The full presentation pass: denoise (if enabled) + resample, one
+    launch of kernel F on a CUDA tensor. With `band`, `img` is the band's
+    slab and the result the band's rows."""
+    if img.device.type == "cpu":
+        return postprocess_plain(img, config, out_h, out_w, band)
     if config.enabled:
-        return denoise(
-            img,
-            samples=int(config.samples),
-            distribution_bias=config.distribution_bias,
-            pixel_multiplier=config.pixel_multiplier,
-            inverse_hue_tolerance=config.inverse_hue_tolerance,
-            out_shape=(out_h, out_w), band=band,
-        )
-    return bilinear_resample(img, out_h, out_w, band)
+        return _denoise(img, out_shape=(out_h, out_w), max_samples=None,
+                        band=band, **_knobs(config))
+    return _resample(img, out_h, out_w, band)
+
+
+postprocess.launches = 0  # kernel F's launches, through any wrapper
+
+
+def reset_launch_counts() -> None:
+    postprocess.launches = 0

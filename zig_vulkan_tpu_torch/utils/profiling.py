@@ -70,17 +70,18 @@ _TRAVERSE = re.compile(
     r"(?:true|false)>|ILb([01])ELb([01])ELb([01])ELb[01]E)")
 
 
-# the symbols of kernels B to E (csrc/lookup.cu, camera.cu, shade.cu,
-# resolve.cu)
+# the symbols of kernels B to F (csrc/lookup.cu, camera.cu, shade.cu,
+# resolve.cu, denoise.cu)
 _KERNELS = (("lookup_kernel", "B"), ("camera_rays_kernel", "C"),
-            ("shade_kernel", "D"), ("resolve_kernel", "E"))
+            ("shade_kernel", "D"), ("resolve_kernel", "E"),
+            ("denoise_kernel", "F"))
 
 
 def kernel_launches(names) -> dict:
     """Launches of the port's kernels among `names`, the names of the
     kernels a trace shows on the card: kernel A per build (the build names
-    of `ops.tile_tracer`) and in all ("A"), kernels B to E ("B", "C", "D",
-    "E"). A CUDA graph's replay runs its kernels without calling their
+    of `ops.tile_tracer`) and in all ("A"), kernels B to F ("B", "C", "D",
+    "E", "F"). A CUDA graph's replay runs its kernels without calling their
     wrappers, so their launch counters miss them; a trace of the card
     counts them."""
     from ..ops.tile_tracer import _BUILDS
@@ -97,7 +98,7 @@ def kernel_launches(names) -> dict:
 
 
 def kernel_kind(name: str):
-    """(the port's kernel, "A" to "E", or None; kernel A's build or None)
+    """(the port's kernel, "A" to "F", or None; kernel A's build or None)
     of a kernel name a trace shows on the card."""
     from ..ops.tile_tracer import _build_name
 

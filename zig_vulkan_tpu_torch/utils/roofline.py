@@ -32,6 +32,11 @@ hashes, square roots and selects (`CAMERA_OPS`, `SHADE_OPS`,
 `RESOLVE_OPS_PER_SAMPLE`), leaving out index arithmetic; both counts are
 low, never high.
 
+Kernel F (csrc/denoise.cu) reads its input slab and writes its output
+rows, 12 bytes a pixel each; its operations are counted from the source by
+hand a tap and a pixel (`denoise_ops`), with `POWF_OPS` standing for each
+call of powf, an estimate.
+
 `warp_use_share` measures divergence from a stats build's `n_step`: the
 share of lane-iterations that do work when lanes 32w..32w+31 run together
 as warp w until the longest of them is done. `slowest_lanes` picks the rays
@@ -211,6 +216,54 @@ def resolve_bound_ms(n: int, pixels: int, pending: bool = False):
     return bound_ms(resolve_bytes(n, pixels, pending),
                     n * RESOLVE_OPS_PER_SAMPLE
                     + pixels * RESOLVE_OPS_PER_PIXEL)
+
+
+# kernel F, counted by hand from csrc/denoise.cu: a bilinear sample 9 a
+# channel (four products, two sums, the lerp of the rows); a tap's length
+# (3 squares, 2 adds, the root), its normal (the clamp, 3 divisions), the
+# dot product (5), the hue's base and clamp (3), the saturation's
+# difference, absolute value, complement and clamp (4), the influence (2),
+# the two running sums (1 + 3 products + 3 adds); each powf as POWF_OPS, an
+# estimate of its log2 polynomial, product and exp2 (the CUDA math
+# library's, not counted from the compiled code); a coordinate on one axis
+# of the resampling path (the offset or the half and the division, the
+# scale, the half pixel, floor, the fraction and its complement: 6, 7 for
+# the centre's); a pixel's centre length and normal (10) and the final
+# divisions (3)
+POWF_OPS = 20
+DENOISE_SAMPLE_OPS = 27
+DENOISE_TAP_OPS = 31 + 2 * POWF_OPS
+DENOISE_COORD_OPS = 6
+DENOISE_CENTRE_COORD_OPS = 7
+DENOISE_PIXEL_OPS = 13
+PIXEL_BYTES = 3 * 4
+
+
+def denoise_ops(pixels: int, taps: int, mode: int) -> int:
+    """Float operations of one kernel F launch over `pixels` output pixels
+    with `taps` live taps, in `ops.denoise`'s `mode`."""
+    from ..ops import denoise
+
+    centre = 2 * DENOISE_CENTRE_COORD_OPS + DENOISE_SAMPLE_OPS
+    if mode == denoise.RESAMPLE_ONLY:
+        return pixels * centre
+    tap = DENOISE_SAMPLE_OPS + DENOISE_TAP_OPS
+    per = DENOISE_PIXEL_OPS
+    if mode == denoise.RESAMPLE:
+        tap += 2 * DENOISE_COORD_OPS
+        per += centre
+    return pixels * (taps * tap + per)
+
+
+def denoise_bytes(in_pixels: int, out_pixels: int) -> int:
+    """Bytes of one kernel F launch: the slab's pixels read, the output
+    rows' written."""
+    return PIXEL_BYTES * (in_pixels + out_pixels)
+
+
+def denoise_bound_ms(in_pixels: int, out_pixels: int, taps: int, mode: int):
+    return bound_ms(denoise_bytes(in_pixels, out_pixels),
+                    denoise_ops(out_pixels, taps, mode))
 
 
 def warp_use_share(n_step) -> float:
