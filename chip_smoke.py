@@ -24,7 +24,9 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    of two) on the primary and keyed rays, bit for bit;
 4. kernel B (material lookup) against its plain torch version;
 5. golden parity: the 48x48 flat-scene renders of
-   tests/golden/flat_scene_renders.npz rendered on the card;
+   tests/golden/flat_scene_renders.npz rendered on the card, and the
+   96x54 primary-with-sun view of the default scene against
+   tests/golden/default_scene_render.npz at tests/test_golden.py's bound;
 6. the main path: `VoxelRT(...).draw()` at the default EngineConfig
    (1024x576, 2 spp, max_bounce 2, sun, denoiser) on the default scene,
    with the kernels' launch counts through the wrappers (6 A, 3 B, 1 C,
@@ -40,7 +42,10 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    (kernel D's inputs restored before each call: it updates the ray state
    in place); kernel F also on the frame's image to 5/4 of its size, with
    the denoiser and as the resample alone, the latter beside
-   `torch.nn.functional.grid_sample`'s time;
+   `torch.nn.functional.grid_sample`'s time, each F row with the build
+   the host chose (`ops.denoise.launch_plan`), its tile, halo, threads a
+   block, shared bytes, registers and the warps an SM holds of it (asked
+   of the CUDA runtime);
 7. headline analogue: 1920x1080 primary rays through kernel A over the
    fly-through path's points (three passes), in Mray/s;
 8. the edit fly-through (BASELINE config 3, benchmarks/configs.py:117-148,
@@ -167,7 +172,8 @@ The line before the last is a JSON object with one entry per kernel build
 and per shading kernel and one for kernel F (its launches through the
 wrapper in this run, launches a replayed frame on the card, time, plain
 time, bound, share of the bound and, for kernel B, `index_select`'s time,
-for kernel F `grid_sample`'s on the resample alone); the last line is
+for kernel F `grid_sample`'s on the resample alone, its launches by build
+and its design); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -187,6 +193,11 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+
+# kernel F's design
+F_DESIGN = ("builds by mode and hue branch chosen on the host; shifted "
+            "denoiser: a shared-memory tile with its halo a block, "
+            "clamped at load; one output pixel a thread")
 
 FRAMES = 10
 HEADLINE_POSES = 10
@@ -1629,7 +1640,7 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
     tables = VoxelRT(scene.grid, scene.materials, cfg, device=dev).tables()
     st = scene.grid.static
     w, h = configs.scaled_size(scale, 1920, 1080)
-    arrays = scene.grid.arrays.to_device(dev)
+    arrays = scene.grid.device_arrays(dev)
     frame = bench.PoseFrame(st, tables, arrays.material_indices, w, h)
     cam = Camera(75.0, w, h, CameraConfig(origin=(0.0, 0.0, 0.0)))
     vecs = []
@@ -2673,12 +2684,14 @@ def post_kernels(img, config, out_h, out_w, flush):
     import torch
     import torch.nn.functional as tf
 
+    from zig_vulkan_tpu_torch import _build
     from zig_vulkan_tpu_torch.config import DenoiserConfig
     from zig_vulkan_tpu_torch.ops import denoise
     from zig_vulkan_tpu_torch.utils import roofline
 
     ih, iw = int(img.shape[0]), int(img.shape[1])
     up = (ih * 5 // 4, iw * 5 // 4)
+    ptxas = ptxas_summary(_build.build_log)
     rows = []
     for what, dn, (oh, ow) in (
             ("frame", config, (out_h, out_w)),
@@ -2691,19 +2704,39 @@ def post_kernels(img, config, out_h, out_w, flush):
         def run_plain(dn=dn, oh=oh, ow=ow):
             return denoise.postprocess_plain(img, dn, oh, ow)
 
+        before = dict(denoise.postprocess.build_launches)
         got = run()
+        ran = [k for k, v in denoise.postprocess.build_launches.items()
+               if v != before[k]]
         bad, err, same = compare_post(got, run_plain())
         if not same:
             raise AssertionError(f"kernel F ({what}) differs from its plain "
                                  f"version in {bad} values")
         if not dn.enabled:
-            mode, taps = denoise.RESAMPLE_ONLY, 0
+            mode, table, branch = denoise.RESAMPLE_ONLY, None, None
         else:
             mode = denoise.SHIFTED if (oh, ow) == (ih, iw) else denoise.RESAMPLE
-            taps = len(denoise.spiral_taps(int(dn.samples))["x0"])
+            table = denoise.spiral_taps(int(dn.samples), dn.distribution_bias,
+                                        dn.pixel_multiplier, iw, ih)
+            branch = denoise.pow_branch(float(np.float32(
+                dn.inverse_hue_tolerance)))
+        taps = 0 if table is None else len(table["x0"])
+        plan = denoise.launch_plan(table, mode)
+        if ran != [plan.build]:
+            raise AssertionError(f"kernel F ({what}) launched {ran}, its "
+                                 f"plan {plan.build}")
+        regs = ptxas.get(f"F {plan.build}" if branch is None
+                         else f"F {plan.build} pow{branch}", {})
         bound, by = roofline.denoise_bound_ms(ih * iw, oh * ow, taps, mode)
         row = dict(launch=f"F {what}", image=f"{iw}x{ih}", out=f"{ow}x{oh}",
-                   mode=mode, taps=taps, max_abs_err=err,
+                   mode=mode, taps=taps, build=plan.build,
+                   tile=list(plan.tile), halo=list(plan.halo),
+                   block_threads=[denoise.TILE_W, plan.block_rows],
+                   smem_bytes=plan.smem_bytes,
+                   registers=regs.get("registers"),
+                   spill_stores=regs.get("spill_stores"),
+                   warps_per_sm=f_warps_per_sm(plan, mode, branch),
+                   max_abs_err=err,
                    ms=device_ms(run, FRAME_REPS),
                    ms_l2_flushed=device_ms(run, FRAME_REPS, flush),
                    plain_ms=device_ms(run_plain, 3), bound_ms=bound,
@@ -2733,6 +2766,43 @@ def post_kernels(img, config, out_h, out_w, flush):
         log("frame F", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
                           for k, v in row.items()})
     return rows
+
+
+def default_golden(dev, scene):
+    """Phase 5's last row: the 96x54 primary-with-sun view of the default
+    scene (`scene`) rendered on the card (`ops.trace.render_image`) against
+    tests/golden/default_scene_render.npz["primary_sun"], at
+    tests/test_golden.py's bound: under 1% of pixels off by more than 1e-3
+    in a channel. A scene of other dimensions (a rehearsal's) is logged and
+    not compared."""
+    from zig_vulkan_tpu_torch.config import CameraConfig, SunConfig
+    from zig_vulkan_tpu_torch.core.camera import Camera
+    from zig_vulkan_tpu_torch.core.sun import Sun
+    from zig_vulkan_tpu_torch.ops import trace
+
+    dims = tuple(scene.grid.static.voxel_dims)
+    if dims != (512, 256, 512):
+        log("golden", image="default_scene primary_sun",
+            skipped=f"scene {dims}, not the default scene")
+        return
+    ref = np.load(REPO / "tests" / "golden"
+                  / "default_scene_render.npz")["primary_sun"]
+    cam = Camera(75.0, 96, 54, CameraConfig(origin=(0.0, 0.0, 0.0),
+                                            samples_per_pixel=1,
+                                            max_bounce=0))
+    sun = Sun(SunConfig(enabled=True)).device_data
+    img = trace.render_image(
+        scene.grid.static, scene.grid.device_arrays(dev),
+        trace.materials_to_device(scene.materials, dev), cam.d_camera,
+        sun.position, sun.color, sun.radius, True).cpu().numpy()
+    diff = np.abs(img - ref).max(axis=-1)
+    share = float((diff > 1e-3).mean())
+    log("golden", image="default_scene primary_sun", shape=list(img.shape),
+        max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+        share_over_1e_3=share)
+    if img.shape != ref.shape or not np.isfinite(img).all() or share >= 0.01:
+        raise AssertionError("golden default_scene primary_sun out of "
+                             "tolerance")
 
 
 def oracle_parity(dev, scene, rt, poses_1080):
@@ -2819,7 +2889,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     # bound
     t0 = time.perf_counter()
     psc = scenes.small_test_scene()
-    parr = psc.grid.arrays.to_device(dev)
+    parr = psc.grid.device_arrays(dev)
     pst = psc.grid.static
     pcam = Camera(75.0, 48, 48, CameraConfig(origin=(4.0, 6.5, 15.0)))
     psun = Sun(SunConfig(enabled=True)).device_data
@@ -3275,7 +3345,7 @@ def ptxas_summary(text):
                     else "C" if "camera_rays_kernel" in m[1]
                     else "D" if "shade_kernel" in m[1]
                     else "E" if "resolve_kernel" in m[1]
-                    else "F" if "denoise_kernel" in m[1] else m[1])
+                    else f_build_name(m[1]) or m[1])
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
@@ -3289,6 +3359,41 @@ def ptxas_summary(text):
                 per_warp = -(-regs * 32 // 256) * 256
                 rows[name]["warps_per_sm"] = min(64, 65536 // per_warp // 4 * 4)
     return rows
+
+
+def f_build_name(function):
+    """"F <build> pow<hue branch>" of a kernel F instantiation's mangled
+    name (csrc/denoise.cu: denoise_kernel<mode, hue branch, tiled>, or
+    resample_kernel), else None."""
+    import re
+
+    if "resample_kernel" in function:
+        return "F resample_only"
+    t = re.search(r"denoise_kernelILi(\d)ELi(\d)ELb([01])E", function)
+    if not t:
+        return None
+    build = ("shifted_tile" if t[3] == "1"
+             else "shifted_global" if t[1] == "0" else "resample")
+    return f"F {build} pow{t[2]}"
+
+
+def f_warps_per_sm(plan, mode, branch):
+    """Warps an SM holds of kernel F's build for `plan`
+    (`ops.denoise.LaunchPlan`), `mode` and hue branch `branch` at the
+    plan's block shape and shared bytes, as the CUDA runtime reckons them
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    import ctypes
+
+    from zig_vulkan_tpu_torch import _build
+
+    a = _build.DenoiseArgs()
+    a.mode, a.hue_pow = mode, branch or 0
+    a.tiled = int(plan.build == "shifted_tile")
+    a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
+    blocks = ctypes.c_int()
+    _build.check(_build.library().zvt_denoise_occupancy(
+        ctypes.byref(a), ctypes.byref(blocks)), "zvt_denoise_occupancy")
+    return blocks.value * plan.block_rows
 
 
 def headline_poses(dev, headline, poses_n):
@@ -3326,7 +3431,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     from zig_vulkan_tpu_torch.core.sun import Sun
     from zig_vulkan_tpu_torch.engine.engine import VoxelRT
     from zig_vulkan_tpu_torch.models import scenes
-    from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
+    from zig_vulkan_tpu_torch.ops import denoise, lookup, tile_tracer, trace
     from zig_vulkan_tpu_torch.utils import roofline
 
     results = {}
@@ -3445,7 +3550,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 5. golden parity on the card ----------------------------------------------
     golden = np.load(REPO / "tests" / "golden" / "flat_scene_renders.npz")
     gsc = scenes.small_test_scene()
-    garr = gsc.grid.arrays.to_device(dev)
+    garr = gsc.grid.device_arrays(dev)
     gtab = trace.build_trace_tables(gsc.grid.static, garr)
     gmats = trace.materials_to_device(gsc.materials, dev)
     for name, spp, mb, sun_on in (("primary", 1, 0, False),
@@ -3468,6 +3573,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
             ok = diff.mean() < 5e-3 and (diff > 1e-3).mean() < 0.01
         if not ok:
             raise AssertionError(f"golden {name} out of tolerance")
+    default_golden(dev, scene)
 
     # -- 6. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
@@ -3496,6 +3602,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "B": lookup.table_lookup.launches}
     shading = read_shading_counts()
+    f_builds = dict(denoise.postprocess.build_launches)
     made = captures() - c0
     if tile_tracer.grid_hit_tiles.launches != launches["A"]:
         raise AssertionError("the default frame launched another build of A")
@@ -3531,6 +3638,9 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     if shading != {"C": 2, "D": 2 * 3, "E": 2, "F": 2}:
         raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches (its "
                              f"run and its capture), got {shading}")
+    if f_builds != dict(dict.fromkeys(f_builds, 0), shifted_tile=2):
+        raise AssertionError(f"expected kernel F's tiled build on the "
+                             f"default frame, got {f_builds}")
     if tuple(on_card[k] for k in "CDEF") != (1, 3, 1, 1):
         raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches a "
                              f"replayed frame on the card, got {on_card}")
@@ -3756,7 +3866,12 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         launches_per_shard_of_a_sharded_replay=shard_launches["replay"]["F"],
         launches_per_shard_of_a_sharded_op_by_op_frame=shard_launches[
             "op_by_op"]["F"],
+        launches_by_build=f_builds,
         max_abs_err=max(r["max_abs_err"] for r in frame_rows["F"]),
+        design=F_DESIGN,
+        **{k: frame_f[k] for k in ("build", "tile", "halo", "block_threads",
+                                   "smem_bytes", "registers",
+                                   "warps_per_sm")},
         ms=frame_f["ms"], ms_l2_flushed=frame_f["ms_l2_flushed"],
         plain_ms=frame_f["plain_ms"], bound_ms=frame_f["bound_ms"],
         bound_by=frame_f["bound_by"], image=frame_f["image"],
@@ -3767,6 +3882,9 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         resample_alone_bound_ms=alone_f["bound_ms"],
         resample_alone_bound_by=alone_f["bound_by"],
         resample_alone_plain_ms=alone_f["plain_ms"],
+        resample_alone_build=alone_f["build"],
+        resampling_denoiser_build=denoised_f["build"],
+        resampling_denoiser_registers=denoised_f["registers"],
         resampling_denoiser_ms=denoised_f["ms"],
         resampling_denoiser_bound_ms=denoised_f["bound_ms"],
         resampling_denoiser_plain_ms=denoised_f["plain_ms"]))

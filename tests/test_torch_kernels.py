@@ -1403,6 +1403,122 @@ def test_kernel_f_bands(card, n, mode):
                        whole.view(torch.int32))
 
 
+def _f_build(fn):
+    """(fn()'s result, the one kernel F build it launched)."""
+    before = dict(denoise.postprocess.build_launches)
+    got = fn()
+    torch.cuda.synchronize()
+    ran = [k for k, v in denoise.postprocess.build_launches.items()
+           if v != before[k]]
+    assert len(ran) == 1 and denoise.postprocess.build_launches[ran[0]] \
+        == before[ran[0]] + 1, ran
+    return got, ran[0]
+
+
+# sizes at the shifted tile's edges (32 x 8 pixels a block at the
+# defaults, whose halo is 7 x 7): 1, 2, the halo, twice it and one, and
+# the tile's sides and either side of them
+_F_EDGES = (1, 2, 7, 8, 9, 15, 31, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", _F_EDGES)
+@pytest.mark.parametrize("h", _F_EDGES)
+def test_kernel_f_tile_edges(card, h, w):
+    """The tiled build at equal size and the resampling build up, at every
+    pair of edge sizes, with no tap, the default spiral and the longest:
+    bit for bit against the plain version."""
+    img = _f_image(card, h, w, 7 * h + w)
+    for samples in (0, 20, 32):
+        cfg = DenoiserConfig(samples=samples)
+        for (out_h, out_w), build in (((h, w), "shifted_tile"),
+                                      ((h + h // 4 + 1, w + w // 4 + 1),
+                                       "resample")):
+            want = denoise.postprocess_plain(img, cfg, out_h, out_w)
+            got, ran = _f_build(
+                lambda: denoise.postprocess(img, cfg, out_h, out_w))
+            assert ran == build and _f_same(got, want), (samples, out_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel_multiplier, build, rows", [
+    (1.5, "shifted_tile", 8), (29.0, "shifted_tile", 4),
+    (29.6, "shifted_tile", 2), (29.76, "shifted_tile", 1),
+    (50.0, "shifted_global", 8)])
+@pytest.mark.parametrize("n", [1, 3])
+def test_kernel_f_wide_halos(card, pixel_multiplier, build, rows, n):
+    """A halo that outgrows the default tile takes fewer rows of threads,
+    and one no tile holds the untiled build: each chosen on the host from
+    the taps, each bit for bit against the plain version, on the whole
+    image and on bands whose slabs start past row 0."""
+    h, w = 300, 150
+    cfg = DenoiserConfig(pixel_multiplier=pixel_multiplier)
+    plan = denoise.launch_plan(denoise.spiral_taps(
+        20, pixel_multiplier=pixel_multiplier), denoise.SHIFTED)
+    assert (plan.build, plan.block_rows) == (build, rows)
+    img = _f_image(card, h, w, int(pixel_multiplier))
+    whole = denoise.postprocess(img, cfg, h, w)
+    bands = []
+    for i in range(n):
+        r0, r1 = i * h // n, (i + 1) * h // n
+        a, b = denoise.band_input_rows(r0, r1, h, h, cfg)
+        band = denoise.Band(r0, r1, a, h)
+        slab = img[a:b].clone()
+        want = denoise.postprocess_plain(slab, cfg, h, w, band)
+        got, ran = _f_build(
+            lambda: denoise.postprocess(slab, cfg, h, w, band))
+        assert ran == build and _f_same(got, want), i
+        bands.append(got)
+    assert torch.equal(torch.cat(bands).view(torch.int32),
+                       whole.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", [0.0, 1.0, 0.5, -0.5, -1.0, 2.0, 3.0,
+                                      -2.0, 20.0])
+def test_kernel_f_hue_branches_in_every_build(card, exponent):
+    """Each of the hue's pow branches in each denoiser build (the tiled and
+    untiled shifted builds and the resampling build), on a band of an image
+    with zeros, NaN, inf, negatives and HDR values."""
+    h, w = 70, 101
+    img = _f_image(card, h, w, 17, "special")
+    for pixel_multiplier, (out_h, out_w), build in (
+            (1.5, (h, w), "shifted_tile"),
+            (50.0, (h, w), "shifted_global"),
+            (1.5, (h + 9, w + 13), "resample")):
+        cfg = DenoiserConfig(inverse_hue_tolerance=exponent,
+                             pixel_multiplier=pixel_multiplier)
+        r0, r1 = out_h // 3, 2 * out_h // 3
+        a, b = denoise.band_input_rows(r0, r1, out_h, h, cfg)
+        band = denoise.Band(r0, r1, a, h)
+        slab = img[a:b].clone()
+        want = denoise.postprocess_plain(slab, cfg, out_h, out_w, band)
+        got, ran = _f_build(
+            lambda: denoise.postprocess(slab, cfg, out_h, out_w, band))
+        assert ran == build and _f_same(got, want), pixel_multiplier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel_multiplier, mode", [
+    (1.5, denoise.SHIFTED), (29.76, denoise.SHIFTED),
+    (50.0, denoise.SHIFTED), (1.5, denoise.RESAMPLE),
+    (1.5, denoise.RESAMPLE_ONLY)])
+def test_kernel_f_occupancy_of_each_build(card, pixel_multiplier, mode):
+    """The runtime holds at least one block an SM of each build at its
+    plan's block shape and shared bytes, and no more warps than an SM
+    has."""
+    taps = denoise.spiral_taps(20, pixel_multiplier=pixel_multiplier)
+    plan = denoise.launch_plan(None if mode == denoise.RESAMPLE_ONLY
+                               else taps, mode)
+    a = _build.DenoiseArgs()
+    a.mode, a.tiled = mode, int(plan.build == "shifted_tile")
+    a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
+    blocks = ctypes.c_int()
+    _build.check(_build.library().zvt_denoise_occupancy(
+        ctypes.byref(a), ctypes.byref(blocks)), "zvt_denoise_occupancy")
+    assert 1 <= blocks.value and blocks.value * plan.block_rows <= 64
+
+
 @pytest.mark.cuda
 def test_kernel_f_refuses_what_it_does_not_take(card):
     img = _f_image(card, 40, 64, 1)

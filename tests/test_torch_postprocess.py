@@ -192,7 +192,7 @@ def test_denoise_args_layout_matches_the_c_struct():
     for (name, t), (_, want) in zip(args._fields_, fields):
         assert ctypes.sizeof(t) == ctypes.sizeof(want), name
         assert getattr(args, name).offset == getattr(Parsed, name).offset
-    assert ctypes.sizeof(args) == ctypes.sizeof(Parsed) == 1256
+    assert ctypes.sizeof(args) == ctypes.sizeof(Parsed) == 1288
     assert _build.DENOISE_MAX_TAPS == tdn.MAX_RUNTIME_SAMPLES + 1
     assert "zvt_denoise" in _build._SIGNATURES
 

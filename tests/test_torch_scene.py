@@ -176,3 +176,33 @@ def test_config_defaults_match_reference():
     assert t.debug_validation == r.debug_validation
     # the exact cell-by-cell DDA is a valid configuration in both packages
     assert not tconfig.TraceConfig(empty_skip=False).empty_skip
+
+
+def test_device_arrays_is_to_device():
+    """`BrickGrid.device_arrays(device)`: field by field what
+    `GridArrays.to_device` gives (dtypes and the uint32 fields' int32 bit
+    views), and the JAX package's `device_arrays()` of the same grid
+    viewed back; without a device it asks for CUDA and never takes the
+    CPU on its own."""
+    from zig_vulkan_tpu_torch.utils.device import NoCudaDevice
+
+    ref = rscenes.flat_test_scene(dim=8)
+    port = tscenes.flat_test_scene(dim=8)
+    got = port.grid.device_arrays("cpu")
+    want = port.grid.arrays.to_device("cpu")
+    jax_arrays = ref.grid.device_arrays()
+    for name in _FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device.type == "cpu" and g.dtype == w.dtype, name
+        # bit for bit: brick_ir holds NaN for bricks without a dielectric
+        assert g.numpy().tobytes() == w.numpy().tobytes(), name
+        j = np.asarray(getattr(jax_arrays, name))
+        if name in GridArrays._U32_FIELDS:
+            assert g.dtype == torch.int32, name
+            j = np.array(j, dtype=np.uint32).view(np.int32)
+        assert g.numpy().dtype == j.dtype, name
+        assert g.numpy().tobytes() == j.tobytes(), name
+    if not torch.cuda.is_available():
+        for device in (None, "cuda"):
+            with pytest.raises(NoCudaDevice):
+                port.grid.device_arrays(device)

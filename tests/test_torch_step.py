@@ -389,6 +389,8 @@ _TRACE_NAMES = (
     "_ZN12_GLOBAL__N_112shade_kernelE9ShadeArgs",
     "(anonymous namespace)::resolve_kernel(ResolveArgs)",
     "(anonymous namespace)::denoise_kernel(DenoiseArgs)",
+    "void (anonymous namespace)::denoise_kernel<0, 8, true>(DenoiseArgs)",
+    "(anonymous namespace)::resample_kernel(DenoiseArgs)",
     "void at::native::vectorized_elementwise_kernel<4, "
     "at::native::FillFunctor<float>>(int, float*)",
     "Memcpy HtoD (Pinned -> Device)",
@@ -400,7 +402,7 @@ def test_kernel_launches_counts_trace_names_by_build():
     assert got["A"] == 4 and got["B"] == 2
     assert got["default"] == 2 and got["shadow"] == 1
     assert got["exact+stats"] == 1
-    assert (got["C"], got["D"], got["E"], got["F"]) == (1, 2, 1, 1)
+    assert (got["C"], got["D"], got["E"], got["F"]) == (1, 2, 1, 3)
     assert set(got) == set(ttile.grid_hit_tiles.build_launches) | {
         "A", "B", "C", "D", "E", "F"}
     assert tprof.kernel_launches([])["A"] == 0

@@ -118,8 +118,9 @@ class DenoiseArgs(ctypes.Structure):
 
     _fields_ = _pointers("img", "out") + [
         (name, ctypes.c_int) for name in (
-            "w_in", "height", "a", "w_out", "h_out", "r0", "r1", "mode",
-            "hue_pow", "n_taps")] + [
+            "w_in", "height", "a", "row_lo", "row_hi", "w_out", "h_out",
+            "r0", "r1", "mode", "hue_pow", "n_taps", "tiled", "hx0", "hx1",
+            "hy0", "hy1", "block_rows", "smem")] + [
         ("hue_exp", ctypes.c_float),
         ("sat_exp", ctypes.c_float),
         ("x0", ctypes.c_int * DENOISE_MAX_TAPS),
@@ -128,7 +129,7 @@ class DenoiseArgs(ctypes.Structure):
             "fx", "fy", "gx", "gy", "ou", "ov", "influence")]
 
 
-# C entry points: name -> argtypes; every one returns cudaGetLastError()
+# C entry points: name -> argtypes; every one returns a CUDA error code
 _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
     # (NULL = no key), active, sun targets tx, ty, tz (NULL = no shadow
@@ -142,6 +143,9 @@ _SIGNATURES = {
     "zvt_shade": [ctypes.POINTER(ShadeArgs), _P],
     "zvt_resolve": [ctypes.POINTER(ResolveArgs), _P],
     "zvt_denoise": [ctypes.POINTER(DenoiseArgs), _P],
+    # args, blocks an SM (out)
+    "zvt_denoise_occupancy": [ctypes.POINTER(DenoiseArgs),
+                              ctypes.POINTER(ctypes.c_int)],
 }
 
 _LIB = None

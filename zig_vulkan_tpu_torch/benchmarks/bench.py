@@ -158,7 +158,7 @@ def _headline(sc, device, frames: int, width: int, height: int):
     """(Mray/s of the poses, kernel A launches a pose, parity) of the
     primary-ray pass."""
     static = sc.grid.static
-    arrays = sc.grid.arrays.to_device(device)
+    arrays = sc.grid.device_arrays(device)
     tables = trace_mod.build_trace_tables(
         static, arrays, trace_mod.distance_field(static, arrays, True))
     mat_idx = arrays.material_indices

@@ -39,6 +39,7 @@ from ..config import (
     BRICK_WORDS,
     GridConfig,
 )
+from ..utils.device import resolve_device
 
 UNSET_START_INDEX = np.uint32(0xFFFFFFFF)
 
@@ -160,7 +161,7 @@ def voxel_at(x, y, z):
 class BrickGrid:
     """Host-side scene builder (reference brick/Grid.zig).
 
-    Arrays live in numpy; `self.arrays.to_device(device)` copies them to
+    Arrays live in numpy; `self.device_arrays(device)` copies them to
     torch tensors.
     """
 
@@ -357,6 +358,16 @@ class BrickGrid:
         conflict = ~first & (di != a.brick_ir[db])
         if conflict.any():
             a.brick_ir[db[conflict]] = np.nan
+
+    # -- device transfer --------------------------------------------------------
+    def device_arrays(self, device=None) -> GridArrays:
+        """Copy the scene arrays to `device` (the current CUDA device by
+        default; raises `utils.device.NoCudaDevice` where there is none:
+        the CPU is taken only when asked for) as `GridArrays.to_device`
+        does (zig_vulkan_tpu/core/grid.py:376 on the default JAX
+        device)."""
+        return self.arrays.to_device(resolve_device(
+            "cuda" if device is None else device))
 
     # -- queries (for tests / host logic) --------------------------------------
     def voxel_material(self, x: int, y: int, z: int) -> Optional[int]:

@@ -53,7 +53,7 @@ def entry(device="cuda"):
         return denoise_mod.denoise(img, samples=8)
 
     example_args = (
-        sc.grid.arrays.to_device(device),
+        sc.grid.device_arrays(device),
         trace_mod.materials_to_device(sc.materials, device),
         trace_mod.camera_vectors(cam.d_camera, device),
         sun.position, sun.color, sun.radius,

@@ -15,7 +15,9 @@ one launch for the whole post-process of an image: `denoise`,
 spiral's taps depend only on the knobs and the sizes, so the wrapper
 computes them on the host (`spiral_taps`) and passes them by value with
 the launch. `postprocess.launches` counts kernel F's launches, whichever
-wrapper made them.
+wrapper made them, and `postprocess.build_launches` the same by build; the
+host picks the build and the shifted denoiser's shared-memory tile from the
+taps before the launch (`launch_plan`).
 
 Each wrapper runs its plain torch twin (`denoise_plain`,
 `bilinear_resample_plain`, `postprocess_plain`: the torch code the frame
@@ -314,6 +316,67 @@ SAT_EXPONENT = 8.0  # sat = pow(max(1 - |tap_len - center_len|, 0), 8)
 
 _TAP_FIELDS = ("x0", "y0", "fx", "fy", "gx", "gy", "ou", "ov", "influence")
 
+# kernel F's launch shape (csrc/denoise.cu): a block of TILE_W x block_rows
+# threads, one output pixel a thread; block_rows at most BLOCK_ROWS. The
+# shifted denoiser's tile (its output pixels and the taps' halo, three f32
+# channel planes) lives in dynamic shared memory, which a block of an sm_90
+# card may opt into up to SMEM_OPTIN bytes.
+TILE_W = 32
+BLOCK_ROWS = 8      # MAX_BLOCK_ROWS
+SMEM_OPTIN = 232_448
+
+# kernel F's builds, each with its own launch count
+BUILDS = ("shifted_tile", "shifted_global", "resample", "resample_only")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How kernel F launches: its build, the tile's halo (columns [hx0,
+    hx1] and rows [hy0, hy1] around an output pixel), threads a block along
+    y (as many output rows) and the block's shared bytes."""
+
+    build: str
+    halo: tuple = (0, 0, 0, 0)
+    block_rows: int = BLOCK_ROWS
+    smem_bytes: int = 0
+
+    @property
+    def tile(self) -> tuple:
+        """(columns, rows) of output pixels a block."""
+        return TILE_W, self.block_rows
+
+
+def tile_bytes(halo, block_rows: int) -> int:
+    """Shared bytes of a shifted tile: three f32 planes of the block's
+    output pixels and the halo."""
+    hx0, hx1, hy0, hy1 = halo
+    return 3 * 4 * (TILE_W + hx1 - hx0) * (block_rows + hy1 - hy0)
+
+
+def launch_plan(taps, mode: int):
+    """Kernel F's `LaunchPlan` for the tap table `taps` (`spiral_taps`;
+    None for the resample alone) in `mode`. The shifted denoiser takes the
+    tile with the most rows of threads (BLOCK_ROWS halved down to 1) whose
+    shared bytes fit SMEM_OPTIN; a halo too wide for any (a large
+    pixel_multiplier) takes the untiled build, which reads the image in
+    global memory."""
+    if mode == RESAMPLE_ONLY:
+        return LaunchPlan("resample_only")
+    if mode == RESAMPLE:
+        return LaunchPlan("resample")
+    x0 = [int(v) for v in taps["x0"]]
+    y0 = [int(v) for v in taps["y0"]]
+    # the centre's offset 0 and each live tap's two neighbours
+    halo = (min([0, *x0]), max([0, *(x + 1 for x in x0)]),
+            min([0, *y0]), max([0, *(y + 1 for y in y0)]))
+    rows = BLOCK_ROWS
+    while rows >= 1:
+        need = tile_bytes(halo, rows)
+        if need <= SMEM_OPTIN:
+            return LaunchPlan("shifted_tile", halo, rows, need)
+        rows //= 2
+    return LaunchPlan("shifted_global")
+
 
 def pow_branch(exponent) -> int:
     """Kernel F's branch for `torch.pow(x, exponent)` on CUDA."""
@@ -429,23 +492,40 @@ def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
         raise ValueError(f"postprocess: output rows [{band.r0}, {band.r1}) "
                          f"read image rows [{lo}, {hi}), the slab holds "
                          f"[{band.a}, {band.a + rows_in})")
-    a = _build.DenoiseArgs()
-    a.img, a.out = img.data_ptr(), out.data_ptr()
-    a.w_in, a.height, a.a = w, h, band.a
-    a.w_out, a.h_out, a.r0, a.r1 = out_w, out_h, band.r0, band.r1
-    a.mode, a.n_taps = mode, n_taps
-    a.hue_pow, a.hue_exp = pow_branch(hue_exp), hue_exp
-    a.sat_exp = SAT_EXPONENT
-    if n_taps:
-        for k in _TAP_FIELDS:
-            getattr(a, k)[:n_taps] = taps[k].tolist()
+    plan = launch_plan(taps, mode)
+    a = launch_args(img, out, out_h, band, taps, mode, hue_exp, (lo, hi),
+                    plan)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.zvt_denoise(ctypes.byref(a), stream)
     _build.check(status, "zvt_denoise")
     postprocess.launches += 1
+    postprocess.build_launches[plan.build] += 1
     return out
+
+
+def launch_args(img, out, out_h: int, band: Band, taps, mode: int,
+                hue_exp: float, rows: tuple, plan: LaunchPlan):
+    """Kernel F's `_build.DenoiseArgs` for a checked launch on `img` into
+    `out` that reads image rows `rows` (`rows_read`) as `plan` says."""
+    n_taps = 0 if taps is None else len(taps["x0"])
+    a = _build.DenoiseArgs()
+    a.img, a.out = img.data_ptr(), out.data_ptr()
+    a.w_in, a.height, a.a = int(img.shape[1]), int(band.height), band.a
+    a.row_lo, a.row_hi = rows
+    a.w_out, a.h_out = int(out.shape[1]), out_h
+    a.r0, a.r1 = band.r0, band.r1
+    a.mode, a.n_taps = mode, n_taps
+    a.tiled = int(plan.build == "shifted_tile")
+    a.hx0, a.hx1, a.hy0, a.hy1 = plan.halo
+    a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
+    a.hue_pow, a.hue_exp = pow_branch(hue_exp), hue_exp
+    a.sat_exp = SAT_EXPONENT
+    if n_taps:
+        for k in _TAP_FIELDS:
+            getattr(a, k)[:n_taps] = taps[k].tolist()
+    return a
 
 
 def _denoise(img, samples, distribution_bias, pixel_multiplier,
@@ -503,7 +583,10 @@ def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int,
 
 
 postprocess.launches = 0  # kernel F's launches, through any wrapper
+postprocess.build_launches = dict.fromkeys(BUILDS, 0)  # the same, by build
 
 
 def reset_launch_counts() -> None:
     postprocess.launches = 0
+    for name in postprocess.build_launches:
+        postprocess.build_launches[name] = 0
