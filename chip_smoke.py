@@ -40,8 +40,11 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    builds that divide (at a 0.3 cell, also bit for bit), kernel B's
    `torch.index_select` time, the plain versions' times of C, D, E and F
    (kernel D's inputs restored before each call: it updates the ray state
-   in place); kernel F also on the frame's image to 5/4 of its size, with
-   the denoiser and as the resample alone, the latter beside
+   in place); kernel F's launch is the runtime build (the knobs read from
+   the step's push constants), also run through the static build on the
+   same image (the share of pixels equal bit for bit and the largest
+   difference), and on the frame's image to 5/4 of its size with the
+   denoiser on both paths and as the resample alone, the latter beside
    `torch.nn.functional.grid_sample`'s time, each F row with the build
    the host chose (`ops.denoise.launch_plan`), its tile, halo, threads a
    block, shared bytes, registers and the warps an SM holds of it (asked
@@ -125,16 +128,22 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     kernels' plain versions run (no pixel differs by 1e-5); its 4 A, 2 B
     and 1 F launches, each against its plain version bit for bit;
 20. the compiled step (`engine.step`): the default frame, config 4's
-    temporal frames, config 5's 4K frame, the default frame after a change
-    of the denoiser's `samples`, and the bench's pose frame (config 3's
-    edit frames are phase 21's), each run as a replay and op by op (the
-    body called directly): the replay's image equal to the op-by-op one
-    bit for bit, the captures (one a key), kernel A to F launches a
-    frame on each route, one more op-by-op frame's kernel F launch against
-    its plain version, median ms of each route in turns by CUDA events
-    and by the host clock, device-busy ms and idle share and host-to-device
-    copies a frame from a `torch.profiler` trace of each route, and peak
-    allocated and reserved bytes of each;
+    temporal frames, config 5's 4K frame and the bench's pose frame
+    (config 3's edit frames are phase 21's), each run as a replay and op
+    by op (the body called directly): the replay's image equal to the
+    op-by-op one bit for bit, the captures (one a key), kernel A to F
+    launches a frame on each route, one more op-by-op frame's kernel F
+    launch against its plain version, median ms of each route in turns by
+    CUDA events and by the host clock, device-busy ms and idle share and
+    host-to-device copies a frame from a `torch.profiler` trace of each
+    route, and peak allocated and reserved bytes of each; then the
+    denoiser's slider sweep on the default frame (`SWEEP`: samples,
+    distribution bias and hue tolerance moved between frames, through the
+    default frame's one capture): each frame's replay equal to op by op
+    bit for bit and its kernel F launch equal to its plain twin, no new
+    capture, a slider-move frame's ms and trace, and beside them the step
+    rebuilt, warmed and captured, split into the three (what a move cost
+    when the three knobs were in the step's key);
 21. the compiled edit path and shards: (a) config 3's 16 edit frames on
     two engines built from one scene, one through the edit and frame
     graphs, one through the same bodies op by op (`insert_voxels_op_by_op`,
@@ -151,7 +160,10 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     (d) the default frame and config 5's frame (`Config5.sharded_step`)
     over 1, 2 and 4 shards of the card: the capture call, then frames with
     the camera and the sun moved between calls, each as a replay, op by op
-    and the unsharded replayed frame, bit for bit; ms of the three in
+    and the unsharded frame, bit for bit (config 5's the engine's replayed
+    frame; the default frame's sharded post-process takes the static path,
+    as the JAX sharded step does, so its unsharded frame is `render_image`
+    + `postprocess`); ms of the two routes and the unsharded replay in
     turns, busy ms (and the idle share, on one shard) and kernel A and B
     launches a step of the replays from a trace, equal to the op-by-op
     step's launches through the wrappers.
@@ -169,11 +181,13 @@ count them (phase 20: on both routes of each case, 1 C, one D a level, 1 E
 and, with the denoiser, 1 F a frame; 1 C a pose frame).
 
 The line before the last is a JSON object with one entry per kernel build
-and per shading kernel and one for kernel F (its launches through the
-wrapper in this run, launches a replayed frame on the card, time, plain
-time, bound, share of the bound and, for kernel B, `index_select`'s time,
-for kernel F `grid_sample`'s on the resample alone, its launches by build
-and its design); the last line is
+and per shading kernel and two for kernel F, its runtime build (the default
+frame's) and its static builds (the sharded and entry steps'): their
+launches through the wrapper in this run, launches a replayed frame on the
+card, time, plain time, bound, share of the bound and, for kernel B,
+`index_select`'s time, for kernel F's static builds `grid_sample`'s on the
+resample alone, its launches by build and its design; the runtime build's
+slider sweep and re-capture numbers); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -182,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import struct
 import subprocess
@@ -236,6 +251,19 @@ TRACE_FRAMES = 3           # phase 20: traced frames a route
 EDIT_TURN_FRAMES = 4       # phase 21: config 3's edit frames a route and
                            # turn (4 turns a route: 16 frames)
 ROUTE_TURNS = ("op_by_op", "replay", "replay", "op_by_op")
+# phase 20's slider sweep: one move of the denoiser's runtime knobs a frame
+# (samples, distribution bias, hue tolerance; the hue exponents ATen's
+# scalar pow treats apart among them), all through the default frame's one
+# capture; the last puts the defaults back
+SWEEP = (dict(samples=8), dict(distribution_bias=0.3),
+         dict(inverse_hue_tolerance=2.0),
+         dict(samples=32, inverse_hue_tolerance=0.5),
+         dict(samples=1, distribution_bias=1.0, inverse_hue_tolerance=3.0),
+         dict(samples=12, inverse_hue_tolerance=-1.0),
+         dict(samples=20, distribution_bias=0.45, inverse_hue_tolerance=7.3),
+         dict(samples=20, distribution_bias=0.6, inverse_hue_tolerance=20.0))
+SWEEP_TIMED = 16   # timed slider-move frames (the sweep's moves in turn)
+RECAPTURES = 3     # timed rebuilds and captures of the default frame's step
 SHARD_FRAMES = 2           # phase 21: timed steps a route and turn
 SHARD_TRACE = 2            # phase 21: traced steps a route
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
@@ -784,7 +812,7 @@ def sharded_default_frame(rt, devices, label, sizes):
     want = denoise.postprocess(img, rt.denoiser, oh, ow)
     per = levels * frame_launches_per_level(rt)
     post = post_launches(rt.denoiser, rt.internal_resolution, (ow, oh))
-    total = {"A": 0, "A_all": 0, "B": 0}
+    total = {"A": 0, "A_all": 0, "B": 0, "F": 0}
     for n in sizes:
         step, args, tables = sharded_default_step(rt, devices[:n])
         reset_counts()
@@ -794,7 +822,8 @@ def sharded_default_frame(rt, devices, label, sizes):
         counts = read_counts()
         posted = read_shading_counts()["F"]
         made = captures() - c0
-        total = {k: total[k] + counts[k] for k in total}
+        total = {k: total[k] + (posted if k == "F" else counts[k])
+                 for k in total}
         same = bool(torch.equal(got, want))
         log("mesh", mesh=label, shards=n, replicas=len(step.mesh.distinct),
             equals_unsharded=same, captures=made, launches_A=counts["A"],
@@ -872,7 +901,8 @@ def mesh_phase(dev, rt):
     if cards > 1:
         many = sharded_default_frame(
             rt, list(pmesh.make_mesh().devices), f"{cards} cards", (cards,))
-        counts = dict({k: counts[k] + many[k] for k in ("A", "A_all", "B")},
+        counts = dict({k: counts[k] + many[k]
+                       for k in ("A", "A_all", "B", "F")},
                       per_shard=counts["per_shard"])
     return counts
 
@@ -1446,7 +1476,7 @@ def entry_step(dev):
                              f"entry step, got {counts} and {posted} F")
     _, err, _, _ = check_frame_launches("entry", lambda: fn(*args), 4, 2,
                                         posts=1)
-    return dict(counts, max_abs_err=err)
+    return dict(counts, F=posted, max_abs_err=err)
 
 
 def _same(got, want):
@@ -1582,9 +1612,136 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
     return out
 
 
+def recapture_split(rt):
+    """What a slider move cost before the knobs were push constants (a new
+    key): the current key's step dropped, rebuilt (`VoxelRT.step()`),
+    warmed and captured (the next `render()`: `GraphedCall`'s warm-up run,
+    then its capture under `torch.cuda.graph`, timed at the context's
+    entry and exit), then the card drained. Host ms of each part."""
+    import torch
+
+    marks = {}
+    real = torch.cuda.graph
+
+    class timed(real):
+        def __enter__(self):
+            marks["enter"] = time.perf_counter()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            marks["exit"] = time.perf_counter()
+            return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt._step_cache.clear()
+    rt.step()
+    t1 = time.perf_counter()
+    torch.cuda.graph = timed
+    try:
+        rt.render()
+    finally:
+        torch.cuda.graph = real
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return dict(build_ms=(t1 - t0) * 1e3,
+                warm_up_ms=(marks["enter"] - t1) * 1e3,
+                capture_ms=(marks["exit"] - marks["enter"]) * 1e3,
+                drain_ms=(t3 - t2) * 1e3, total_ms=(t3 - t0) * 1e3)
+
+
+def slider_sweep(rt):
+    """Phase 20's slider sweep on the default frame's engine `rt`, whose
+    step the "default frame" case captured: for each of SWEEP's moves of
+    the denoiser's samples, distribution bias and hue tolerance, one frame
+    as a replay and op by op from the same state, bit for bit, and its
+    kernel F launch against its plain twin at the new values; the same
+    step and no capture throughout. Then SWEEP_TIMED slider-move frames
+    (the move and the replayed frame) by CUDA events and the host clock, a
+    trace of them (busy ms, kernel ms, launches), and, beside them, what
+    the same move cost when it made a new key: RECAPTURES rebuilds and
+    captures of the step (`recapture_split`). Returns the case's
+    numbers."""
+    import torch
+
+    from zig_vulkan_tpu_torch.engine.engine import both_routes
+
+    step = rt.step()
+    c0 = captures()
+    err = 0.0
+    for knobs in SWEEP:
+        rt.set_denoiser(**knobs)
+        cap = {}
+        with capturing_posts(cap):
+            got, want = both_routes(rt)
+        e, differ = check_posts(cap)
+        err = max(err, e)
+        same = _same(got, want)
+        log("step", case="slider sweep", **knobs, bit_equal=same,
+            post_calls=len(cap["postprocess"]), F_against_plain_max_abs_err=e,
+            differ=json.dumps(differ, separators=(",", ":")))
+        if not same:
+            raise AssertionError(f"slider sweep {knobs}: the replay differs "
+                                 f"from the op-by-op body")
+        if differ or len(cap["postprocess"]) != 1:
+            raise AssertionError(f"slider sweep {knobs}: kernel F differs "
+                                 f"from its plain twin: {differ}")
+    moves = itertools.count()
+
+    def move_and_render():
+        rt.set_denoiser(**SWEEP[next(moves) % len(SWEEP)])
+        return rt.render()
+
+    times = []
+    for _ in range(SWEEP_TIMED):
+        torch.cuda.synchronize()
+        e0, e1, _ = frame_events()
+        t0 = time.perf_counter()
+        e0.record()
+        move_and_render()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3))
+    traced = device_trace(move_and_render, TRACE_FRAMES)
+    made = captures() - c0
+    if rt.step() is not step or made != 0:
+        raise AssertionError(f"the slider sweep made {made} captures or a "
+                             f"new step")
+    got = traced["launches"]
+    if (got["F"], got["A_all"]) != (1, 6):
+        raise AssertionError(f"a slider-move frame ran {got} on the card")
+    dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times))
+    splits = [recapture_split(rt) for _ in range(RECAPTURES)]
+    recapture = {k: float(np.median([r[k] for r in splits]))
+                 for k in splits[0]}
+    rt.set_denoiser(**SWEEP[-1])
+    out = dict(frames=len(SWEEP), timed_frames=SWEEP_TIMED, captures=made,
+               key_captures=1, F_max_abs_err=err,
+               replay=dict(median_device_ms=dev_ms, median_wall_ms=wall_ms,
+                           device_busy_ms=traced["busy_ms"],
+                           idle_share=1 - traced["busy_ms"] / wall_ms,
+                           launches_F=got["F"],
+                           kernel_ms=traced["kernel_ms"]),
+               recapture=recapture,
+               recaptures=[{k: round(v, 3) for k, v in r.items()}
+                           for r in splits])
+    log("step", case="slider sweep", frames=len(SWEEP), captures=made,
+        key_captures=1, F_against_plain_max_abs_err=err,
+        slider_move_frame_device_ms=f"{dev_ms:.4f}",
+        slider_move_frame_wall_ms=f"{wall_ms:.4f}",
+        device_busy_ms=f"{traced['busy_ms']:.4f}",
+        kernel_ms=json.dumps(traced["kernel_ms"], separators=(",", ":")),
+        **{f"recapture_{k}": f"{v:.3f}" for k, v in recapture.items()},
+        recaptures=json.dumps(out["recaptures"], separators=(",", ":")))
+    return out
+
+
 def compiled_step(dev, scene, cfg, c5, scale=1.0):
-    """Phase 20: the compiled step's five cases (see the module
-    docstring); `c5` is phase 16's config 5. Returns {case: numbers}."""
+    """Phase 20: the compiled step's four cases and the slider sweep (see
+    the module docstring); `c5` is phase 16's config 5. Returns {case:
+    numbers}."""
     import torch
 
     from zig_vulkan_tpu_torch.benchmarks import bench, configs
@@ -1627,8 +1784,7 @@ def compiled_step(dev, scene, cfg, c5, scale=1.0):
 
     rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
     engine_case("default frame", rt, move(rt))
-    rt.set_denoiser(samples=8)
-    engine_case("default frame, denoiser samples 8", rt, move(rt))
+    cases["default frame, slider sweep"] = slider_sweep(rt)
     del rt
 
     rt = configs.build_config4(scale, dev)
@@ -1947,25 +2103,28 @@ def idle_share(busy_ms, wall_ms, streams):
     return {"idle_share": 1 - busy_ms / wall_ms} if streams == 1 else {}
 
 
-def shard_case(label, n, routes, unsharded, move, want_captures):
+def shard_case(label, n, routes, unsharded, move, want_captures,
+               reference=None):
     """Phase 21d, one mesh: the capture call, then frames moved between
-    calls, each as a replay, op by op and the unsharded replayed frame, bit
-    for bit; ms of each in turns; a trace of the replays (busy ms, the idle
-    share on one shard, kernel A, B and F launches a step on the card) beside
-    the op-by-op step's launches through the wrappers (each a launch on the
-    card)."""
+    calls, each as a replay, op by op and the unsharded frame
+    (`reference()`, by default the unsharded replayed frame `unsharded()`),
+    bit for bit; ms of each route and of the unsharded replayed frame in
+    turns; a trace of the replays (busy ms, the idle share on one shard,
+    kernel A, B and F launches a step on the card) beside the op-by-op
+    step's launches through the wrappers (each a launch on the card)."""
     import torch
 
+    reference = reference or unsharded
     c0 = captures()
     first = routes["replay"]()
     torch.cuda.synchronize()
     made = captures() - c0
-    equal = [bool(torch.equal(first, unsharded()))]
+    equal = [bool(torch.equal(first, reference()))]
     for _ in range(2):
         move()
         got, want = routes["replay"](), routes["op_by_op"]()
         equal.append(bool(torch.equal(got, want))
-                     and bool(torch.equal(got, unsharded())))
+                     and bool(torch.equal(got, reference())))
     runs = dict(routes, unsharded=unsharded)
     times = {name: [] for name in runs}
     for name in ("op_by_op", "replay", "unsharded", "unsharded", "replay",
@@ -2013,8 +2172,13 @@ def shard_case(label, n, routes, unsharded, move, want_captures):
 def shard_routes(dev, rt, c5):
     """Phase 21d: the sharded step over 1, 2 and 4 shards of the card, the
     default frame (phase 15b's: the engine `rt`'s) and config 5's frame
-    through `Config5.sharded_step`. Returns {(case, shards): numbers}."""
-    from zig_vulkan_tpu_torch.ops import trace
+    through `Config5.sharded_step`. The sharded default frame's
+    post-process takes the static path (as the JAX sharded step's int
+    `samples`), the engine's step the runtime path: its frames are held to
+    the unsharded `render_image` + `postprocess` of the same pose, and
+    timed beside the engine's replayed frame. Returns {(case, shards):
+    numbers}."""
+    from zig_vulkan_tpu_torch.ops import denoise, trace
     from zig_vulkan_tpu_torch.parallel import mesh as pmesh
 
     card = pmesh.make_mesh([dev]).devices[0]
@@ -2027,6 +2191,15 @@ def shard_routes(dev, rt, c5):
 
     def move_config5():
         c5.rt.camera.turn_yaw(0.02)
+
+    def static_frame():
+        d, sun = rt.camera.d_camera, rt.sun.device_data
+        ow, oh = rt.output_resolution
+        img = trace.render_image(rt.grid_static, rt.arrays, rt.mats, d,
+                                 sun.position, sun.color, sun.radius,
+                                 bool(sun.enabled), rt.trace_config,
+                                 tables=rt.tables())
+        return denoise.postprocess(img, rt.denoiser, oh, ow)
 
     rt.render()
     for n in MESH_SIZES:
@@ -2041,7 +2214,8 @@ def shard_routes(dev, rt, c5):
                   "op_by_op": lambda frame=frame, step=step:
                   frame(step.op_by_op)}
         out[("default frame", n)] = shard_case(
-            "default frame", n, routes, rt.render, move_default, 2 * n)
+            "default frame", n, routes, rt.render, move_default, 2 * n,
+            static_frame)
     c5.rt.render()
     for n in MESH_SIZES:
         run = c5.sharded_step([card] * n)
@@ -2130,6 +2304,11 @@ def _clone(v):
         return tuple(_clone(a) for a in v)
     if isinstance(v, dict):
         return {k: _clone(a) for k, a in v.items()}
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        # a DenoiserConfig whose knobs are views of a step's push constants
+        return dataclasses.replace(v, **{
+            f.name: _clone(getattr(v, f.name))
+            for f in dataclasses.fields(v) if f.init})
     return v
 
 
@@ -2202,9 +2381,10 @@ def replay_shading(kind, args, kw):
             {"pixels": shade.resolve_plain(*args, **kw)})
 
 
-# kernel F's wrappers that frames call (ops.denoise): the engine's step and
-# the sharded step's post-process call `postprocess`, the entry step
-# `denoise`; each launches kernel F at most once a call
+# kernel F's wrappers that frames call (ops.denoise): the engine's step (on
+# the runtime path, its knobs views of the step's push constants) and the
+# sharded step's post-process call `postprocess`, the entry step `denoise`;
+# each launches kernel F at most once a call
 POSTS = ("postprocess", "denoise")
 
 
@@ -2523,7 +2703,8 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
                         device=rt.device)
     keys = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
     rows = {"A": [], "B": [], **{kind: [] for kind, _ in SHADING},
-            "F": post_kernels(*cap_f["postprocess"][0][0], flush)}
+            "F": post_kernels(*cap_f["postprocess"][0][0], flush,
+                              **cap_f["postprocess"][0][1])}
     for kind, name in SHADING:
         for i, (args, kw) in enumerate(cap[kind]):
             got, want = replay_shading(kind, args, kw)
@@ -2672,12 +2853,43 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
     return rows
 
 
-def post_kernels(img, config, out_h, out_w, flush):
+def masked_pixels(img, dn, mode, live, n_taps, out_h, out_w):
+    """Output pixels of `img`'s runtime post-process at `dn` whose masked
+    taps (`live` to `n_taps` - 1) read a value that is not finite: where a
+    masked tap needs work (elsewhere it adds +0). Each masked tap samples
+    an image that is NaN where `img` is not finite and 0 elsewhere, with
+    the plain version's clamped neighbours."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    bad = ~torch.isfinite(img).all(-1, keepdim=True)
+    if live >= n_taps or not bool(bad.any()):
+        return 0
+    x = torch.where(bad, float("nan"), 0.0)
+    need = torch.zeros((out_h, out_w), dtype=torch.bool, device=img.device)
+    offsets = denoise.spiral_offsets(n_taps - 1, dn.pixel_multiplier)
+    for ox, oy in offsets[live:]:
+        ox, oy = np.float32(ox), np.float32(oy)
+        tap = (denoise.bilinear_sample_shifted(x, float(ox), float(oy))
+               if mode == denoise.SHIFTED
+               else denoise._resample_taps(x, out_h, out_w, ox, oy))
+        need |= torch.isnan(tap[..., 0])
+    return int(need.sum())
+
+
+def post_kernels(img, config, out_h, out_w, flush, max_samples=None):
     """Phase 6b's kernel F rows: the frame's post-process of `img` at
-    (`config`, out_h, out_w), then the denoiser and the resample alone to
-    5/4 of the image's size, each launch bit for bit against its plain
-    version, its device time warm and after an L2 flush, its plain
-    version's, its bound; for the resample alone also
+    (`config`, out_h, out_w, `max_samples`: the engine's step takes the
+    runtime path, its knobs 0-d tensors), the same through the static build
+    at the knobs' values (the sharded step's and the entry step's path;
+    the share of its pixels equal to the runtime build's bit for bit and
+    the largest difference), then the denoiser on both paths and the
+    resample alone to 5/4 of the image's size, each launch bit for bit
+    against its plain version, its device time warm and after an L2 flush,
+    its plain version's, its bound (the runtime path's with its masked
+    taps where they read a value that is not finite, and the influences
+    from the knobs); for the resample alone also
     `torch.nn.functional.grid_sample`'s time on the same image (bilinear,
     border padding, align_corners=False: the same sampling up to the
     rounding of its coordinates), a yardstick the port never calls."""
@@ -2692,44 +2904,67 @@ def post_kernels(img, config, out_h, out_w, flush):
     ih, iw = int(img.shape[0]), int(img.shape[1])
     up = (ih * 5 // 4, iw * 5 // 4)
     ptxas = ptxas_summary(_build.build_log)
-    rows = []
-    for what, dn, (oh, ow) in (
-            ("frame", config, (out_h, out_w)),
-            ("resampling denoiser", DenoiserConfig(**{
-                **dataclasses.asdict(config), "enabled": True}), up),
-            ("resample alone", DenoiserConfig(enabled=False), up)):
-        def run(dn=dn, oh=oh, ow=ow):
-            return denoise.postprocess(img, dn, oh, ow)
+    knobs = {k: float(getattr(config, k)) for k in (
+        "samples", "distribution_bias", "inverse_hue_tolerance")}
+    static = DenoiserConfig(**{**dataclasses.asdict(config), **knobs,
+                               "samples": int(knobs["samples"]),
+                               "enabled": True})
+    runtime = dataclasses.replace(config, enabled=True)
+    ms_runtime = max_samples or denoise.MAX_RUNTIME_SAMPLES
+    rows, outputs = [], {}
+    for what, dn, (oh, ow), ms in (
+            ("frame", config, (out_h, out_w), max_samples),
+            ("frame, static build", dataclasses.replace(
+                static, enabled=config.enabled), (out_h, out_w), None),
+            ("resampling denoiser, runtime build", runtime, up, ms_runtime),
+            ("resampling denoiser", static, up, None),
+            ("resample alone", DenoiserConfig(enabled=False), up, None)):
+        def run(dn=dn, oh=oh, ow=ow, ms=ms):
+            return denoise.postprocess(img, dn, oh, ow, max_samples=ms)
 
-        def run_plain(dn=dn, oh=oh, ow=ow):
-            return denoise.postprocess_plain(img, dn, oh, ow)
+        def run_plain(dn=dn, oh=oh, ow=ow, ms=ms):
+            return denoise.postprocess_plain(img, dn, oh, ow, max_samples=ms)
 
         before = dict(denoise.postprocess.build_launches)
         got = run()
+        outputs[what] = got
         ran = [k for k, v in denoise.postprocess.build_launches.items()
                if v != before[k]]
         bad, err, same = compare_post(got, run_plain())
         if not same:
             raise AssertionError(f"kernel F ({what}) differs from its plain "
                                  f"version in {bad} values")
+        live = masked = n_masked = influences = 0
         if not dn.enabled:
             mode, table, branch = denoise.RESAMPLE_ONLY, None, None
         else:
             mode = denoise.SHIFTED if (oh, ow) == (ih, iw) else denoise.RESAMPLE
-            table = denoise.spiral_taps(int(dn.samples), dn.distribution_bias,
-                                        dn.pixel_multiplier, iw, ih)
-            branch = denoise.pow_branch(float(np.float32(
-                dn.inverse_hue_tolerance)))
-        taps = 0 if table is None else len(table["x0"])
+            table = denoise.spiral_taps(
+                dn.samples, dn.distribution_bias, dn.pixel_multiplier, iw,
+                ih, ms)
+            if ms is None:
+                branch = denoise.pow_branch(float(np.float32(
+                    dn.inverse_hue_tolerance)))
+                live = len(table["x0"])
+            else:
+                branch = None
+                influences = len(table["x0"])
+                live = int(sum(np.float32(i) <= np.float32(knobs["samples"])
+                               for i in range(influences)))
+                masked = influences - live
+                n_masked = masked_pixels(img, dn, mode, live, influences,
+                                         oh, ow)
         plan = denoise.launch_plan(table, mode)
         if ran != [plan.build]:
             raise AssertionError(f"kernel F ({what}) launched {ran}, its "
                                  f"plan {plan.build}")
         regs = ptxas.get(f"F {plan.build}" if branch is None
                          else f"F {plan.build} pow{branch}", {})
-        bound, by = roofline.denoise_bound_ms(ih * iw, oh * ow, taps, mode)
+        bound, by = roofline.denoise_bound_ms(ih * iw, oh * ow, live, mode,
+                                              masked, n_masked, influences)
         row = dict(launch=f"F {what}", image=f"{iw}x{ih}", out=f"{ow}x{oh}",
-                   mode=mode, taps=taps, build=plan.build,
+                   mode=mode, taps=live, masked_taps=masked,
+                   masked_pixels=n_masked, build=plan.build,
                    tile=list(plan.tile), halo=list(plan.halo),
                    block_threads=[denoise.TILE_W, plan.block_rows],
                    smem_bytes=plan.smem_bytes,
@@ -2741,6 +2976,21 @@ def post_kernels(img, config, out_h, out_w, flush):
                    ms_l2_flushed=device_ms(run, FRAME_REPS, flush),
                    plain_ms=device_ms(run_plain, 3), bound_ms=bound,
                    bound_by=by)
+        if what == "frame, static build":
+            # the runtime path against the static one on the frame's image:
+            # they differ only where the influences computed on the card
+            # round otherwise than the host's (and in NaN a masked tap
+            # spreads)
+            a, b = outputs["frame"], got
+            nan = torch.isnan(a) & torch.isnan(b)
+            equal = (a.view(torch.int32) == b.view(torch.int32)) | nan
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            row.update(
+                runtime_equal_share=float(equal.all(-1).float().mean()),
+                runtime_max_abs_diff=float((a[fin] - b[fin]).abs().max())
+                if bool(fin.any()) else None,
+                runtime_nonfinite=int((~torch.isfinite(a)).sum()),
+                static_nonfinite=int((~torch.isfinite(b)).sum()))
         if not dn.enabled:
             nchw = img.permute(2, 0, 1)[None].contiguous()
             gx, gy = ((torch.arange(n, dtype=torch.float32, device=img.device)
@@ -3364,11 +3614,17 @@ def ptxas_summary(text):
 def f_build_name(function):
     """"F <build> pow<hue branch>" of a kernel F instantiation's mangled
     name (csrc/denoise.cu: denoise_kernel<mode, hue branch, tiled>, or
-    resample_kernel), else None."""
+    resample_kernel), "F <build>_runtime" of a runtime build
+    (denoise_kernel_runtime<mode, tiled>), else None."""
     import re
 
     if "resample_kernel" in function:
         return "F resample_only"
+    t = re.search(r"denoise_kernel_runtimeILi(\d)ELb([01])E", function)
+    if t:
+        build = ("shifted_tile" if t[2] == "1"
+                 else "shifted_global" if t[1] == "0" else "resample")
+        return f"F {build}_runtime"
     t = re.search(r"denoise_kernelILi(\d)ELi(\d)ELb([01])E", function)
     if not t:
         return None
@@ -3388,7 +3644,8 @@ def f_warps_per_sm(plan, mode, branch):
 
     a = _build.DenoiseArgs()
     a.mode, a.hue_pow = mode, branch or 0
-    a.tiled = int(plan.build == "shifted_tile")
+    a.tiled = int(plan.build.startswith("shifted_tile"))
+    a.runtime = int(plan.build.endswith("_runtime"))
     a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
     blocks = ctypes.c_int()
     _build.check(_build.library().zvt_denoise_occupancy(
@@ -3638,9 +3895,9 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     if shading != {"C": 2, "D": 2 * 3, "E": 2, "F": 2}:
         raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches (its "
                              f"run and its capture), got {shading}")
-    if f_builds != dict(dict.fromkeys(f_builds, 0), shifted_tile=2):
-        raise AssertionError(f"expected kernel F's tiled build on the "
-                             f"default frame, got {f_builds}")
+    if f_builds != dict(dict.fromkeys(f_builds, 0), shifted_tile_runtime=2):
+        raise AssertionError(f"expected kernel F's tiled runtime build on "
+                             f"the default frame, got {f_builds}")
     if tuple(on_card[k] for k in "CDEF") != (1, 3, 1, 1):
         raise AssertionError(f"expected 1 C, 3 D, 1 E and 1 F launches a "
                              f"replayed frame on the card, got {on_card}")
@@ -3728,6 +3985,7 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     steps = compiled_step(dev, scene, cfg, c5, scale)
     log("step", phase_seconds=f"{time.perf_counter() - t0:.2f}")
     default_step = steps["default frame"]
+    sweep = steps["default frame, slider sweep"]
 
     # -- 21. the compiled edit path and shards ------------------------------------------
     t0 = time.perf_counter()
@@ -3849,33 +4107,64 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
             frame_launch_ms=[r["ms"] for r in frame_rows[kind]],
             frame_launch_bound_ms=[r["bound_ms"] for r in frame_rows[kind]],
             frame_launch_plain_ms=[r["plain_ms"] for r in frame_rows[kind]]))
-    # the post-process: its launches as the shading kernels' (and a shard's
-    # of the sharded step), the default frame's launch of phase 6b; no
-    # PyTorch call denoises, so `library_ms` is grid_sample's on the
-    # resample alone, with kernel F's own time in that mode beside it
-    frame_f, denoised_f, alone_f = frame_rows["F"]
+    # the post-process, kernel F. The runtime build is the default frame's
+    # (the main path's): its launches in the main path's run, a replayed
+    # default frame's on the card (phase 6 and phase 20's traces), its
+    # launch of phase 6b; no PyTorch call denoises. The static builds run
+    # the sharded step's and the entry step's post-process: their launches
+    # in phases 15b and 19 (each run with the counts set to 0 before it), a
+    # shard's, phase 6b's launch on the frame's image through the static
+    # build; `library_ms` is grid_sample's on the resample alone, with
+    # kernel F's own time in that mode beside it
+    frame_f, static_f, denoised_rt_f, denoised_f, alone_f = frame_rows["F"]
+    f_err = max(r["max_abs_err"] for r in frame_rows["F"])
+    f_src = "zig_vulkan_tpu_torch/csrc/denoise.cu"
+    f_shape = ("build", "tile", "halo", "block_threads", "smem_bytes",
+               "registers", "warps_per_sm", "image", "taps")
     kernels.append(dict(
-        name="postprocess (kernel F: the sirBird denoiser and the resample, "
-             "one launch a frame)", route="cuda",
-        source="zig_vulkan_tpu_torch/csrc/denoise.cu",
-        replaces="zig_vulkan_tpu/ops/denoise.py:167",
-        launches=shading["F"], launches_per_frame=on_card["F"],
+        name="postprocess (kernel F, runtime build: the denoiser's samples, "
+             "distribution bias and hue tolerance read from the frame's push "
+             "constants on the card)", route="cuda", source=f_src,
+        replaces="zig_vulkan_tpu/ops/denoise.py:160",
+        launches=f_builds["shifted_tile_runtime"],
+        launches_per_frame=on_card["F"],
         launches_per_replayed_frame=default_step["replay"]["launches_F"],
         launches_per_op_by_op_frame=default_step["op_by_op"]["launches_F"],
+        launches_by_build=f_builds,
+        max_abs_err=max(f_err, sweep["F_max_abs_err"]), design=F_DESIGN,
+        **{k: frame_f[k] for k in f_shape},
+        masked_taps=frame_f["masked_taps"],
+        masked_pixels=frame_f["masked_pixels"],
+        ms=frame_f["ms"], ms_l2_flushed=frame_f["ms_l2_flushed"],
+        plain_ms=frame_f["plain_ms"], bound_ms=frame_f["bound_ms"],
+        bound_by=frame_f["bound_by"], library_ms=None,
+        library_ms_of="none: no PyTorch call denoises",
+        slider_sweep_frames=sweep["frames"],
+        slider_sweep_captures=sweep["captures"],
+        slider_move_frame_wall_ms=sweep["replay"]["median_wall_ms"],
+        slider_move_frame_device_ms=sweep["replay"]["median_device_ms"],
+        recapture_ms=sweep["recapture"],
+        static_build_equal_share=static_f["runtime_equal_share"],
+        static_build_max_abs_diff=static_f["runtime_max_abs_diff"],
+        resampling_ms=denoised_rt_f["ms"],
+        resampling_bound_ms=denoised_rt_f["bound_ms"],
+        resampling_plain_ms=denoised_rt_f["plain_ms"],
+        resampling_registers=denoised_rt_f["registers"]))
+    kernels.append(dict(
+        name="postprocess (kernel F, static builds: the sirBird denoiser and "
+             "the resample, one launch a frame or shard)", route="cuda",
+        source=f_src, replaces="zig_vulkan_tpu/ops/denoise.py:167",
+        launches=mesh_counts["F"] + entry_counts["F"],
         launches_per_shard_of_a_sharded_frame=mesh_counts["per_shard"]["F"],
         launches_per_shard_of_a_sharded_replay=shard_launches["replay"]["F"],
         launches_per_shard_of_a_sharded_op_by_op_frame=shard_launches[
             "op_by_op"]["F"],
-        launches_by_build=f_builds,
-        max_abs_err=max(r["max_abs_err"] for r in frame_rows["F"]),
-        design=F_DESIGN,
-        **{k: frame_f[k] for k in ("build", "tile", "halo", "block_threads",
-                                   "smem_bytes", "registers",
-                                   "warps_per_sm")},
-        ms=frame_f["ms"], ms_l2_flushed=frame_f["ms_l2_flushed"],
-        plain_ms=frame_f["plain_ms"], bound_ms=frame_f["bound_ms"],
-        bound_by=frame_f["bound_by"], image=frame_f["image"],
-        taps=frame_f["taps"], library_ms=alone_f["library_ms"],
+        launches_in_the_entry_step=entry_counts["F"],
+        max_abs_err=f_err, design=F_DESIGN,
+        **{k: static_f[k] for k in f_shape},
+        ms=static_f["ms"], ms_l2_flushed=static_f["ms_l2_flushed"],
+        plain_ms=static_f["plain_ms"], bound_ms=static_f["bound_ms"],
+        bound_by=static_f["bound_by"], library_ms=alone_f["library_ms"],
         library_ms_of=f"torch.nn.functional.grid_sample, the resample alone "
                       f"{alone_f['image']} to {alone_f['out']}",
         resample_alone_ms=alone_f["ms"],

@@ -36,15 +36,20 @@ def _constant(name):
 
 
 def test_launch_shape_matches_the_source():
-    """The host's tile constants are the kernel's."""
+    """The host's tile constants are the kernel's; the runtime builds'
+    influences take 4 bytes a tap of static shared memory."""
     assert _constant("TILE_W") == tdn.TILE_W
     assert _constant("MAX_BLOCK_ROWS") == tdn.BLOCK_ROWS
     assert tdn.SMEM_OPTIN == 227 * 1024
+    text = (_build.CSRC / "denoise.cu").read_text()
+    assert "constexpr int RUNTIME_SMEM = 4 * DENOISE_MAX_TAPS;" in text
+    assert tdn.RUNTIME_SMEM == 4 * _constant("DENOISE_MAX_TAPS")
 
 
 def _all_tap_tables(pixel_multiplier):
     """Every spiral kernel F takes: the static loop at samples 0-32 and the
-    runtime value over the masked 32-tap spiral."""
+    runtime value over the masked 32-tap spiral (every tap's geometry,
+    whatever the value)."""
     for samples in range(33):
         yield samples, tdn.spiral_taps(samples,
                                        pixel_multiplier=pixel_multiplier)
@@ -55,25 +60,31 @@ def _all_tap_tables(pixel_multiplier):
 @pytest.mark.filterwarnings("ignore::RuntimeWarning")  # samples 0: 0.5 / 0
 @pytest.mark.parametrize("pixel_multiplier", MULTIPLIERS)
 def test_halo_covers_every_live_tap(pixel_multiplier):
-    """The tiled plan's halo covers the centre and each live tap's x0,
-    x0 + 1, y0 and y0 + 1, and no more; its bytes are the tile's and fit
-    the opt-in limit; a halo no tile holds (one row of threads over the
-    limit) takes the untiled build."""
+    """The tiled plan's halo covers the centre and each tap's x0, x0 + 1,
+    y0 and y0 + 1 (the live taps of a static table, all 33 of a runtime
+    one), and no more; its bytes are the tile's and fit the opt-in limit
+    (less the runtime builds' influences); a halo no tile holds (one row of
+    threads over the limit) takes the untiled build; a runtime table takes
+    the runtime builds."""
     untiled = 0
     for samples, taps in _all_tap_tables(pixel_multiplier):
         x0, y0 = list(taps["x0"]), list(taps["y0"])
         halo = (min([0, *x0]), max([0, *x0]) + 1,
                 min([0, *y0]), max([0, *y0]) + 1)
         plan = tdn.launch_plan(taps, tdn.SHIFTED)
-        if tdn.tile_bytes(halo, 1) > tdn.SMEM_OPTIN:
-            assert plan.build == "shifted_global", samples
+        runtime = tdn.is_runtime_table(taps)
+        assert runtime == ("influence" not in taps)
+        suffix = "_runtime" if runtime else ""
+        room = tdn.SMEM_OPTIN - (tdn.RUNTIME_SMEM if runtime else 0)
+        if tdn.tile_bytes(halo, 1) > room:
+            assert plan.build == "shifted_global" + suffix, samples
             assert plan.smem_bytes == 0
             untiled += 1
             continue
-        assert plan.build == "shifted_tile", samples
+        assert plan.build == "shifted_tile" + suffix, samples
         assert plan.halo == halo, samples
         assert plan.smem_bytes == tdn.tile_bytes(halo, plan.block_rows)
-        assert plan.smem_bytes <= tdn.SMEM_OPTIN
+        assert plan.smem_bytes <= room
         assert plan.tile == (tdn.TILE_W, plan.block_rows)
         if pixel_multiplier <= 4.0:
             assert plan.block_rows == tdn.BLOCK_ROWS
@@ -83,10 +94,15 @@ def test_halo_covers_every_live_tap(pixel_multiplier):
                                tdn.SHIFTED).build == "shifted_global"
     else:
         assert untiled == 0
-    # the defaults: x in [-4, 3], y in [-3, 4], a 32 x 8 tile in 6.9 KB
+    # the defaults: x in [-4, 3], y in [-3, 4], a 32 x 8 tile in 6.9 KB;
+    # the runtime path's 33 taps: x in [-5, 4], y in [-4, 4], 7.7 KB
     plan = tdn.launch_plan(tdn.spiral_taps(20), tdn.SHIFTED)
     assert plan.halo == (-4, 3, -3, 4) and plan.tile == (32, 8)
     assert plan.smem_bytes == 7020
+    plan = tdn.launch_plan(tdn.spiral_taps(20.0, max_samples=32),
+                           tdn.SHIFTED)
+    assert plan.build == "shifted_tile_runtime" and plan.tile == (32, 8)
+    assert plan.halo == (-5, 4, -4, 4) and plan.smem_bytes == 7872
 
 
 def test_a_wide_halo_takes_a_smaller_tile():
@@ -108,10 +124,14 @@ def test_a_wide_halo_takes_a_smaller_tile():
 def test_other_modes_take_their_builds():
     taps = tdn.spiral_taps(20)
     assert tdn.launch_plan(taps, tdn.RESAMPLE).build == "resample"
+    runtime = tdn.spiral_taps(20.0, max_samples=32)
+    assert tdn.launch_plan(runtime, tdn.RESAMPLE).build == "resample_runtime"
     plan = tdn.launch_plan(None, tdn.RESAMPLE_ONLY)
     assert plan.build == "resample_only" and plan.smem_bytes == 0
     assert set(tdn.BUILDS) == {"shifted_tile", "shifted_global",
-                               "resample", "resample_only"}
+                               "resample", "shifted_tile_runtime",
+                               "shifted_global_runtime", "resample_runtime",
+                               "resample_only"}
 
 
 # -- the tiled read, emulated -------------------------------------------------------

@@ -797,13 +797,15 @@ def test_launch_counters_after_replays(card):
 
 @pytest.mark.cuda
 def test_denoiser_sweep_keeps_one_graph(card):
-    """Each denoiser value is a key and a capture; the engine keeps the
-    current key's step alone, so the memory the graphs hold stays flat
-    over a sweep of values."""
+    """Each value of the denoiser's pixel_multiplier is a key and a capture
+    (samples, bias and hue tolerance are push constants: see
+    test_slider_moves_replay_one_graph); the engine keeps the current key's
+    step alone, so the memory the graphs hold stays flat over a sweep of
+    values."""
     rt = _step_engine(card)
     held = []
     for i in range(6):
-        rt.set_denoiser(distribution_bias=0.05 * (i + 1))
+        rt.set_denoiser(pixel_multiplier=1.0 + 0.25 * i)
         rt.render()
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated(card))
@@ -1318,10 +1320,13 @@ def test_kernel_f_matches_plain(card, shape, mode):
 @pytest.mark.parametrize("samples", [1, 8, 20, 32])
 @pytest.mark.parametrize("masked", [False, True], ids=["static", "masked"])
 @pytest.mark.parametrize("mode", ["same", "up"])
-def test_kernel_f_samples(card, samples, masked, mode):
+def test_kernel_f_samples(card, monkeypatch, samples, masked, mode):
     """Each spiral length, the static loop and the runtime `samples` over
     the masked MAX_RUNTIME_SAMPLES spiral, bit for bit against the plain
-    version; the masked spiral equals the static loop."""
+    version; the masked spiral's plain version, given the static table's
+    influences (the runtime builds compute theirs on the card), equals the
+    static loop bit for bit: on a finite image the masked taps add
+    nothing."""
     h, w = 97, 161
     out_h, out_w, _ = _f_out(mode, h, w)
     img = _f_image(card, h, w, samples)
@@ -1332,6 +1337,13 @@ def test_kernel_f_samples(card, samples, masked, mode):
     torch.cuda.synchronize()
     assert _f_same(got, want)
     static = denoise.denoise(img, samples=samples, out_shape=(out_h, out_w))
+    if masked:
+        host = denoise.spiral_taps(samples)["influence"]
+        table = torch.from_numpy(np.concatenate(
+            [host, np.full(33 - host.size, np.nan, np.float32)])).to(card)
+        monkeypatch.setattr(denoise, "runtime_influences",
+                            lambda s, b, r2: table)
+        got = denoise.denoise_plain(img, out_shape=(out_h, out_w), **kw)
     assert torch.equal(got.view(torch.int32), static.view(torch.int32))
 
 
@@ -1533,9 +1545,14 @@ def test_kernel_f_refuses_what_it_does_not_take(card):
         denoise.postprocess(torch.zeros(0, 64, 3, device=card), cfg, 40, 64)
     with pytest.raises(ValueError, match="at most 33 taps"):
         denoise.denoise(img, samples=40.0, max_samples=40)
-    # masked taps are not launched: 4 live taps of a 41-tap spiral
-    assert _f_same(denoise.denoise(img, samples=3.0, max_samples=40),
-                   denoise.denoise_plain(img, samples=3.0, max_samples=40))
+    # the runtime builds run every tap of the spiral, masked or not: a
+    # 41-tap spiral is refused whatever `samples` is
+    with pytest.raises(ValueError, match="at most 33 taps"):
+        denoise.denoise(img, samples=3.0, max_samples=40)
+    # a runtime launch's knobs are 0-d float32 tensors on its device
+    with pytest.raises(ValueError, match="0-d"):
+        denoise.denoise(img, samples=torch.ones(2, device=card),
+                        max_samples=32)
     # a band whose slab lacks the halo rows the spiral reads
     a, b = denoise.band_input_rows(20, 30, 40, 40, cfg)
     with pytest.raises(ValueError, match="read image rows"):
@@ -1594,3 +1611,206 @@ def test_replayed_step_launches_kernel_f_once(card, case):
     assert denoise.postprocess.launches == 1
     assert _card_launches(rt.render, 2)["F"] == 1
     assert _card_launches(rt.render_op_by_op, 1)["F"] == 1
+
+
+# -- kernel F's runtime builds: the knobs in device memory ---------------------------
+
+_HUE_EXPONENTS = [0.0, 1.0, 0.5, -0.5, -1.0, 2.0, 3.0, -2.0, 8.0, 20.0, 7.3]
+
+
+def _knobs(card, samples, bias=0.6, hue=20.0):
+    """A DenoiserConfig whose runtime knobs are 0-d float32 tensors on the
+    card."""
+    return DenoiserConfig(**{k: torch.tensor(np.float32(v), device=card)
+                             for k, v in (("samples", samples),
+                                          ("distribution_bias", bias),
+                                          ("inverse_hue_tolerance", hue))})
+
+
+def _f_runtime(img, cfg, out_h, out_w, band=None):
+    """(the runtime build's result, the twin's, the build launched)."""
+    want = denoise.postprocess_plain(img, cfg, out_h, out_w, band,
+                                     max_samples=32)
+    got, ran = _f_build(lambda: denoise.postprocess(
+        img, cfg, out_h, out_w, band, max_samples=32))
+    return got, want, ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", _HUE_EXPONENTS)
+def test_aten_pow_with_a_device_exponent_is_powf(card, exponent):
+    """ATen's pow with a 0-d exponent on the card runs its generic powf
+    kernel, the same as with a full tensor of the exponent; with the
+    exponent as a Python number it takes the branches kernel F's static
+    builds copy (`pow_branch`), which differ from powf at 0.5, -0.5, -1, 2,
+    3 and -2 (as NVIDIA H100 80GB HBM3, torch 2.11 and CUDA 12.8 showed).
+    The runtime twin's hue and influences rely on the first."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.cat([torch.rand(1 << 16, generator=g), torch.tensor(
+        [0.0, -0.0, 1.0, float("inf"), float("nan"), 1e-30, 3.0e38])])
+    x = torch.clamp(x.to(card), min=0.0)
+    e = torch.tensor(exponent, device=card)
+    device_exp = torch.pow(x, e)
+    assert _f_same(device_exp, torch.pow(x, torch.full_like(x, exponent)))
+    assert _f_same(device_exp, torch.pow(x, e.expand_as(x)))
+    scalar = torch.pow(x, exponent)
+    if denoise.pow_branch(exponent) in (denoise.POW_POWF, 1, 2):
+        assert _f_same(device_exp, scalar)
+    else:
+        assert not _f_same(device_exp, scalar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", _HUE_EXPONENTS)
+@pytest.mark.parametrize("samples", [1, 20, 32])
+def test_kernel_f_runtime_hue_exponents(card, samples, exponent):
+    """The runtime builds (tiled, untiled at pixel_multiplier 50, and
+    resampling) at every hue exponent, bit for bit against the twin on an
+    image with zeros, NaN, inf, negatives and HDR values."""
+    h, w = 64, 96
+    img = _f_image(card, h, w, 11, "special")
+    for pixel_multiplier, (out_h, out_w), build in (
+            (1.5, (h, w), "shifted_tile_runtime"),
+            (50.0, (h, w), "shifted_global_runtime"),
+            (1.5, (80, 120), "resample_runtime")):
+        cfg = dataclasses.replace(_knobs(card, samples, hue=exponent),
+                                  pixel_multiplier=pixel_multiplier)
+        got, want, ran = _f_runtime(img, cfg, out_h, out_w)
+        assert ran == build and _f_same(got, want), (pixel_multiplier, ran)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [0, 1, 8, 20, 31.5, 32])
+@pytest.mark.parametrize("mode", ["same", "up", "down"])
+def test_kernel_f_runtime_planted_nonfinite(card, samples, mode):
+    """An Inf and a NaN planted in a finite image: the runtime build's
+    masked taps spread them as the twin's (NaN in the same pixels, every
+    other value bit for bit), and the tiled build's blocks that skip their
+    masked taps (a finite tile) equal the twin too; fewer taps than 32
+    make pixels non-finite that the static loop leaves finite."""
+    h, w = 75, 133
+    out_h, out_w, _ = _f_out(mode, h, w)
+    img = _f_image(card, h, w, 5)
+    img[30, 40, 0] = float("inf")
+    img[50, 90, 2] = float("nan")
+    got, want, _ = _f_runtime(img, _knobs(card, samples), out_h, out_w)
+    assert _f_same(got, want)
+    if 1 <= samples < 32 and mode == "same":
+        static = denoise.denoise(img, samples=int(samples))
+        assert int((~torch.isfinite(got)).sum()) > int(
+            (~torch.isfinite(static)).sum())
+        assert bool(torch.isfinite(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["same", "up"])
+def test_kernel_f_runtime_bands(card, n, mode):
+    """Bands of the runtime path from their slabs (`band_input_rows` with
+    the 33-tap spiral's halo): each equal to its twin and the rows of the
+    whole image's result, bit for bit, a planted NaN included."""
+    h, w = 144, 256
+    out_h, out_w, _ = _f_out(mode, h, w)
+    cfg = _knobs(card, 8, hue=3.0)
+    img = _f_image(card, h, w, n)
+    img[70, 100, 1] = float("nan")
+    whole = denoise.postprocess(img, cfg, out_h, out_w, max_samples=32)
+    bands = []
+    for i in range(n):
+        r0, r1 = i * out_h // n, (i + 1) * out_h // n
+        a, b = denoise.band_input_rows(r0, r1, out_h, h, cfg, max_samples=32)
+        got, want, _ = _f_runtime(img[a:b].clone(), cfg, out_h, out_w,
+                                  denoise.Band(r0, r1, a, h))
+        assert _f_same(got, want), i
+        bands.append(got)
+    assert _f_same(torch.cat(bands), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["same", "up"])
+def test_kernel_f_runtime_graph_reads_the_knobs_in_place(card, mode):
+    """A CUDA graph captures the runtime build with the knobs as views of a
+    push-constant tensor; values written into pc[19], pc[20] and pc[23] on
+    the card after the capture change each replay's output to the twin's
+    at the new values."""
+    h, w = 96, 160
+    out_h, out_w, _ = _f_out(mode, h, w)
+    img = _f_image(card, h, w, 3, "special")
+    pc = torch.zeros(24, device=card)
+    pc[19], pc[20], pc[23] = 0.6, 20.0, 20.0
+    cfg = DenoiserConfig(samples=pc[23], distribution_bias=pc[19],
+                         inverse_hue_tolerance=pc[20])
+
+    def run():
+        return denoise.postprocess(img, cfg, out_h, out_w, max_samples=32)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    outputs = []
+    for samples, bias, hue in ((8.0, 0.3, 2.0), (32.0, 1.0, 0.5),
+                               (1.0, 0.45, 7.3), (20.0, 0.6, 20.0)):
+        pc[23].fill_(samples)
+        pc[19].fill_(bias)
+        pc[20].fill_(hue)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = denoise.postprocess_plain(img, _knobs(card, samples, bias, hue),
+                                         out_h, out_w, max_samples=32)
+        assert _f_same(out, want), (samples, bias, hue)
+        outputs.append(out.clone())
+    assert not _f_same(outputs[0], outputs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [denoise.SHIFTED, denoise.RESAMPLE])
+@pytest.mark.parametrize("pixel_multiplier", [1.5, 50.0])
+def test_kernel_f_occupancy_of_the_runtime_builds(card, pixel_multiplier,
+                                                  mode):
+    """The runtime holds at least one block an SM of each runtime build at
+    its plan's block shape and shared bytes (its influences' static bytes
+    besides)."""
+    taps = denoise.spiral_taps(20.0, pixel_multiplier=pixel_multiplier,
+                               max_samples=32)
+    plan = denoise.launch_plan(taps, mode)
+    assert plan.build.endswith("_runtime")
+    a = _build.DenoiseArgs()
+    a.mode, a.runtime = mode, 1
+    a.tiled = int(plan.build == "shifted_tile_runtime")
+    a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
+    blocks = ctypes.c_int()
+    _build.check(_build.library().zvt_denoise_occupancy(
+        ctypes.byref(a), ctypes.byref(blocks)), "zvt_denoise_occupancy")
+    assert 1 <= blocks.value and blocks.value * plan.block_rows <= 64
+
+
+@pytest.mark.cuda
+def test_slider_moves_replay_one_graph(card):
+    """Moves of the denoiser's samples, distribution bias and hue tolerance
+    between frames keep the step and its one capture: each replay equals
+    the body op by op (the runtime build reading the new push constants),
+    and a trace of a replay shows its one kernel F launch."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card)
+    rt.set_resolutions(output=(256, 144))
+    rt.render()
+    step, before = rt.step(), GraphedCall.captures
+    images = []
+    for knobs in (dict(samples=8), dict(distribution_bias=0.3),
+                  dict(inverse_hue_tolerance=2.0),
+                  dict(samples=32, inverse_hue_tolerance=0.5),
+                  dict(samples=1, distribution_bias=1.0,
+                       inverse_hue_tolerance=-1.0)):
+        rt.set_denoiser(**knobs)
+        got, want = both_routes(rt)
+        assert torch.equal(got, want), knobs
+        images.append(got)
+    assert rt.step() is step and GraphedCall.captures == before
+    assert not torch.equal(images[0], images[1])
+    assert _card_launches(rt.render, 2)["F"] == 1

@@ -2,8 +2,9 @@
 
 Kernel F (csrc/denoise.cu) runs only on the card; here its wrapper's host
 work is held on the CPU: the tap table (`ops.denoise.spiral_taps`) against
-the JAX package's spiral and the scalars the port's `_sir_bird` multiplies
-in, bit for bit; the argument struct's ctypes layout against the C struct
+the JAX package's spiral and the scalars the port's plain filter multiplies
+in, bit for bit (the runtime path's influences from `runtime_influences`,
+which tests/test_torch_denoise_runtime.py holds against the JAX package); the argument struct's ctypes layout against the C struct
 parsed from the source; the rows a launch reads (`rows_read`) against
 `band_input_rows`. The plain post-process (what kernel F is held against on
 the card) is held against the JAX package in the cases test_torch_denoise.py
@@ -46,13 +47,40 @@ _TABLE_CASES = [
 ]
 
 
+def _weights(taps, samples, max_samples, bias=0.6):
+    """Each tap's influence as the plain filter weighs it: the static
+    table's `influence`; on the runtime path `runtime_influences` of the
+    table's `r2`, 0 past `samples` (a masked tap)."""
+    if max_samples is None:
+        return taps["influence"]
+    infl = tdn.runtime_influences(torch.tensor(F(samples)),
+                                  torch.tensor(F(bias)),
+                                  torch.from_numpy(taps["r2"])).numpy()
+    live = np.arange(infl.size, dtype=F) <= F(samples)
+    return np.where(live, infl, F(0.0)).astype(F)
+
+
 def _sir_bird_scalars(monkeypatch, samples, max_samples, same_res,
-                      pixel_multiplier=1.5, bias=0.6):
-    """What the port's `_sir_bird` uses for each live tap, read from a run
-    of it: the offsets it samples at, and (hue and saturation replaced by
+                      pixel_multiplier=1.5, bias=0.6, table=None):
+    """What the port's plain filter uses for each tap, read from a run of
+    it: the offsets it samples at, and (hue and saturation replaced by
     ones, tap k's image one-hot at pixel k) output pixel k, which is then
-    influence_k / the sum of the influences."""
+    influence_k / the sum of the influences. On the runtime path its
+    influences are `runtime_influences` of the tap table `table`'s r2,
+    computed before the pow is replaced (the stand-in checks it gets that
+    r2 and the knobs)."""
     n, offsets = 40, []
+    if max_samples is not None:
+        infl = tdn.runtime_influences(torch.tensor(F(samples)),
+                                      torch.tensor(F(bias)),
+                                      torch.from_numpy(table["r2"]))
+
+        def influences(s, b, r2):
+            assert torch.equal(r2, torch.from_numpy(table["r2"]))
+            assert float(s) == F(samples) and float(b) == F(bias)
+            return infl
+
+        monkeypatch.setattr(tdn, "runtime_influences", influences)
 
     def one_hot(ox, oy):
         t = torch.zeros(1, n, 3)
@@ -84,7 +112,7 @@ def test_tap_table_is_what_sir_bird_computes(monkeypatch, samples,
     w, h = 37, 23
     taps = tdn.spiral_taps(samples, 0.6, 1.5, w, h, max_samples)
     offsets, ratios = _sir_bird_scalars(monkeypatch, samples, max_samples,
-                                        same_res)
+                                        same_res, table=taps)
     assert len(offsets) == len(taps["x0"])
     for i, (ox, oy) in enumerate(offsets):
         if same_res:  # bilinear_sample_shifted's shifts and fractions
@@ -96,10 +124,11 @@ def test_tap_table_is_what_sir_bird_computes(monkeypatch, samples,
         else:  # _sample_coords' texture-coordinate offsets
             assert taps["ou"][i] == F(ox) / F(w)
             assert taps["ov"][i] == F(oy) / F(h)
+    weights = _weights(taps, samples, max_samples)
     total = F(0.0)
-    for v in taps["influence"]:
+    for v in weights:
         total = F(total + v)
-    want = (taps["influence"] / total).astype(F)
+    want = (weights / total).astype(F)
     assert np.array_equal(ratios.view(np.int32), want.view(np.int32))
 
 
@@ -107,18 +136,19 @@ def test_tap_table_is_what_sir_bird_computes(monkeypatch, samples,
 @pytest.mark.parametrize("pixel_multiplier", [1.0, 1.5, 3.0])
 def test_tap_table_against_the_jax_spiral(samples, max_samples,
                                           pixel_multiplier):
-    """Shifts, fractions and resample offsets bit for bit from the JAX
-    package's `spiral_offsets`, masked taps left out; the influences within
+    """Shifts, fractions, resample offsets and r2 bit for bit from the JAX
+    package's `spiral_offsets`, every tap of the spiral (the runtime path's
+    table holds the masked taps too); the static table's influences within
     2^-22 (two float32 spacings below 1) of the JAX `_sir_bird`'s run op by
     op: its `jnp.power` and the port's `np.power` differ by one ULP on some
     offsets, as the plain versions do, and the cube spreads it (measured:
-    1.8e-7 at most)."""
+    1.8e-7 at most). The runtime table has no influence: the device
+    computes it (tests/test_torch_denoise_runtime.py)."""
     w, h = 64, 48
     taps = tdn.spiral_taps(samples, 0.6, pixel_multiplier, w, h, max_samples)
     n_taps = (samples if max_samples is None else max_samples) + 1
-    live = [(F(ox), F(oy)) for i, (ox, oy) in enumerate(
-        rdn.spiral_offsets(int(n_taps) - 1, pixel_multiplier))
-        if max_samples is None or F(i) <= F(samples)]
+    live = [(F(ox), F(oy)) for ox, oy in
+            rdn.spiral_offsets(int(n_taps) - 1, pixel_multiplier)]
     ox, oy = (np.array(v, F) for v in zip(*live))
     # as the JAX bilinear_sample_shifted computes them: an int shift, the
     # fraction in float64 rounded to float32 (tap 0's -0.0 keeps its sign)
@@ -129,9 +159,12 @@ def test_tap_table_against_the_jax_spiral(samples, max_samples,
     fy = np.array([float(v) - i for v, i in zip(oy, y0)]).astype(F)
     for k, want in (("fx", fx), ("fy", fy), ("gx", F(1.0) - fx),
                     ("gy", F(1.0) - fy), ("ou", ox / F(w)),
-                    ("ov", oy / F(h))):
+                    ("ov", oy / F(h)), ("r2", ox * ox + oy * oy)):
         assert np.array_equal(taps[k].view(np.int32),
                               want.astype(F).view(np.int32)), k
+    if max_samples is not None:
+        assert "influence" not in taps
+        return
     with jax.disable_jit():
         radius = jnp.sqrt(jnp.float32(samples))
         true_radius = F(0.5) / (radius * radius)
@@ -192,7 +225,7 @@ def test_denoise_args_layout_matches_the_c_struct():
     for (name, t), (_, want) in zip(args._fields_, fields):
         assert ctypes.sizeof(t) == ctypes.sizeof(want), name
         assert getattr(args, name).offset == getattr(Parsed, name).offset
-    assert ctypes.sizeof(args) == ctypes.sizeof(Parsed) == 1288
+    assert ctypes.sizeof(args) == ctypes.sizeof(Parsed) == 1448
     assert _build.DENOISE_MAX_TAPS == tdn.MAX_RUNTIME_SAMPLES + 1
     assert "zvt_denoise" in _build._SIGNATURES
 

@@ -162,3 +162,24 @@ def test_denoise_resample_alone_is_bound_by_bytes():
     assert roofline.denoise_ops(n_out, 0, denoise.RESAMPLE_ONLY) == 41 * n_out
     assert (roofline.denoise_ops(1, 21, denoise.RESAMPLE)
             - roofline.denoise_ops(1, 21, denoise.SHIFTED)) == 21 * 12 + 41
+
+
+def test_denoise_bound_of_the_runtime_path():
+    """The runtime path at the default knobs: the 21 live taps as the static
+    path's, plus 33 influences from the knobs once (28 operations each,
+    powf as 20) and 12 bytes of knobs; 12 masked taps of 33 operations
+    (the bilinear sample, three products and sums) count only at the pixels
+    whose masked taps read a value that is not finite."""
+    from zig_vulkan_tpu_torch.ops import denoise
+
+    n = 1024 * 576
+    static = roofline.denoise_ops(n, 21, denoise.SHIFTED)
+    finite = roofline.denoise_ops(n, 21, denoise.SHIFTED, 12, 0, 33)
+    assert finite == static + 33 * 28
+    assert (roofline.denoise_ops(n, 21, denoise.SHIFTED, 12, 100, 33)
+            - finite) == 100 * 12 * 33
+    assert (roofline.denoise_ops(1, 21, denoise.RESAMPLE, 12, 1)
+            - roofline.denoise_ops(1, 21, denoise.RESAMPLE)) == 12 * 45
+    assert roofline.denoise_bytes(n, n, runtime=True) == n * 24 + 12
+    ms, by = roofline.denoise_bound_ms(n, n, 21, denoise.SHIFTED, 12, 0, 33)
+    assert by == "operations" and math.isclose(ms, finite / 67e12 * 1e3)

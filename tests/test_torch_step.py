@@ -134,25 +134,67 @@ def test_step_key_holds_the_reference_fields(temporal):
                                          ("distribution_bias", 0.3),
                                          ("inverse_hue_tolerance", 5.0)])
 def test_step_key_changes_with_the_denoiser_push_constants(knob, value):
-    """The port's key holds the three values the JAX step reads from pc[19],
-    pc[20] and pc[23]: a change is a new step (a new capture on a card),
-    where the JAX key stays the same."""
+    """The three values the JAX step reads from pc[19], pc[20] and pc[23]
+    change the push constants and not the key, in both engines: the port's
+    step (on a card, its graph) stays."""
     ref, port = _engines()
     rkey, key = ref._step_key(), port._step_key()
+    pc = port._push_constants()
     before = port.step()
     _both((ref, port), lambda rt: rt.set_denoiser(**{knob: value}))
     assert ref._step_key() == rkey
-    assert port._step_key() != key
-    field = {"samples": "denoiser_samples"}.get(knob, knob)
-    assert getattr(port._step_key(), field) == value
+    assert port._step_key() == key
+    slot = {"samples": 23, "distribution_bias": 19,
+            "inverse_hue_tolerance": 20}[knob]
+    assert port._push_constants()[slot] == np.float32(value) != pc[slot]
+    assert not {"denoiser_samples", "distribution_bias",
+                "inverse_hue_tolerance"} & set(tstep.StepKey._fields)
     port.render()
-    assert port.step() is not before
-    assert list(port._step_cache) == [port._step_key()]  # the old one freed
+    assert port.step() is before
+    assert list(port._step_cache) == [key]
+
+
+def test_denoiser_sliders_keep_the_step_and_the_frame_follows():
+    """Moves of the three sliders between frames keep the step; each frame
+    equals the plain post-process of the same traced image at the new
+    values, bit for bit (given as 0-d tensors, as the step reads them from
+    its push constants); moves of pixel_multiplier or enabled make a new
+    step."""
+    rt = _port()
+    rt.render()
+    step = rt.step()
+    ow, oh = rt.output_resolution
+    for knobs in (dict(samples=8), dict(distribution_bias=0.3),
+                  dict(inverse_hue_tolerance=2.0),
+                  dict(samples=40, distribution_bias=0.45,
+                       inverse_hue_tolerance=0.5),
+                  dict(samples=1, inverse_hue_tolerance=7.3)):
+        rt.set_denoiser(**knobs)
+        got = rt.render()
+        assert rt.step() is step
+        img, _ = _host_frame(rt)
+        dn = rt.denoiser
+        cfg = dataclasses.replace(dn, **{
+            k: torch.tensor(np.float32(v)) for k, v in (
+                ("samples", min(dn.samples, tdn.MAX_RUNTIME_SAMPLES)),
+                ("distribution_bias", dn.distribution_bias),
+                ("inverse_hue_tolerance", dn.inverse_hue_tolerance))})
+        want = tdn.postprocess_plain(img, cfg, oh, ow,
+                                     max_samples=tdn.MAX_RUNTIME_SAMPLES)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for knobs in (dict(pixel_multiplier=2.0), dict(enabled=False)):
+        rt.set_denoiser(**knobs)
+        rt.render()
+        assert rt.step() is not step
+        step = rt.step()
+        assert list(rt._step_cache) == [rt._step_key()]
 
 
 def _host_frame(rt, sample_base=0.0):
     """The frame from host values: the camera basis copied to the device,
-    the sun as numpy values, the sample base as a float."""
+    the sun as numpy values, the sample base as a float, the denoiser's
+    samples (clipped to MAX_RUNTIME_SAMPLES), bias and hue tolerance as
+    floats on the runtime path the step takes."""
     d, sun = rt.camera.d_camera, rt.sun.device_data
     iw, ih = rt.internal_resolution
     ow, oh = rt.output_resolution
@@ -164,7 +206,10 @@ def _host_frame(rt, sample_base=0.0):
         max_steps=rt.trace_config.max_steps, sample_base=sample_base,
         shadow_probe=bool(rt.trace_config.sun_in_kernel),
         use_skip=rt.trace_config.empty_skip)
-    return img, tdn.postprocess(img, rt.denoiser, oh, ow)
+    dn = dataclasses.replace(rt.denoiser, samples=float(min(
+        rt.denoiser.samples, tdn.MAX_RUNTIME_SAMPLES)))
+    return img, tdn.postprocess(img, dn, oh, ow,
+                                max_samples=tdn.MAX_RUNTIME_SAMPLES)
 
 
 @pytest.mark.parametrize("probe", [False, True])
@@ -408,13 +453,35 @@ def test_kernel_launches_counts_trace_names_by_build():
     assert tprof.kernel_launches([])["A"] == 0
 
 
+def test_kernel_launches_counts_kernel_f_runtime_builds():
+    """Kernel F's runtime builds, demangled or mangled, count as F."""
+    for name in ("void (anonymous namespace)::denoise_kernel_runtime<0, "
+                 "true>(DenoiseArgs)",
+                 "_ZN12_GLOBAL__N_122denoise_kernel_runtimeILi1ELb0EEEv11"
+                 "DenoiseArgs"):
+        assert tprof.kernel_kind(name) == ("F", None)
+    got = tprof.kernel_launches(_TRACE_NAMES + (
+        "void (anonymous namespace)::denoise_kernel_runtime<0, true>("
+        "DenoiseArgs)",))
+    assert got["F"] == 4
+
+
 def test_step_cache_keeps_one_step_over_denoiser_values():
-    """A slider sweep of the denoiser makes a key a value; the cache keeps
-    the current key's step alone, so no old graph stays behind."""
+    """A slider sweep of the denoiser's push constants keeps one key and
+    one step; a sweep of pixel_multiplier makes a key a value, and the
+    cache keeps the current key's step alone, so no old graph stays
+    behind."""
     rt = _port(denoise=True, out=48)
+    rt.render()
+    step = rt.step()
+    for i in range(10):
+        rt.set_denoiser(distribution_bias=0.05 * (i + 1),
+                        samples=3 * i, inverse_hue_tolerance=1.0 + i)
+        rt.render()
+        assert rt.step() is step and len(rt._step_cache) == 1
     seen = set()
     for i in range(10):
-        rt.set_denoiser(distribution_bias=0.05 * (i + 1))
+        rt.set_denoiser(pixel_multiplier=0.5 + 0.25 * i)
         rt.render()
         seen.add(rt._step_key())
         assert len(rt._step_cache) == 1
@@ -423,15 +490,16 @@ def test_step_cache_keeps_one_step_over_denoiser_values():
 
 def test_temporal_mean_carries_over_a_denoiser_change():
     """A new step of the same resolution takes the running mean on, as the
-    JAX engine's accumulator does: three frames with a denoiser change
-    after the second accumulate what three frames without it do."""
+    JAX engine's accumulator does: three frames with a denoiser change that
+    makes a new key (pixel_multiplier) after the second accumulate what
+    three frames without it do."""
     a, b = _port(out=48, animate=False), _port(out=48, animate=False)
     for rt in (a, b):
         rt.set_temporal(True)
         rt.render()
         rt.render()
     step = a.step()
-    a.set_denoiser(distribution_bias=0.3)
+    a.set_denoiser(pixel_multiplier=2.0)
     a.render()
     b.render()
     assert a.step() is not step and a._accum is a.step().accum

@@ -126,7 +126,8 @@ class DenoiseArgs(ctypes.Structure):
         ("x0", ctypes.c_int * DENOISE_MAX_TAPS),
         ("y0", ctypes.c_int * DENOISE_MAX_TAPS)] + [
         (name, ctypes.c_float * DENOISE_MAX_TAPS) for name in (
-            "fx", "fy", "gx", "gy", "ou", "ov", "influence")]
+            "fx", "fy", "gx", "gy", "ou", "ov", "influence", "r2")] + [
+        ("runtime", ctypes.c_int)] + _pointers("samples", "bias", "hue")
 
 
 # C entry points: name -> argtypes; every one returns a CUDA error code

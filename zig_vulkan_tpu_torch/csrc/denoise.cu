@@ -17,9 +17,21 @@
 // resample alone (the denoiser off).
 //
 // The spiral's taps are uniform across pixels, so the wrapper computes them
-// on the host, one row a live tap in float32 as the torch version computes
-// its scalars (`ops.denoise.spiral_taps`), and passes them by value in the
-// argument struct: a captured graph holds them with its launch. The slab
+// on the host, one row a tap in float32 as the torch version computes its
+// scalars (`ops.denoise.spiral_taps`), and passes them by value in the
+// argument struct: a captured graph holds them with its launch. The static
+// builds get the live taps with their influences. The runtime builds (the
+// engine's step, as the JAX step's `denoise(..., max_samples=32)`) get the
+// geometry of every tap of the MAX_RUNTIME_SAMPLES spiral, which depends on
+// pixel_multiplier and the sizes alone, and pointers to three floats in
+// device memory, the frame's push constants samples (pc[23]),
+// distribution_bias (pc[19]) and inverse_hue_tolerance (pc[20]): a captured
+// launch reads whatever values they hold when it runs. Each block computes
+// the taps' influences from them into shared memory, runs the live taps
+// (index <= samples) in full and the rest as masked taps, which add
+// tap * 0 to the weighted sums as the JAX path's zero-influence selects do
+// (a NaN or an infinity under a masked tap's footprint makes the pixel
+// NaN). The slab
 // `img` holds image rows from `a` on of an image of `height` rows;
 // output rows [r0, r1) are written and read image rows [row_lo, row_hi)
 // (`ops.denoise.rows_read`). Row indices are clamped at the image's edges
@@ -56,13 +68,23 @@
 //    pixel to pixel; the samples are gathered from global memory.
 //  - RESAMPLE_ONLY ("resample_only"): the resample alone.
 //
+// The runtime builds ("shifted_tile_runtime", "shifted_global_runtime",
+// "resample_runtime") add to a tap's work only a load of its influence from
+// shared memory; a masked tap is its bilinear sample and three products and
+// sums. The tiled runtime build votes while it loads its tile: a block
+// whose tile holds no value of magnitude 2^126 or more (no NaN, no
+// infinity, nothing a lerp could carry past the float range) skips its
+// masked taps, since each would add +-0 to sums that are never -0.
+//
 // Float parity: built with --fmad=false and without fast math, each torch
 // operation one rounding in the torch version's order; division and square
 // root are IEEE (__fdiv_rn, __fsqrt_rn); the clamps keep NaN as
-// torch.clamp does; the sums start at +0.0 and add tap 0 first; the hue's
-// power takes the branch ATen's tensor-scalar pow takes for its exponent
-// (0 and 1, then 0.5, -0.5, -1, 2, 3, -2 as special cases, otherwise powf);
-// the saturation's exponent 8 stays a run-time powf argument.
+// torch.clamp does; the sums start at +0.0 and add tap 0 first; in the
+// static builds the hue's power takes the branch ATen's tensor-scalar pow
+// takes for its exponent (0 and 1, then 0.5, -0.5, -1, 2, 3, -2 as special
+// cases, otherwise powf); the runtime builds' exponents live in device
+// memory, where ATen's pow runs powf for every value, and so do they; the
+// saturation's exponent 8 stays a run-time powf argument.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +94,9 @@ constexpr int DENOISE_MAX_TAPS = 33;  // ops.denoise.MAX_RUNTIME_SAMPLES + 1
 constexpr int TILE_W = 32;          // output columns a block: a warp a row
 constexpr int MAX_BLOCK_ROWS = 8;   // threads a block along y, at most
 constexpr int STATIC_SMEM = 48 * 1024;  // above: opt in (cudaFuncSetAttribute)
+// the runtime builds' influences, one a tap, in static shared memory
+constexpr int RUNTIME_SMEM = 4 * DENOISE_MAX_TAPS;
+constexpr float FINITE_TAPS = 0x1p126f;  // a tile below it makes finite taps
 
 // modes (ops.denoise.SHIFTED, RESAMPLE, RESAMPLE_ONLY)
 enum Mode { SHIFTED = 0, RESAMPLE = 1, RESAMPLE_ONLY = 2 };
@@ -103,7 +128,8 @@ struct DenoiseArgs {
   int r1;
   int mode;
   int hue_pow;       // POW_*
-  int n_taps;        // live taps, in spiral order
+  int n_taps;        // taps, in spiral order: the live ones (static),
+                     // every one of the spiral (runtime)
   int tiled;         // SHIFTED: 1 through the shared-memory tile
   int hx0;           // the tile's halo: columns [hx0, hx1] and rows
   int hx1;           // [hy0, hy1] around an output pixel
@@ -115,7 +141,9 @@ struct DenoiseArgs {
   float sat_exp;     // 8: the saturation's exponent, a runtime value as
                      // torch's pow kernel has it
   // a row a tap: the integer shift and its fractions (SHIFTED), the
-  // texture-coordinate offsets (RESAMPLE), pixel_influence cubed
+  // texture-coordinate offsets (RESAMPLE), pixel_influence cubed (static),
+  // ox * ox + oy * oy (runtime). The runtime builds' fields come last, so
+  // the static builds read theirs where they always have.
   int x0[DENOISE_MAX_TAPS];
   int y0[DENOISE_MAX_TAPS];
   float fx[DENOISE_MAX_TAPS];
@@ -125,6 +153,13 @@ struct DenoiseArgs {
   float ou[DENOISE_MAX_TAPS];   // ox / w_in
   float ov[DENOISE_MAX_TAPS];   // oy / height
   float influence[DENOISE_MAX_TAPS];
+  float r2[DENOISE_MAX_TAPS];
+  int runtime;       // 1: a runtime build (every tap, knobs from memory)
+  // the runtime builds' knobs, a float each in device memory: samples,
+  // distribution_bias, inverse_hue_tolerance (NULL in the static builds)
+  const float* samples;
+  const float* bias;
+  const float* hue;
 };
 
 namespace {
@@ -205,6 +240,24 @@ __device__ __forceinline__ float pow_clamped(float x, float e) {
   else return powf(x, e);
 }
 
+// the taps i with (float)i <= samples: a prefix of the n-tap spiral, none
+// for a NaN
+__device__ __forceinline__ int live_taps(float samples, int n) {
+  if (samples >= (float)(n - 1)) return n;
+  if (samples >= 0.0f) return (int)floorf(samples) + 1;
+  return 0;
+}
+
+// a tap's influence from the knobs (ops.denoise.runtime_influences):
+// (1 - 0.5 / (sqrt(s) * sqrt(s)) * pow(max(r2, 0), bias))^3
+__device__ __forceinline__ float tap_influence(float samples, float bias,
+                                               float r2) {
+  const float radius = __fsqrt_rn(samples);
+  const float true_radius = __fdiv_rn(0.5f, radius * radius);
+  const float p = 1.0f - true_radius * pow_clamped<POW_POWF>(r2, bias);
+  return p * p * p;
+}
+
 // one output pixel's running state: its centre's length and normal, the
 // influence sum and the weighted sums
 struct Pixel {
@@ -240,6 +293,14 @@ struct Pixel {
     d0 = d0 + tap[0] * infl;
     d1 = d1 + tap[1] * infl;
     d2 = d2 + tap[2] * infl;
+  }
+
+  // a masked tap: its influence is 0, the sums gain tap * 0 (0 unless the
+  // tap is NaN or infinite); the influence sum gains +0 and keeps its bits
+  __device__ __forceinline__ void mask(const float* tap) {
+    d0 = d0 + tap[0] * 0.0f;
+    d1 = d1 + tap[1] * 0.0f;
+    d2 = d2 + tap[2] * 0.0f;
   }
 
   __device__ __forceinline__ void store(float* o) const {
@@ -346,6 +407,134 @@ denoise_kernel(const __grid_constant__ DenoiseArgs a) {
   px.store(a.out + ((int64_t)(r - a.r0) * a.w_out + c) * 3);
 }
 
+// The runtime builds of the denoiser (SHIFTED or RESAMPLE): the static
+// kernel's pixel-to-thread map and tile, with the knobs read from device
+// memory: each block computes the taps' influences into shared memory,
+// runs the live taps (index <= samples) with powf's hue and the rest as
+// masked taps; the tiled build skips the masked taps of a block whose tile
+// holds no value of magnitude 2^126 or more (voted at load time).
+template <int MODE, bool TILED>
+__global__ void __launch_bounds__(TILE_W * MAX_BLOCK_ROWS)
+denoise_kernel_runtime(const __grid_constant__ DenoiseArgs a) {
+  extern __shared__ float tile[];  // three channel planes (tiled build)
+  __shared__ float influence[DENOISE_MAX_TAPS];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tile_h = blockDim.y;
+  const int cb = blockIdx.x * TILE_W;
+  const int rb = a.r0 + blockIdx.y * tile_h;
+  const int c = cb + tx;
+  const int r = rb + ty;
+  const int wmax = a.w_in - 1;
+  const int sw = TILE_W + a.hx1 - a.hx0;  // the tile's row pitch
+  const int plane = sw * (tile_h + a.hy1 - a.hy0);
+
+  const float samples = *a.samples;
+  const float hue_exp = *a.hue;
+  const int live = live_taps(samples, a.n_taps);
+  {
+    const float bias = *a.bias;
+    for (int i = ty * TILE_W + tx; i < a.n_taps; i += TILE_W * tile_h) {
+      influence[i] = tap_influence(samples, bias, a.r2[i]);
+    }
+  }
+
+  int nonfinite = 1;  // whether a masked tap may add a NaN
+  if constexpr (TILED) {
+    // the output tile and its halo, clamped at load time, as the static
+    // kernel's, and the vote
+    bool large = false;
+    for (int s = ty; s < tile_h + a.hy1 - a.hy0; s += blockDim.y) {
+      const float* src =
+          a.img + (int64_t)slab_row(a, rb + a.hy0 + s) * a.w_in * 3;
+      for (int x = tx; x < sw; x += TILE_W) {
+        const float* p = src + clampi(cb + a.hx0 + x, wmax) * 3;
+        const int at = s * sw + x;
+        tile[at] = p[0];
+        tile[plane + at] = p[1];
+        tile[2 * plane + at] = p[2];
+        large = large || !(fabsf(p[0]) < FINITE_TAPS) ||
+                !(fabsf(p[1]) < FINITE_TAPS) || !(fabsf(p[2]) < FINITE_TAPS);
+      }
+    }
+    nonfinite = __syncthreads_or(large);
+  } else {
+    __syncthreads();  // the influences
+  }
+
+  const float* base = tile + (ty - a.hy0) * sw + tx - a.hx0;
+  Pixel px;
+  float u = 0.0f, v = 0.0f;
+  {
+    float centre[3];
+    if constexpr (MODE == SHIFTED && TILED) {
+      centre[0] = base[0];
+      centre[1] = base[plane];
+      centre[2] = base[2 * plane];
+    } else if constexpr (MODE == SHIFTED) {
+      const float* p =
+          a.img + ((int64_t)slab_row(a, r) * a.w_in + clampi(c, wmax)) * 3;
+      centre[0] = p[0];
+      centre[1] = p[1];
+      centre[2] = p[2];
+    } else {
+      u = __fdiv_rn((float)c + 0.5f, (float)a.w_out);
+      v = __fdiv_rn((float)r + 0.5f, (float)a.h_out);
+      int x0, x1, y0, y1;
+      float fx, gx, fy, gy;
+      coords(u, a.w_in, x0, x1, fx, gx);
+      coords(v, a.height, y0, y1, fy, gy);
+      sample(a, slab_row(a, y0), slab_row(a, y1), x0, x1, fx, gx, fy, gy,
+             centre);
+    }
+    px.start(centre);
+  }
+
+  // tap i's bilinear sample, as the static kernel's loop takes it
+  auto tap_at = [&](int i, float* tap) {
+    if constexpr (MODE == SHIFTED) {
+      const float fx = a.fx[i], gx = a.gx[i], fy = a.fy[i], gy = a.gy[i];
+      if constexpr (TILED) {
+        const float* s0 = base + a.y0[i] * sw + a.x0[i];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float* p = s0 + ch * plane;
+          tap[ch] = row_lerp(p[0], p[1], fx, gx) * gy +
+                    row_lerp(p[sw], p[sw + 1], fx, gx) * fy;
+        }
+      } else {
+        sample(a, slab_row(a, r + a.y0[i]), slab_row(a, r + a.y0[i] + 1),
+               clampi(c + a.x0[i], wmax), clampi(c + a.x0[i] + 1, wmax), fx,
+               gx, fy, gy, tap);
+      }
+    } else {
+      int x0, x1, y0, y1;
+      float fx, gx, fy, gy;
+      coords(u + a.ou[i], a.w_in, x0, x1, fx, gx);
+      coords(v + a.ov[i], a.height, y0, y1, fy, gy);
+      sample(a, slab_row(a, y0), slab_row(a, y1), x0, x1, fx, gx, fy, gy,
+             tap);
+    }
+  };
+
+#pragma unroll 1
+  for (int i = 0; i < live; ++i) {
+    float tap[3];
+    tap_at(i, tap);
+    px.add<POW_POWF>(tap, influence[i], hue_exp, a.sat_exp);
+  }
+  if (nonfinite) {
+#pragma unroll 1
+    for (int i = live; i < a.n_taps; ++i) {
+      float tap[3];
+      tap_at(i, tap);
+      px.mask(tap);
+    }
+  }
+
+  if (c >= a.w_out || r >= a.r1) return;
+  px.store(a.out + ((int64_t)(r - a.r0) * a.w_out + c) * 3);
+}
+
 // The resample alone: one thread an output pixel.
 __global__ void __launch_bounds__(TILE_W * MAX_BLOCK_ROWS)
 resample_kernel(const __grid_constant__ DenoiseArgs a) {
@@ -385,17 +574,23 @@ Kernel build(int pow) {
   }
 }
 
-// The build `args` names (mode, hue_pow, tiled) in `k`, its shared memory
-// opted into; cudaSuccess or the error.
+// The build `args` names (mode, runtime or hue_pow, tiled) in `k`, its
+// shared memory opted into; cudaSuccess or the error.
 cudaError_t pick(const DenoiseArgs& a, Kernel& k) {
   if (a.block_rows < 1 || a.block_rows > MAX_BLOCK_ROWS) {
     return cudaErrorInvalidValue;
   }
-  k = a.mode == RESAMPLE_ONLY ? resample_kernel
-      : a.mode == RESAMPLE    ? build<RESAMPLE, false>(a.hue_pow)
-      : a.tiled               ? build<SHIFTED, true>(a.hue_pow)
-                              : build<SHIFTED, false>(a.hue_pow);
-  if (a.smem > STATIC_SMEM) {
+  if (a.runtime && a.mode != RESAMPLE_ONLY) {
+    k = a.mode == RESAMPLE ? denoise_kernel_runtime<RESAMPLE, false>
+        : a.tiled          ? denoise_kernel_runtime<SHIFTED, true>
+                           : denoise_kernel_runtime<SHIFTED, false>;
+  } else {
+    k = a.mode == RESAMPLE_ONLY ? resample_kernel
+        : a.mode == RESAMPLE    ? build<RESAMPLE, false>(a.hue_pow)
+        : a.tiled               ? build<SHIFTED, true>(a.hue_pow)
+                                : build<SHIFTED, false>(a.hue_pow);
+  }
+  if (a.smem + (a.runtime ? RUNTIME_SMEM : 0) > STATIC_SMEM) {
     return cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   }
@@ -405,10 +600,14 @@ cudaError_t pick(const DenoiseArgs& a, Kernel& k) {
 }  // namespace
 
 // Launches the build `args` names in blocks of TILE_W x block_rows threads
-// with its shared memory; returns cudaGetLastError().
+// with its shared memory; returns cudaGetLastError(). A runtime build's
+// launch holds the knobs' addresses, not their values.
 extern "C" int zvt_denoise(const DenoiseArgs* args, void* stream) {
   const int rows = args->r1 - args->r0;
   if (rows <= 0 || args->w_out <= 0) return (int)cudaGetLastError();
+  if (args->runtime && (!args->samples || !args->bias || !args->hue)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Kernel k;
   const cudaError_t e = pick(*args, k);
   if (e != cudaSuccess) return (int)e;

@@ -11,9 +11,11 @@ step on one device, as the JAX engine's:
 
 `_step_key()` holds the frame's static configuration, `_step_cache` the
 current key's step (`_build_step`, `engine.step.Step`), and `_push_constants()`
-packs every per-frame value (camera, sun, sample base, temporal count) into
-one f32[24] array in the JAX engine's layout: one host-to-device copy a
-frame, so a new pose, a moving sun or a new count needs no new step. On a
+packs every per-frame value (camera, sun, sample base, temporal count, the
+denoiser's samples, distribution bias and hue tolerance) into one f32[24]
+array in the JAX engine's layout: one host-to-device copy a frame, so a new
+pose, a moving sun, a new count or a move of a denoiser slider needs no new
+step. On a
 CUDA device a step is captured once as a CUDA graph and replayed every
 frame after; on the CPU its body runs op by op. `render_op_by_op()` calls
 the same body op by op on any device (for checks that hook the kernel
@@ -185,9 +187,9 @@ class VoxelRT:
 
     def step(self) -> Step:
         """The current key's step, built (not captured) on first use. The
-        cache keeps the current key's step alone: a new key (a denoiser
-        slider makes one a value) frees the old step, its graph and the
-        graph's memory pool."""
+        cache keeps the current key's step alone: a new key (a resolution,
+        the denoiser's pixel_multiplier or on/off) frees the old step, its
+        graph and the graph's memory pool."""
         self.tables()
         key = self._step_key()
         step = self._step_cache.get(key)
@@ -205,7 +207,8 @@ class VoxelRT:
                     tuple(np.asarray(d.lower_left_corner).tolist()),
                     tuple(np.asarray(sun.position).tolist()))
             # the running mean goes on into a new step of the same
-            # resolution (a denoiser change), as the JAX engine's does
+            # resolution (a change of the denoiser's key fields), as the JAX
+            # engine's does
             carry = (self._accum is not None and pose == self._pose_key
                      and self._accum.shape == step.accum.shape)
             if self._accum is not step.accum:
@@ -225,8 +228,7 @@ class VoxelRT:
 
     def _step_key(self) -> StepKey:
         """The frame's static configuration (the JAX engine's `_step_key`
-        less the fields not ported, plus the denoiser's runtime values; see
-        `engine.step.StepKey`)."""
+        less the fields not ported; see `engine.step.StepKey`)."""
         iw, ih = self.internal_resolution
         ow, oh = self.output_resolution
         d = self.camera.d_camera
@@ -236,24 +238,20 @@ class VoxelRT:
             bool(self.sun.device_data.enabled), bool(dn.enabled),
             float(dn.pixel_multiplier), int(tc.max_steps),
             bool(tc.empty_skip), bool(self.temporal_enabled),
-            bool(tc.sun_in_kernel), int(dn.samples),
-            float(dn.distribution_bias), float(dn.inverse_hue_tolerance))
+            bool(tc.sun_in_kernel))
 
     def _build_step(self, key: StepKey) -> Step:
         """The step of `key` over the scene's current tensors: camera rays
         from pc[0:12], the trace with the sun from pc[12:19] and the sample
         base from pc[21], the temporal mean through pc[22], then
-        `denoise.postprocess` with the key's denoiser."""
+        `denoise.postprocess` on the runtime path (as the JAX step's
+        `denoise(..., max_samples=MAX_RUNTIME_SAMPLES)`) with the denoiser's
+        samples, distribution bias and hue tolerance read from pc[23],
+        pc[19] and pc[20]."""
         static = self.grid_static
         tables = self._tables
         material_indices = self.arrays.material_indices
         mats = self.mats
-        denoiser = DenoiserConfig(
-            samples=key.denoiser_samples,
-            distribution_bias=key.distribution_bias,
-            pixel_multiplier=key.pixel_multiplier,
-            inverse_hue_tolerance=key.inverse_hue_tolerance,
-            enabled=key.denoiser_enabled)
 
         def body(pc, accum):
             img = trace_from_pc(
@@ -266,8 +264,15 @@ class VoxelRT:
                 # running mean over pose-static frames, in place
                 accum.add_(trace_mod._div(img - accum, pc[22] + 1.0))
                 img = accum
-            return denoise_mod.postprocess(img, denoiser, key.output_height,
-                                           key.output_width)
+            # 0-d views of the push constants: kernel F's runtime build
+            # reads them in place, so a replay takes each frame's values
+            denoiser = DenoiserConfig(
+                samples=pc[23], distribution_bias=pc[19],
+                pixel_multiplier=key.pixel_multiplier,
+                inverse_hue_tolerance=pc[20], enabled=key.denoiser_enabled)
+            return denoise_mod.postprocess(
+                img, denoiser, key.output_height, key.output_width,
+                max_samples=denoise_mod.MAX_RUNTIME_SAMPLES)
 
         accum_shape = ((key.internal_height, key.internal_width, 3)
                        if key.temporal else None)
@@ -279,8 +284,7 @@ class VoxelRT:
         (0-11), sun position (12-14), colour (15-17), radius (18), denoiser
         distribution bias (19) and inverse hue tolerance (20), sample base
         (21), temporal count (22), denoiser samples clipped to
-        MAX_RUNTIME_SAMPLES (23). The port's step reads 0-18, 21 and 22;
-        its key holds the denoiser's values."""
+        MAX_RUNTIME_SAMPLES (23). The step reads all of them."""
         d = self.camera.d_camera
         sun = self.sun.device_data
         spp = int(d.samples_per_pixel)
@@ -352,7 +356,10 @@ class VoxelRT:
         self._accum_count = 0
 
     def set_denoiser(self, **knobs) -> None:
-        """Tune denoiser push constants (Pipeline.zig:543-557 setters)."""
+        """Tune denoiser push constants (Pipeline.zig:543-557 setters):
+        `samples`, `distribution_bias` and `inverse_hue_tolerance` reach the
+        next frame through its push constants, on the same step and graph;
+        `pixel_multiplier` and `enabled` make a new step key."""
         self.denoiser = dataclasses.replace(self.denoiser, **knobs)
 
     def set_resolutions(self, internal: Optional[Tuple[int, int]] = None,

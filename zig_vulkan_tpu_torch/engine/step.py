@@ -79,14 +79,14 @@ class StepKey(NamedTuple):
     `row_bands`, `use_pallas`, `degraded`, `bin_incoherent`,
     `bounce_concurrent`, `n_serve`.
 
-    Unlike the JAX key, this one holds the denoiser's `samples`,
-    `distribution_bias` and `inverse_hue_tolerance`, which the JAX step
-    reads from its push constants (pc[23], pc[19], pc[20]) while running
-    MAX_RUNTIME_SAMPLES + 1 taps and masking the rest. The port computes
-    each tap's weight on the host and runs exactly `samples + 1` taps, so a
-    change of any of the three costs one new capture, and the default
-    frame keeps its 21 taps. The output is the same bit for bit (a masked
-    tap adds exactly zero)."""
+    As in the JAX key, the denoiser's `samples`, `distribution_bias` and
+    `inverse_hue_tolerance` are not in it: the step reads them from its
+    push constants (pc[23], pc[19], pc[20]) and runs the
+    MAX_RUNTIME_SAMPLES + 1 taps of the runtime path, masking those past
+    `samples` (`ops.denoise.denoise(..., max_samples=...)`; kernel F's
+    runtime builds read the three values in place), so a move of any of
+    the three sliders keeps the step and its graph. `pixel_multiplier` and
+    `enabled` fix the taps' geometry and the launch, and stay in it."""
 
     internal_width: int
     internal_height: int
@@ -101,9 +101,6 @@ class StepKey(NamedTuple):
     empty_skip: bool
     temporal: bool
     sun_in_kernel: bool
-    denoiser_samples: int
-    distribution_bias: float
-    inverse_hue_tolerance: float
 
 
 def _tensors(tree):

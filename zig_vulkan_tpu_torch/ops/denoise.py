@@ -19,6 +19,15 @@ wrapper made them, and `postprocess.build_launches` the same by build; the
 host picks the build and the shifted denoiser's shared-memory tile from the
 taps before the launch (`launch_plan`).
 
+`samples`, `distribution_bias` and `inverse_hue_tolerance` are the
+reference's runtime push constants (image.frag:18-23). With `max_samples`
+(or a `samples` that is no int) the filter takes them as such, as the JAX
+engine's step does (pc[23], pc[19], pc[20]): the spiral runs
+max_samples + 1 taps and masks those past `samples`, and the knobs may be
+0-d tensors on the image's device, which kernel F's runtime builds read in
+place when they run. The engine's step passes views of its push constants,
+so a captured graph serves every value of the three sliders.
+
 Each wrapper runs its plain torch twin (`denoise_plain`,
 `bilinear_resample_plain`, `postprocess_plain`: the torch code the frame
 ran before) for CPU tensors, and only for those; the twins are what the
@@ -161,13 +170,15 @@ def bilinear_resample_plain(img, out_h: int, out_w: int, band: Band = None):
 
 
 def band_input_rows(r0: int, r1: int, out_h: int, in_h: int,
-                    config: DenoiserConfig):
+                    config: DenoiserConfig, max_samples: int | None = None):
     """The input rows [a, b) that output rows [r0, r1) of `postprocess`
     read: the band's own rows, widened by the spiral's largest vertical
-    offsets (1.5 * sqrt(20) * 0.5, about 3.35 pixels, at the defaults) and
-    the bilinear neighbour, clamped to the image."""
-    offsets = ([oy for _, oy in spiral_offsets(int(config.samples),
-                                               config.pixel_multiplier)]
+    offsets (1.5 * sqrt(20) * 0.5, about 3.35 pixels, at the defaults; the
+    max_samples + 1 taps of the runtime path) and the bilinear neighbour,
+    clamped to the image."""
+    last = (int(config.samples) if max_samples is None
+            else int(max_samples))
+    offsets = ([oy for _, oy in spiral_offsets(last, config.pixel_multiplier)]
                if config.enabled else [])
     # the taps of the resampling path (output and input sizes differ) ...
     taps = [_sample_coords(out_h, in_h, oy, "cpu", r0, r1)
@@ -206,29 +217,130 @@ def denoise_plain(img, samples=20, distribution_bias=0.6,
     output resolution over the internal-resolution texture.
 
     With `max_samples=None` and an int `samples` the filter runs exactly
-    samples+1 taps. Otherwise `samples` is the reference's runtime push
-    constant (image.frag:18-23): the spiral runs max_samples+1 taps
-    (default MAX_RUNTIME_SAMPLES) and taps past `samples` add zero
-    influence, which gives the same output bit for bit.
+    samples+1 taps. Otherwise `samples`, `distribution_bias` and
+    `inverse_hue_tolerance` are the reference's runtime push constants
+    (image.frag:18-23), numbers or 0-d tensors: the spiral runs
+    max_samples+1 taps (default MAX_RUNTIME_SAMPLES), taps past `samples`
+    get zero influence and add tap * 0 (so a NaN or an infinity under a
+    masked tap's footprint makes the pixel NaN, as in the JAX package), and
+    the influences and the hue are computed with torch ops on the image's
+    device (`_sir_bird_runtime`), with no value read back to the host. On a
+    finite image this equals the static loop at the same `samples` up to
+    the rounding of the influences' pow.
 
     With `band`, `img` is the band's slab (`band_input_rows`) and the result
     the band's rows of the whole image's result.
     """
-    if max_samples is None and isinstance(samples, (int, np.integer)):
+    if not _is_runtime(samples, max_samples):
         return _sir_bird(img, int(samples) + 1, float(samples),
                          distribution_bias, float(pixel_multiplier),
                          inverse_hue_tolerance, out_shape, band=band)
-    return _sir_bird(img, int(max_samples or MAX_RUNTIME_SAMPLES) + 1,
-                     float(samples), distribution_bias,
-                     float(pixel_multiplier), inverse_hue_tolerance,
-                     out_shape, mask_taps=True, band=band)
+    return _sir_bird_runtime(img, _n_taps(samples, max_samples), samples,
+                             distribution_bias, float(pixel_multiplier),
+                             inverse_hue_tolerance, out_shape, band=band)
+
+
+def _is_runtime(samples, max_samples) -> bool:
+    """Whether `denoise` takes the runtime path: a ceiling given, or a
+    `samples` that is no int (a float or a 0-d tensor)."""
+    return not (max_samples is None
+                and isinstance(samples, (int, np.integer)))
+
+
+def _n_taps(samples, max_samples) -> int:
+    """The taps the spiral runs, as `denoise` dispatches."""
+    if _is_runtime(samples, max_samples):
+        return int(max_samples or MAX_RUNTIME_SAMPLES) + 1
+    return int(samples) + 1
+
+
+def _knob(value, device):
+    """A runtime knob as a 0-d float32 tensor on `device`: the tensor itself
+    where it is one there already (a launch then reads it in place)."""
+    t = torch.as_tensor(value, dtype=F32, device=device)
+    if t.dim() != 0:
+        raise ValueError(f"denoise: a runtime knob must be a number or a "
+                         f"0-d tensor, got shape {list(t.shape)}")
+    return t
+
+
+def _r2(offsets):
+    """float32 ox * ox + oy * oy of each spiral offset, as `_sir_bird`."""
+    return [_F(_F(ox) * _F(ox) + _F(oy) * _F(oy)) for ox, oy in offsets]
+
+
+def runtime_influences(samples, distribution_bias, r2):
+    """Each tap's pixel_influence cubed from the 0-d tensors `samples` and
+    `distribution_bias` and the taps' f32[n] `r2` (ox * ox + oy * oy), as
+    kernel F's runtime builds compute them on the device:
+    (1 - 0.5 / (sqrt(s) * sqrt(s)) * pow(max(r2, 0), bias))^3, one
+    rounding an operation in `_sir_bird`'s order, the division a tensor's.
+    The exponent is expanded to r2's shape: ATen's pow runs powf for it on
+    either device, never the branches it takes for a scalar exponent."""
+    radius = torch.sqrt(samples)
+    true_radius = torch.full_like(samples, 0.5) / (radius * radius)
+    p = 1.0 - true_radius * _pow_clamped(r2, distribution_bias.expand_as(r2))
+    return p * p * p
+
+
+def _sir_bird_runtime(img, n_taps: int, samples, distribution_bias,
+                      pixel_multiplier, inverse_hue_tolerance, out_shape,
+                      band: Band = None):
+    """The filter body of the runtime path: `n_taps` spiral taps; taps with
+    index > `samples` get zero influence, as the JAX package's
+    `_sir_bird(..., mask_taps=True)` selects it, and still add tap * 0. The
+    knobs become 0-d tensors on the image's device and every value that
+    depends on them is computed there."""
+    w = img.shape[1]
+    h = img.shape[0] if band is None else band.height
+    out_h, out_w = out_shape if out_shape is not None else (h, w)
+    band = band or _whole(img, out_h)
+    rows = band.r1 - band.r0
+    same_res = (out_h, out_w) == (h, w)
+    dev = img.device
+    samples, bias, hue_exp = (_knob(k, dev) for k in (
+        samples, distribution_bias, inverse_hue_tolerance))
+    offsets = spiral_offsets(n_taps - 1, pixel_multiplier)
+    r2 = torch.tensor(_r2(offsets), dtype=F32, device=dev)
+    influences = runtime_influences(samples, bias, r2)
+    live = torch.arange(n_taps, dtype=F32, device=dev) <= samples
+    zero = torch.zeros((), dtype=F32, device=dev)
+    hue_exp = hue_exp.expand(rows, out_w, 1)
+
+    center = bilinear_resample_plain(img, out_h, out_w, band)
+    center_len = _length3(center)
+    center_norm = center / torch.clamp(center_len, min=_F(1e-12).item())
+
+    influence_sum = torch.zeros((rows, out_w, 1), dtype=F32, device=dev)
+    denoised = torch.zeros((rows, out_w, 3), dtype=F32, device=dev)
+
+    for tap_i, (ox, oy) in enumerate(offsets):
+        ox = _F(ox)
+        oy = _F(oy)
+        if same_res:
+            tap = bilinear_sample_shifted(img, float(ox), float(oy), band)
+        else:
+            tap = _resample_taps(img, out_h, out_w, ox, oy, band)
+        tap_len = _length3(tap)
+        tap_norm = tap / torch.clamp(tap_len, min=_F(1e-12).item())
+
+        dot = (center_norm[..., 0:1] * tap_norm[..., 0:1]
+               + center_norm[..., 1:2] * tap_norm[..., 1:2]
+               + center_norm[..., 2:3] * tap_norm[..., 2:3])
+        hue = _pow_clamped(0.5 + 0.5 * dot, hue_exp)
+        sat = _pow_clamped(1.0 - torch.abs(tap_len - center_len), 8.0)
+        infl = torch.where(live[tap_i], influences[tap_i] * hue * sat, zero)
+        influence_sum = influence_sum + infl
+        denoised = denoised + tap * infl
+
+    return denoised / influence_sum
 
 
 def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
               pixel_multiplier, inverse_hue_tolerance, out_shape,
-              mask_taps: bool = False, band: Band = None):
-    """The filter body: `n_taps` spiral taps; when `mask_taps`, taps with
-    index > `samples_f` get zero influence."""
+              band: Band = None):
+    """The filter body of the static path: `n_taps` spiral taps, each
+    tap's influence computed on the host."""
     w = img.shape[1]
     h = img.shape[0] if band is None else band.height
     out_h, out_w = out_shape if out_shape is not None else (h, w)
@@ -251,14 +363,9 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
     influence_sum = torch.zeros((rows, out_w, 1), dtype=F32, device=img.device)
     denoised = torch.zeros((rows, out_w, 3), dtype=F32, device=img.device)
 
-    for tap_i, (ox, oy) in enumerate(spiral_offsets(n_taps - 1,
-                                                    pixel_multiplier)):
+    for ox, oy in spiral_offsets(n_taps - 1, pixel_multiplier):
         ox = _F(ox)
         oy = _F(oy)
-        if mask_taps and _F(tap_i) > samples_f:
-            # a masked tap adds exactly 0.0 to both sums: the kept-prefix
-            # sums are unchanged bit for bit, so it is skipped
-            continue
         radius2 = np.power(np.maximum(_F(ox * ox + oy * oy), _F(0.0)),
                            _F(distribution_bias), dtype=np.float32)
         pixel_influence = _F(1.0) - sample_true_radius * radius2
@@ -283,16 +390,20 @@ def _sir_bird(img, n_taps: int, samples_f: float, distribution_bias,
 
 
 def postprocess_plain(img, config: DenoiserConfig, out_h: int, out_w: int,
-                      band: Band = None):
+                      band: Band = None, max_samples: int | None = None):
     """The plain torch version of `postprocess`."""
     if config.enabled:
         return denoise_plain(img, out_shape=(out_h, out_w), band=band,
-                             **_knobs(config))
+                             max_samples=max_samples,
+                             **_knobs(config, max_samples))
     return bilinear_resample_plain(img, out_h, out_w, band)
 
 
-def _knobs(config: DenoiserConfig) -> dict:
-    return dict(samples=int(config.samples),
+def _knobs(config: DenoiserConfig, max_samples=None) -> dict:
+    """`denoise`'s knobs from `config`: its `samples` an int for the static
+    path, as it is (a number or a 0-d tensor) for the runtime path."""
+    return dict(samples=(int(config.samples) if max_samples is None
+                         else config.samples),
                 distribution_bias=config.distribution_bias,
                 pixel_multiplier=config.pixel_multiplier,
                 inverse_hue_tolerance=config.inverse_hue_tolerance)
@@ -314,7 +425,8 @@ _POW_BRANCHES = {0.0: 1, 1.0: 2, 0.5: 3, -0.5: 4, -1.0: 5, 2.0: 6, 3.0: 7,
                  -2.0: 8}
 SAT_EXPONENT = 8.0  # sat = pow(max(1 - |tap_len - center_len|, 0), 8)
 
-_TAP_FIELDS = ("x0", "y0", "fx", "fy", "gx", "gy", "ou", "ov", "influence")
+_TAP_FIELDS = ("x0", "y0", "fx", "fy", "gx", "gy", "ou", "ov", "r2",
+               "influence")
 
 # kernel F's launch shape (csrc/denoise.cu): a block of TILE_W x block_rows
 # threads, one output pixel a thread; block_rows at most BLOCK_ROWS. The
@@ -325,8 +437,15 @@ TILE_W = 32
 BLOCK_ROWS = 8      # MAX_BLOCK_ROWS
 SMEM_OPTIN = 232_448
 
-# kernel F's builds, each with its own launch count
-BUILDS = ("shifted_tile", "shifted_global", "resample", "resample_only")
+# the runtime builds' influences in static shared memory (csrc/denoise.cu's
+# RUNTIME_SMEM): their tiles opt into that much less
+RUNTIME_SMEM = 4 * _build.DENOISE_MAX_TAPS
+
+# kernel F's builds, each with its own launch count: the static builds, the
+# runtime builds (knobs read from device memory), the resample alone
+BUILDS = ("shifted_tile", "shifted_global", "resample",
+          "shifted_tile_runtime", "shifted_global_runtime",
+          "resample_runtime", "resample_only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,29 +472,39 @@ def tile_bytes(halo, block_rows: int) -> int:
     return 3 * 4 * (TILE_W + hx1 - hx0) * (block_rows + hy1 - hy0)
 
 
+def is_runtime_table(taps) -> bool:
+    """Whether `taps` is a runtime tap table (`spiral_taps` of the runtime
+    path: every tap's geometry, no influence)."""
+    return taps is not None and "influence" not in taps
+
+
 def launch_plan(taps, mode: int):
     """Kernel F's `LaunchPlan` for the tap table `taps` (`spiral_taps`;
-    None for the resample alone) in `mode`. The shifted denoiser takes the
-    tile with the most rows of threads (BLOCK_ROWS halved down to 1) whose
-    shared bytes fit SMEM_OPTIN; a halo too wide for any (a large
-    pixel_multiplier) takes the untiled build, which reads the image in
-    global memory."""
+    None for the resample alone) in `mode`: a runtime table takes the
+    runtime builds. The shifted denoiser takes the tile with the most rows
+    of threads (BLOCK_ROWS halved down to 1) whose shared bytes fit
+    SMEM_OPTIN (less the runtime builds' RUNTIME_SMEM); a halo too wide for
+    any (a large pixel_multiplier) takes the untiled build, which reads the
+    image in global memory. A runtime table holds every tap of the spiral,
+    so its halo is the whole spiral's, whatever `samples` is."""
     if mode == RESAMPLE_ONLY:
         return LaunchPlan("resample_only")
+    suffix = "_runtime" if is_runtime_table(taps) else ""
     if mode == RESAMPLE:
-        return LaunchPlan("resample")
+        return LaunchPlan("resample" + suffix)
     x0 = [int(v) for v in taps["x0"]]
     y0 = [int(v) for v in taps["y0"]]
-    # the centre's offset 0 and each live tap's two neighbours
+    # the centre's offset 0 and each tap's two neighbours
     halo = (min([0, *x0]), max([0, *(x + 1 for x in x0)]),
             min([0, *y0]), max([0, *(y + 1 for y in y0)]))
+    room = SMEM_OPTIN - (RUNTIME_SMEM if suffix else 0)
     rows = BLOCK_ROWS
     while rows >= 1:
         need = tile_bytes(halo, rows)
-        if need <= SMEM_OPTIN:
-            return LaunchPlan("shifted_tile", halo, rows, need)
+        if need <= room:
+            return LaunchPlan("shifted_tile" + suffix, halo, rows, need)
         rows //= 2
-    return LaunchPlan("shifted_global")
+    return LaunchPlan("shifted_global" + suffix)
 
 
 def pow_branch(exponent) -> int:
@@ -383,48 +512,48 @@ def pow_branch(exponent) -> int:
     return _POW_BRANCHES.get(float(exponent), POW_POWF)
 
 
-def _tap_count(samples, max_samples):
-    """(taps the spiral runs, `samples` as a float, whether taps past it
-    are masked), as `denoise` dispatches to `_sir_bird`."""
-    if max_samples is None and isinstance(samples, (int, np.integer)):
-        return int(samples) + 1, float(samples), False
-    return (int(max_samples or MAX_RUNTIME_SAMPLES) + 1, float(samples),
-            True)
-
-
 def spiral_taps(samples=20, distribution_bias=0.6,
                 pixel_multiplier: float = 1.5, width: int = 1,
                 height: int = 1, max_samples: int | None = None) -> dict:
-    """Kernel F's tap table: {field: numpy array, one entry a live tap in
-    spiral order}, the float32 scalars `_sir_bird` computes for the tap of
-    an image of `height` x `width` input pixels: the integer shifts `x0`,
-    `y0` and the fractions `fx`, `fy`, `gx` = 1 - fx, `gy` = 1 - fy of
+    """Kernel F's tap table: {field: numpy array, one entry a tap in spiral
+    order}, the float32 scalars the plain filter computes for the tap of an
+    image of `height` x `width` input pixels: the integer shifts `x0`, `y0`
+    and the fractions `fx`, `fy`, `gx` = 1 - fx, `gy` = 1 - fy of
     `bilinear_sample_shifted`; the texture-coordinate offsets `ou` = ox /
-    width and `ov` = oy / height of `_resample_taps`; `influence`,
-    pixel_influence cubed. Masked taps (past `samples` with the runtime
-    path) are left out, as `_sir_bird` skips them."""
-    n_taps, samples_f, mask = _tap_count(samples, max_samples)
-    samples_f = _F(samples_f)
-    bias = _F(distribution_bias)
-    radius = np.sqrt(samples_f, dtype=np.float32)
-    true_radius = _F(0.5) / (radius * radius)
+    width and `ov` = oy / height of `_resample_taps`; `r2` = ox * ox + oy *
+    oy. The static path's table (an int `samples`, no `max_samples`) holds
+    its samples + 1 taps and their `influence`, pixel_influence cubed, as
+    `_sir_bird` computes it. The runtime path's holds every one of the
+    max_samples + 1 taps and no influence: `samples` and
+    `distribution_bias`, which may be device tensors, are not read; kernel
+    F's runtime builds compute the influences and the mask from them on the
+    device (`runtime_influences`)."""
+    runtime = _is_runtime(samples, max_samples)
+    offsets = spiral_offsets(_n_taps(samples, max_samples) - 1,
+                             float(pixel_multiplier))
     rows = []
-    for i, (ox, oy) in enumerate(spiral_offsets(n_taps - 1,
-                                                float(pixel_multiplier))):
+    for (ox, oy), r2 in zip(offsets, _r2(offsets)):
         ox, oy = _F(ox), _F(oy)
-        if mask and _F(i) > samples_f:
-            continue
-        radius2 = np.power(np.maximum(_F(ox * ox + oy * oy), _F(0.0)), bias,
-                           dtype=np.float32)
-        p = _F(1.0) - true_radius * radius2
         x0, y0 = int(np.floor(float(ox))), int(np.floor(float(oy)))
         fx, fy = _F(float(ox) - x0), _F(float(oy) - y0)
         rows.append((x0, y0, fx, fy, _F(1.0) - fx, _F(1.0) - fy,
-                     ox / _F(width), oy / _F(height), p * p * p))
-    cols = list(zip(*rows)) or [()] * len(_TAP_FIELDS)
-    return {k: np.asarray(v, dtype=np.int32 if k in ("x0", "y0")
-                          else np.float32)
-            for k, v in zip(_TAP_FIELDS, cols)}
+                     ox / _F(width), oy / _F(height), r2))
+    fields = _TAP_FIELDS[:-1]
+    cols = list(zip(*rows)) or [()] * len(fields)
+    table = {k: np.asarray(v, dtype=np.int32 if k in ("x0", "y0")
+                           else np.float32)
+             for k, v in zip(fields, cols)}
+    if not runtime:
+        radius = np.sqrt(_F(samples), dtype=np.float32)
+        true_radius = _F(0.5) / (radius * radius)
+        influence = []
+        for r2 in table["r2"]:  # one tap at a time, as `_sir_bird`
+            p = _F(1.0) - true_radius * np.power(
+                np.maximum(r2, _F(0.0)), _F(distribution_bias),
+                dtype=np.float32)
+            influence.append(p * p * p)
+        table["influence"] = np.asarray(influence, dtype=np.float32)
+    return table
 
 
 def _neighbours(i: int, n_out: int, n_in: int, off=None):
@@ -453,9 +582,12 @@ def rows_read(taps, mode: int, r0: int, r1: int, out_h: int, height: int):
 
 
 def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
-            hue_exp: float = 0.0):
+            hue_exp: float = 0.0, knobs=None):
     """Kernel F on the CUDA tensor `img`: the denoiser with the tap table
-    `taps` (`spiral_taps`), or the resample alone without it."""
+    `taps` (`spiral_taps`), or the resample alone without it. A runtime
+    table takes `knobs`, the 0-d float32 tensors (samples,
+    distribution_bias, inverse_hue_tolerance) on the image's device whose
+    addresses the launch holds (`hue_exp` is then not read)."""
     dev = img.device
     if dev.type != "cuda":
         raise ValueError(f"postprocess: unsupported device {dev}")
@@ -464,6 +596,13 @@ def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
                          f"got {img.dtype}{list(img.shape)}")
     if not img.is_contiguous():
         raise ValueError("postprocess: the image must be contiguous")
+    if is_runtime_table(taps) and not (
+            knobs is not None and len(knobs) == 3
+            and all(k.device == dev and k.dtype == F32 and k.dim() == 0
+                    for k in knobs)):
+        raise ValueError("postprocess: a runtime launch takes its three "
+                         "knobs as 0-d float32 tensors on the image's "
+                         "device")
     rows_in, w = int(img.shape[0]), int(img.shape[1])
     band = band or _whole(img, out_h)
     h = int(band.height)
@@ -494,7 +633,7 @@ def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
                          f"[{band.a}, {band.a + rows_in})")
     plan = launch_plan(taps, mode)
     a = launch_args(img, out, out_h, band, taps, mode, hue_exp, (lo, hi),
-                    plan)
+                    plan, knobs)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -506,25 +645,31 @@ def _launch(img, out_h: int, out_w: int, band: Band, taps=None,
 
 
 def launch_args(img, out, out_h: int, band: Band, taps, mode: int,
-                hue_exp: float, rows: tuple, plan: LaunchPlan):
+                hue_exp: float, rows: tuple, plan: LaunchPlan, knobs=None):
     """Kernel F's `_build.DenoiseArgs` for a checked launch on `img` into
-    `out` that reads image rows `rows` (`rows_read`) as `plan` says."""
+    `out` that reads image rows `rows` (`rows_read`) as `plan` says; a
+    runtime table's launch points at `knobs`."""
     n_taps = 0 if taps is None else len(taps["x0"])
     a = _build.DenoiseArgs()
     a.img, a.out = img.data_ptr(), out.data_ptr()
+    if is_runtime_table(taps):
+        a.runtime = 1
+        a.samples, a.bias, a.hue = (k.data_ptr() for k in knobs)
+        hue_exp = 0.0  # read from `knobs` on the device
     a.w_in, a.height, a.a = int(img.shape[1]), int(band.height), band.a
     a.row_lo, a.row_hi = rows
     a.w_out, a.h_out = int(out.shape[1]), out_h
     a.r0, a.r1 = band.r0, band.r1
     a.mode, a.n_taps = mode, n_taps
-    a.tiled = int(plan.build == "shifted_tile")
+    a.tiled = int(plan.build.startswith("shifted_tile"))
     a.hx0, a.hx1, a.hy0, a.hy1 = plan.halo
     a.block_rows, a.smem = plan.block_rows, plan.smem_bytes
     a.hue_pow, a.hue_exp = pow_branch(hue_exp), hue_exp
     a.sat_exp = SAT_EXPONENT
     if n_taps:
         for k in _TAP_FIELDS:
-            getattr(a, k)[:n_taps] = taps[k].tolist()
+            if k in taps:
+                getattr(a, k)[:n_taps] = taps[k].tolist()
     return a
 
 
@@ -535,6 +680,10 @@ def _denoise(img, samples, distribution_bias, pixel_multiplier,
     out_h, out_w = out_shape if out_shape is not None else (h, w)
     taps = spiral_taps(samples, distribution_bias, pixel_multiplier, w, h,
                        max_samples)
+    if is_runtime_table(taps):
+        knobs = tuple(_knob(k, img.device) for k in (
+            samples, distribution_bias, inverse_hue_tolerance))
+        return _launch(img, int(out_h), int(out_w), band, taps, knobs=knobs)
     return _launch(img, int(out_h), int(out_w), band, taps,
                    float(_F(inverse_hue_tolerance)))
 
@@ -570,15 +719,20 @@ def bilinear_resample(img, out_h: int, out_w: int, band: Band = None):
 
 
 def postprocess(img, config: DenoiserConfig, out_h: int, out_w: int,
-                band: Band = None):
+                band: Band = None, max_samples: int | None = None):
     """The full presentation pass: denoise (if enabled) + resample, one
     launch of kernel F on a CUDA tensor. With `band`, `img` is the band's
-    slab and the result the band's rows."""
+    slab and the result the band's rows. With `max_samples` the denoiser
+    takes the runtime path (`denoise`): `config`'s `samples`,
+    `distribution_bias` and `inverse_hue_tolerance` may then be 0-d
+    tensors on the image's device, read when the kernel runs."""
     if img.device.type == "cpu":
-        return postprocess_plain(img, config, out_h, out_w, band)
+        return postprocess_plain(img, config, out_h, out_w, band,
+                                 max_samples)
     if config.enabled:
-        return _denoise(img, out_shape=(out_h, out_w), max_samples=None,
-                        band=band, **_knobs(config))
+        return _denoise(img, out_shape=(out_h, out_w),
+                        max_samples=max_samples, band=band,
+                        **_knobs(config, max_samples))
     return _resample(img, out_h, out_w, band)
 
 

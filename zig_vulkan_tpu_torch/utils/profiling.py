@@ -71,7 +71,8 @@ _TRAVERSE = re.compile(
 
 
 # the symbols of kernels B to F (csrc/lookup.cu, camera.cu, shade.cu,
-# resolve.cu, denoise.cu: F's denoiser builds and its resample alone)
+# resolve.cu, denoise.cu: F's denoiser builds, static and runtime
+# (denoise_kernel_runtime), and its resample alone)
 _KERNELS = (("lookup_kernel", "B"), ("camera_rays_kernel", "C"),
             ("shade_kernel", "D"), ("resolve_kernel", "E"),
             ("denoise_kernel", "F"), ("resample_kernel", "F"))

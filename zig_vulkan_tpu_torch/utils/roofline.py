@@ -33,9 +33,13 @@ hashes, square roots and selects (`CAMERA_OPS`, `SHADE_OPS`,
 low, never high.
 
 Kernel F (csrc/denoise.cu) reads its input slab and writes its output
-rows, 12 bytes a pixel each; its operations are counted from the source by
-hand a tap and a pixel (`denoise_ops`), with `POWF_OPS` standing for each
-call of powf, an estimate.
+rows, 12 bytes a pixel each (and the runtime builds' three knobs); its
+operations are counted from the source by hand a tap and a pixel
+(`denoise_ops`), with `POWF_OPS` standing for each call of powf, an
+estimate. On the runtime path a masked tap needs work only where it reads a
+value that is not finite (elsewhere it adds +0): the caller counts those
+pixels from the image; the taps' influences from the knobs are needed once
+a launch.
 
 `warp_use_share` measures divergence from a stats build's `n_step`: the
 share of lane-iterations that do work when lanes 32w..32w+31 run together
@@ -236,34 +240,55 @@ DENOISE_TAP_OPS = 31 + 2 * POWF_OPS
 DENOISE_COORD_OPS = 6
 DENOISE_CENTRE_COORD_OPS = 7
 DENOISE_PIXEL_OPS = 13
+# the runtime path: a masked tap's three products by 0 and three sums (its
+# bilinear sample is DENOISE_SAMPLE_OPS); a tap's influence from the knobs
+# (the root, the square, the division, the clamp, powf, the product, the
+# complement, the cube's two products)
+DENOISE_MASKED_OPS = 6
+DENOISE_INFLUENCE_OPS = 8 + POWF_OPS
 PIXEL_BYTES = 3 * 4
+KNOB_BYTES = 3 * 4
 
 
-def denoise_ops(pixels: int, taps: int, mode: int) -> int:
+def denoise_ops(pixels: int, taps: int, mode: int, masked_taps: int = 0,
+                masked_pixels: int = 0, influences: int = 0) -> int:
     """Float operations of one kernel F launch over `pixels` output pixels
-    with `taps` live taps, in `ops.denoise`'s `mode`."""
+    with `taps` live taps, in `ops.denoise`'s `mode`; on the runtime path
+    also `masked_taps` masked taps at each of the `masked_pixels` output
+    pixels whose masked taps read a value that is not finite, and
+    `influences` taps' influences computed from the knobs."""
     from ..ops import denoise
 
     centre = 2 * DENOISE_CENTRE_COORD_OPS + DENOISE_SAMPLE_OPS
     if mode == denoise.RESAMPLE_ONLY:
         return pixels * centre
     tap = DENOISE_SAMPLE_OPS + DENOISE_TAP_OPS
+    masked = DENOISE_SAMPLE_OPS + DENOISE_MASKED_OPS
     per = DENOISE_PIXEL_OPS
     if mode == denoise.RESAMPLE:
         tap += 2 * DENOISE_COORD_OPS
+        masked += 2 * DENOISE_COORD_OPS
         per += centre
-    return pixels * (taps * tap + per)
+    return (pixels * (taps * tap + per)
+            + masked_pixels * masked_taps * masked
+            + influences * DENOISE_INFLUENCE_OPS)
 
 
-def denoise_bytes(in_pixels: int, out_pixels: int) -> int:
+def denoise_bytes(in_pixels: int, out_pixels: int,
+                  runtime: bool = False) -> int:
     """Bytes of one kernel F launch: the slab's pixels read, the output
-    rows' written."""
-    return PIXEL_BYTES * (in_pixels + out_pixels)
+    rows' written, the runtime path's knobs read."""
+    return PIXEL_BYTES * (in_pixels + out_pixels) + KNOB_BYTES * runtime
 
 
-def denoise_bound_ms(in_pixels: int, out_pixels: int, taps: int, mode: int):
-    return bound_ms(denoise_bytes(in_pixels, out_pixels),
-                    denoise_ops(out_pixels, taps, mode))
+def denoise_bound_ms(in_pixels: int, out_pixels: int, taps: int, mode: int,
+                     masked_taps: int = 0, masked_pixels: int = 0,
+                     influences: int = 0):
+    """(bound ms, what bounds it) of one kernel F launch (`denoise_ops`'
+    arguments; `influences` > 0 on the runtime path)."""
+    return bound_ms(denoise_bytes(in_pixels, out_pixels, influences > 0),
+                    denoise_ops(out_pixels, taps, mode, masked_taps,
+                                masked_pixels, influences))
 
 
 def warp_use_share(n_step) -> float:
