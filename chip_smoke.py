@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --default-frame-trace   # phase 20's trace alone
+    python3 chip_smoke.py --key-tour   # phases 1-2 and 22 alone
 
 The quickest proof that the port builds and runs on the card. Every phase
 prints one line of numbers and raises on failure, so the script exits
@@ -168,9 +169,31 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     launches a step of the replays from a trace, equal to the op-by-op
     step's launches through the wrappers.
 
+22. the key tour (`zig_vulkan_tpu_torch.engine.key_tour`): the default
+    frame at full width through the moves a user makes between frames, each
+    made and undone (sun, spp, bounces, the denoiser's pixel_multiplier and
+    on/off, sun_in_kernel, temporal accumulation over two keys and a camera
+    move, empty_skip flipped with edits and back, a flush_grid of an edited
+    copy of the scene, inserts and removals at six padded sizes), two
+    rounds, then a flush of the default scene and empty_skip flipped and
+    back: each frame's `render()` by CUDA events and the host clock, equal
+    bit for bit to the same frame op by op and to a fresh engine's first
+    replay of that state, the captures of each move (the engine keeps
+    every key's step and every edit size, their graphs in one pool: the
+    second round and the rest make none), the shared pool's bytes, each
+    new key's own pool (its fresh engine's) and the card's allocated and
+    reserved bytes after each new key, the records' rebuild ms after each
+    flush; then each key a user flips toggled back and forth over
+    TOGGLE_FRAMES timed frames (every one a return to a kept key, no
+    capture), beside a re-capture of the key (`recapture_split`: build,
+    warm-up, capture); and the kernels' launches through the wrappers in
+    the phase (A's default, shadow and NO_SKIP builds, B to E and F's
+    runtime builds each at least once).
+
 `--default-frame-trace` runs phases 1-2 and the trace of phase 20's default
 frame through `VoxelRT.render()` alone: the same lines from an older tree
 (copy this script over its checkout) give the numbers before the step.
+`--key-tour` runs phases 1-2 and phase 22 alone.
 
 Every check of a frame's launches (`check_frame_launches`: phases 15-17
 and 19) also captures the frame's launches of kernels C, D and E (camera
@@ -264,6 +287,8 @@ SWEEP = (dict(samples=8), dict(distribution_bias=0.3),
          dict(samples=20, distribution_bias=0.6, inverse_hue_tolerance=20.0))
 SWEEP_TIMED = 16   # timed slider-move frames (the sweep's moves in turn)
 RECAPTURES = 3     # timed rebuilds and captures of the default frame's step
+TOGGLE_FRAMES = 8  # phase 22: timed frames a key toggle, each a return to a
+                   # key the engine holds
 SHARD_FRAMES = 2           # phase 21: timed steps a route and turn
 SHARD_TRACE = 2            # phase 21: traced steps a route
 # the JAX package's scene file: key -> dtype (zig_vulkan_tpu/io/scene_io.py:
@@ -510,6 +535,7 @@ def edit_flythrough(dev, scene, scale, frames):
     tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
     c0 = captures()
+    g0 = graphs_of(rt)
     for insert in (True, False):
         move(insert)()
         rt.render()
@@ -540,6 +566,7 @@ def edit_flythrough(dev, scene, scale, frames):
                 "A_all": tile_tracer.grid_hit_tiles.launches,
                 "B": lookup.table_lookup.launches}
     made = captures() - c0
+    new = {k: v - g0[k] for k, v in graphs_of(rt).items()}
     peak = torch.cuda.max_memory_allocated()
     on_card = card_launches(rt.render)  # a replayed frame, traced
     img = image.cpu().numpy()
@@ -560,13 +587,17 @@ def edit_flythrough(dev, scene, scale, frames):
     if img.shape != (h, w, 3) or not np.isfinite(img).all():
         raise AssertionError("edit frame has the wrong shape or non-finite "
                              "values")
-    # three captures over every edit frame: the frame's step (its run and
-    # its capture went through the wrappers, the replays did not), the
-    # insert's graph and the removal's (1,024 lanes, with the records)
-    if made != 3 or launches != {"A": 2 * 4, "A_all": 2 * 4, "B": 2 * 2}:
+    # a capture for each graph the engine had not made before: the frame's
+    # step (its run and its capture went through the wrappers, the replays
+    # did not), the insert's graph and the removal's (1,024 lanes, with the
+    # records)
+    steps = new["steps"]
+    if (made != new["steps"] + new["edits"] or made != 3
+            or launches != {"A": 2 * 4 * steps, "A_all": 2 * 4 * steps,
+                            "B": 2 * 2 * steps}):
         raise AssertionError(f"expected three captures and 4 A and 2 B "
                              f"launches twice over the edit frames, got "
-                             f"{made} and {launches}")
+                             f"{made} ({new} new graphs) and {launches}")
     if (on_card["A"], on_card["A_all"], on_card["B"]) != (4, 4, 2):
         raise AssertionError(f"expected 4 A and 2 B launches a replayed edit "
                              f"frame on the card, got {on_card}")
@@ -725,6 +756,14 @@ def captures():
     from zig_vulkan_tpu_torch.engine.step import GraphedCall
 
     return GraphedCall.captures
+
+
+def graphs_of(rt):
+    """{"steps": keys, "edits": (size, edit kind) pairs} the engine `rt`
+    holds a graph for: each was captured once, on its first use (the
+    engine keeps them all), so a run captures as many as these grow."""
+    return {"steps": len(rt._step_cache),
+            "edits": sum(len(e.graphs) for e in rt._edit_cache.values())}
 
 
 def halo_check(dev, width, height):
@@ -1263,14 +1302,17 @@ def shadow_probe(rt, rays, active, key):
     ms_lists = {False: [], True: []}
     counts = {False: {}, True: {}}  # through the wrappers
     made = {False: 0, True: 0}
+    new = {False: 0, True: 0}  # keys the engine had no step for
     on_card = {}  # a replayed frame of each, traced
     # in turns (separate, in kernel, in kernel, separate): the frames are
     # host-bound and drift between groups. sun_in_kernel is in the step's
-    # key: a group whose key is not the cached step's captures it anew.
+    # key: a group whose key the engine has not seen captures it, later
+    # groups of the key replay it.
     for probe in (False, True, True, False):
         rt.trace_config = dataclasses.replace(base, sun_in_kernel=probe)
         tile_tracer.reset_launch_counts()
         lookup.table_lookup.launches = 0
+        new[probe] += rt._step_key() not in rt._step_cache
         c0 = captures()
         rt.draw()  # warm-up
         for _ in range(PROBE_FRAMES):
@@ -1293,6 +1335,7 @@ def shadow_probe(rt, rays, active, key):
     log("shadow", frame_ms_separate=f"{timing[False]:.3f}",
         frame_ms_in_kernel=f"{timing[True]:.3f}",
         frames_each=2 * PROBE_FRAMES, captures=json.dumps(made),
+        new_keys=json.dumps(new),
         launches_separate=json.dumps(counts[False], separators=(",", ":")),
         launches_in_kernel=json.dumps(counts[True], separators=(",", ":")),
         replayed_frame_on_card_separate=json.dumps(
@@ -1312,10 +1355,11 @@ def shadow_probe(rt, rays, active, key):
     for probe, w in want.items():
         got = {k: on_card[probe][k] for k in w}
         wrapped = {k: counts[probe][k] for k in w}
-        if (made[probe] < 1 or got != w
+        if (made[probe] != new[probe] or got != w
                 or wrapped != {k: 2 * made[probe] * v for k, v in w.items()}):
-            raise AssertionError(f"unexpected launch counts: captures {made}, "
-                                 f"wrappers {counts}, on the card {on_card}")
+            raise AssertionError(f"unexpected launch counts: captures {made} "
+                                 f"({new} new keys), wrappers {counts}, on "
+                                 f"the card {on_card}")
     return dict(launches=counts[True]["shadow"],
                 launches_per_frame=on_card[True]["shadow"],
                 max_abs_err=err, ms=ms, **bound,
@@ -1488,12 +1532,18 @@ def _same(got, want):
 
 
 def graph_pool_bytes(graph):
-    """Bytes of the segments of `graph`'s private memory pool (what a
-    captured step holds between replays), or None where the allocator's
-    snapshot does not name pools."""
+    """Bytes of the segments of `graph`'s memory pool (what a captured step
+    holds between replays; an engine's graphs share one), or None where
+    the allocator's snapshot does not name pools."""
+    return pool_bytes(graph.pool())
+
+
+def pool_bytes(pool):
+    """Bytes of the segments of the CUDA memory pool of id `pool`, or None
+    where the allocator's snapshot does not name pools."""
     import torch
 
-    pool = tuple(graph.pool())
+    pool = tuple(pool)
     segments = torch.cuda.memory_snapshot()
     if not segments or "segment_pool_id" not in segments[0]:
         return None
@@ -1613,11 +1663,13 @@ def step_case(label, pair, routes, graph, between=lambda i: None,
 
 
 def recapture_split(rt):
-    """What a slider move cost before the knobs were push constants (a new
-    key): the current key's step dropped, rebuilt (`VoxelRT.step()`),
-    warmed and captured (the next `render()`: `GraphedCall`'s warm-up run,
-    then its capture under `torch.cuda.graph`, timed at the context's
-    entry and exit), then the card drained. Host ms of each part."""
+    """What a move cost where it made its key anew (a slider move before
+    the knobs were push constants; any return to a key before the engine
+    kept every key's step): the current key's step dropped (the other
+    keys' stay), rebuilt (`VoxelRT.step()`), warmed and captured (the next
+    `render()`: `GraphedCall`'s warm-up run, then its capture under
+    `torch.cuda.graph`, timed at the context's entry and exit), then the
+    card drained. Host ms of each part."""
     import torch
 
     marks = {}
@@ -1635,7 +1687,7 @@ def recapture_split(rt):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rt._step_cache.clear()
+    del rt._step_cache[rt._step_key()]
     rt.step()
     t1 = time.perf_counter()
     torch.cuda.graph = timed
@@ -2222,6 +2274,313 @@ def shard_routes(dev, rt, c5):
         out[("config 5", n)] = shard_case(
             "config 5", n, {"replay": run, "op_by_op": run.op_by_op},
             c5.rt.render, move_config5, n)
+    return out
+
+
+# -- phase 22: the key tour ---------------------------------------------------------
+
+def scene_copy(rt):
+    """`rt`'s scene as a grid a new engine takes: its tensors cloned on the
+    card (`arrays.to_device`), with the host values the engine's
+    bookkeeping reads."""
+    import types
+
+    from zig_vulkan_tpu_torch.core.grid import GridArrays
+
+    a = rt.arrays
+    clones = {f.name: getattr(a, f.name).clone()
+              for f in dataclasses.fields(a)}
+    return types.SimpleNamespace(static=rt.grid_static, arrays=(
+        types.SimpleNamespace(
+            to_device=lambda device: GridArrays(**clones),
+            active_bricks=int(a.active_bricks),
+            statuses=a.statuses.cpu().numpy().view(np.uint32))))
+
+
+def temporal_state(rt):
+    """The temporal accumulator's state: (mean or None, count, pose)."""
+    return (None if rt._accum is None else rt._accum.clone(),
+            rt._accum_count, rt._pose_key)
+
+
+def set_temporal_state(rt, state):
+    accum, rt._accum_count, rt._pose_key = state
+    rt._accum = None if accum is None else accum.clone()
+
+
+def fresh_replay(rt, state):
+    """(image, rebuilt, pool): the frame a new engine on `rt`'s scene, with
+    `rt`'s settings, pose, records and the temporal state `state`, gives on
+    its first replay (its first frame captures), and whether the records
+    it built for itself equal `rt`'s. They differ after an insert: its
+    refresh writes the conservative field where a build writes the exact
+    one, and kernel A's hits follow the field (a leap may pass a grazing
+    voxel), in the JAX engine as here, so the new engine takes `rt`'s.
+    `pool` is the new engine's pool bytes: the key's own, alone."""
+    import copy
+
+    import torch
+
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+
+    fresh = VoxelRT(scene_copy(rt), rt.materials_host, rt.config,
+                    device=rt.device)
+    fresh.camera = copy.deepcopy(rt.camera)
+    fresh.sun = copy.deepcopy(rt.sun)
+    fresh.denoiser = rt.denoiser
+    fresh.trace_config = rt.trace_config
+    fresh.set_temporal(rt.temporal_enabled)
+    rebuilt = torch.equal(fresh.tables(), rt.tables())
+    fresh._tables.copy_(rt._tables)
+    fresh._dist.copy_(rt._dist)
+    for _ in range(2):
+        set_temporal_state(fresh, state)
+        image = fresh.render()
+    return image, rebuilt, pool_bytes(fresh._graphs.handle)
+
+
+def tour_frame(rt, label, rnd, rows, c_prev, rebuilt=False):
+    """One frame of the key tour after the move `label` of round `rnd`:
+    `render()` timed by CUDA events and the host clock, the same frame op
+    by op from the same state and a fresh engine's replay, both bit for
+    bit; the captures `rt` made since `c_prev`, and for a key new to `rt`
+    its pool's bytes and the card's allocated and reserved bytes. With
+    `rebuilt` (the move rebuilt the records) the records must also equal
+    the fresh engine's own build. Appends the row to `rows`."""
+    import torch
+
+    key = rt._step_key()
+    kept = key in rt._step_cache
+    returning = kept and rows and rows[-1]["key"] != key
+    state = temporal_state(rt)
+    torch.cuda.synchronize()
+    e0, e1, _ = frame_events()
+    t0 = time.perf_counter()
+    e0.record()
+    got = rt.render()
+    e1.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    row = dict(round=rnd, move=label, key=key, new_key=not kept,
+               return_to_key=bool(returning), device_ms=e0.elapsed_time(e1),
+               wall_ms=wall_ms)
+    if not kept:
+        row.update(pool_bytes=pool_bytes(rt._graphs.handle),
+                   memory_allocated=torch.cuda.memory_allocated(),
+                   memory_reserved=torch.cuda.memory_reserved())
+    after = temporal_state(rt)
+    set_temporal_state(rt, state)
+    want = rt.render_op_by_op()
+    set_temporal_state(rt, after)
+    row["captures"] = captures() - c_prev
+    row["equal_op_by_op"] = _same(got, want)
+    fresh, row["records_as_built"], alone = fresh_replay(rt, state)
+    row["equal_fresh"] = _same(got, fresh)
+    if not kept:
+        row["pool_bytes_alone"] = alone
+    row["shape"] = list(got.shape)
+    row["finite"] = bool(torch.isfinite(got).all())
+    rows.append(row)
+    log("tour", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                   for k, v in row.items() if k != "key"})
+    if not (row["equal_op_by_op"] and row["equal_fresh"] and row["finite"]
+            and (row["records_as_built"] or not rebuilt)):
+        raise AssertionError(f"key tour, round {rnd}, {label}: the replay "
+                             f"differs from op by op or from a fresh "
+                             f"engine, is not finite, or the rebuilt "
+                             f"records differ from a build: {row}")
+    return row
+
+
+def key_toggles(rt, ui):
+    """Phase 22's toggles: for each key a user flips (and none, the plain
+    replay), TOGGLE_FRAMES frames back to back, the key flipped before
+    each: every frame a return to a key `rt` holds. Median device ms
+    (CUDA events) and wall ms (host clock to a synchronize) a frame; the
+    empty_skip flip also rebuilds the records."""
+    import torch
+
+    d = rt.camera.d_camera
+    spp, bounce = int(d.samples_per_pixel), int(d.max_bounce)
+    multiplier = rt.denoiser.pixel_multiplier
+    tc = rt.trace_config
+
+    def trace(**knobs):
+        return lambda: setattr(rt, "trace_config",
+                               dataclasses.replace(tc, **knobs))
+
+    pairs = {
+        "none": (lambda: None, lambda: None),
+        "sun": (lambda: ui.set_sun_enabled(False),
+                lambda: ui.set_sun_enabled(True)),
+        "spp": (lambda: ui.set_samples_per_pixel(1),
+                lambda: ui.set_samples_per_pixel(spp)),
+        "bounce": (lambda: ui.set_max_bounce(2),
+                   lambda: ui.set_max_bounce(bounce)),
+        "pixel_multiplier": (
+            lambda: ui.set_denoiser(pixel_multiplier=2.0),
+            lambda: ui.set_denoiser(pixel_multiplier=multiplier)),
+        "denoiser": (lambda: ui.set_denoiser(enabled=False),
+                     lambda: ui.set_denoiser(enabled=True)),
+        "sun_in_kernel": (trace(sun_in_kernel=not tc.sun_in_kernel),
+                          trace(sun_in_kernel=tc.sun_in_kernel)),
+        "temporal": (lambda: rt.set_temporal(True),
+                     lambda: rt.set_temporal(False)),
+        "empty_skip": (trace(empty_skip=not tc.empty_skip),
+                       trace(empty_skip=tc.empty_skip))}
+    out = {}
+    for name, flips in pairs.items():
+        for flip in flips:  # both keys once, outside the timing
+            flip()
+            rt.render()
+        times = []
+        for i in range(TOGGLE_FRAMES):
+            torch.cuda.synchronize()
+            e0, e1, _ = frame_events()
+            t0 = time.perf_counter()
+            e0.record()
+            flips[i % 2]()
+            rt.render()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append((e0.elapsed_time(e1),
+                          (time.perf_counter() - t0) * 1e3))
+        flips[1]()
+        dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times))
+        out[name] = dict(device_ms=dev_ms, wall_ms=wall_ms,
+                         max_wall_ms=max(w for _, w in times))
+        log("tour", toggle=name, frames=TOGGLE_FRAMES,
+            median_device_ms=f"{dev_ms:.4f}", median_wall_ms=f"{wall_ms:.4f}",
+            max_wall_ms=f"{out[name]['max_wall_ms']:.4f}")
+    return out
+
+
+def key_tour_phase(dev, scene, cfg):
+    """Phase 22: the key tour (`engine.key_tour`) on the default frame at
+    full width, two rounds, then a flush of the default scene and an
+    empty_skip flip and flip back; see the module docstring. Returns the
+    kernel launches through the wrappers and the phase's numbers."""
+    import copy
+
+    import torch
+
+    from zig_vulkan_tpu_torch.engine import controls, key_tour
+    from zig_vulkan_tpu_torch.engine.engine import VoxelRT
+    from zig_vulkan_tpu_torch.ops import denoise, tile_tracer
+
+    reset_counts()
+    edited = copy.deepcopy(scene.grid)  # a same-geometry grid to flush in
+    rng = np.random.default_rng(5)
+    vx, vy, vz = edited.static.voxel_dims
+    n = 4096
+    edited.insert_batch(rng.integers(0, vx, n), rng.integers(0, vy, n),
+                        rng.integers(0, vz, n),
+                        rng.integers(1, 9, n).astype(np.uint8))
+    rt = VoxelRT(scene.grid, scene.materials, cfg, device=dev)
+    ui = controls.ControlPanel(rt)
+    box = ((0, 0, 0), (vx, vy, vz))
+    rebuild_ms = []
+
+    def flush(grid):
+        def run(rt):
+            rt.flush_grid(grid)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.tables()  # the exact field and the records, in place
+            torch.cuda.synchronize()
+            rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    rows = []
+    c0 = captures()
+    tour_frame(rt, "first frame", 0, rows, c0)
+    pool_one_key = rows[0]["pool_bytes"]
+    round_captures = []
+    for rnd in range(2):
+        c_round = captures()
+        for label, move in key_tour.key_tour(rt, flush(edited), box,
+                                             seed=rnd):
+            c_move = captures()
+            move(rt, ui)
+            tour_frame(rt, label, rnd, rows, c_move,
+                       rebuilt=label in ("flush_grid", "empty_skip flipped",
+                                         "empty_skip back"))
+        round_captures.append(sum(r["captures"] for r in rows
+                                  if r["round"] == rnd and
+                                  r["move"] != "first frame"))
+        log("tour", round=rnd, captures=round_captures[-1],
+            captures_with_fresh_engines=captures() - c_round,
+            keys=len(rt._step_cache), edit_sizes=sorted(rt._edit_cache),
+            edit_graphs=graphs_of(rt)["edits"],
+            pool_bytes=pool_bytes(rt._graphs.handle))
+    # the default scene flushed in, then empty_skip flipped and back
+    c_after = captures()
+    flush(scene.grid)(rt)
+    tour_frame(rt, "flush_grid of the default scene", 2, rows, c_after,
+               rebuilt=True)
+    skip = rt.trace_config.empty_skip
+    for value, label in ((not skip, "empty_skip flipped"),
+                         (skip, "empty_skip back")):
+        rt.trace_config = dataclasses.replace(rt.trace_config,
+                                              empty_skip=value)
+        tour_frame(rt, label, 2, rows, captures(), rebuilt=True)
+    after_captures = sum(r["captures"] for r in rows if r["round"] == 2)
+    counts = dict(read_counts(), **read_shading_counts(),
+                  shadow=tile_tracer.grid_hit_tiles.build_launches["shadow"],
+                  exact=tile_tracer.grid_hit_tiles.build_launches["exact"],
+                  F_runtime=sum(v for k, v in
+                                denoise.postprocess.build_launches.items()
+                                if k.endswith("_runtime")))
+    returns = [r for r in rows if r["round"] == 1 and r["return_to_key"]]
+    replays = [r for r in rows if r["round"] == 1]
+    c_toggles = captures()
+    toggles = key_toggles(rt, ui)
+    toggle_captures = captures() - c_toggles
+    splits = [recapture_split(rt) for _ in range(RECAPTURES)]
+    recapture = {k: float(np.median([r[k] for r in splits]))
+                 for k in splits[0]}
+    new_keys = [r for r in rows if r["new_key"]]
+    out = dict(
+        moves=len(rows), keys=len(rt._step_cache),
+        edit_sizes=sorted(rt._edit_cache),
+        edit_graphs=graphs_of(rt)["edits"], round_captures=round_captures,
+        captures_after_the_rounds=after_captures,
+        return_to_key_frames=len(returns),
+        return_to_key_median_wall_ms=float(np.median(
+            [r["wall_ms"] for r in returns])),
+        return_to_key_median_device_ms=float(np.median(
+            [r["device_ms"] for r in returns])),
+        return_to_key_max_wall_ms=max(r["wall_ms"] for r in returns),
+        round_2_median_wall_ms=float(np.median(
+            [r["wall_ms"] for r in replays])),
+        records_rebuild_ms=rebuild_ms,
+        toggles=toggles, toggle_captures=toggle_captures,
+        pool_bytes_one_key=pool_one_key,
+        pool_bytes_all_keys=pool_bytes(rt._graphs.handle),
+        pool_bytes_by_new_key=[r["pool_bytes"] for r in new_keys],
+        pool_bytes_of_each_key_alone=[r["pool_bytes_alone"]
+                                      for r in new_keys],
+        memory_allocated_by_new_key=[r["memory_allocated"]
+                                     for r in new_keys],
+        memory_reserved_by_new_key=[r["memory_reserved"] for r in new_keys],
+        recapture=recapture,
+        recaptures=[{k: round(v, 3) for k, v in r.items()} for r in splits],
+        launches=counts)
+    log("tour", **{k: (json.dumps(v, separators=(",", ":"))
+                       if isinstance(v, (dict, list)) else v)
+                   for k, v in out.items()})
+    if round_captures[1] != 0 or after_captures != 0 or toggle_captures:
+        raise AssertionError(f"the key tour's second round made "
+                             f"{round_captures[1]} captures, the flush and "
+                             f"flip {after_captures}, the toggles "
+                             f"{toggle_captures}: expected 0")
+    if out["edit_sizes"] != [1024 << k for k in range(6)]:
+        raise AssertionError(f"edit sizes {out['edit_sizes']}")
+    missing = [k for k in ("A", "B", "C", "D", "E", "F", "shadow", "exact",
+                           "F_runtime") if not counts[k] > 0]
+    if missing:
+        raise AssertionError(f"the key tour launched no {missing}: {counts}")
+    del rt
     return out
 
 
@@ -3401,7 +3760,10 @@ def host_io(dev, scene, rt8, cfg):
                                                empty_skip=False)
         before = rt8.render()
         torch.cuda.synchronize()
-        arrays = rt8.arrays
+        # a copy: the flush writes into the engine's tensors
+        arrays = dataclasses.replace(rt8.arrays, **{
+            f.name: getattr(rt8.arrays, f.name).clone()
+            for f in dataclasses.fields(rt8.arrays)})
         path = f"{tmp}/edited.npz"
         t0 = time.perf_counter()
         rt8.save_scene(path)
@@ -3526,7 +3888,7 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--default-frame-trace"]):
+    if argv not in ([], ["--default-frame-trace"], ["--key-tour"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3540,7 +3902,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if argv:
         card = device_and_build()
-        default_frame_trace(dev, scenes.default_scene(), EngineConfig())
+        if argv == ["--key-tour"]:
+            key_tour_phase(dev, scenes.default_scene(), EngineConfig())
+        else:
+            default_frame_trace(dev, scenes.default_scene(), EngineConfig())
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3995,6 +4360,11 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     stream21 = stream_routes(dev, c5)
     shards21 = shard_routes(dev, rt, c5)
     log("edits and shards", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # -- 22. the key tour ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    tour = key_tour_phase(dev, scene, cfg)
+    log("tour", phase_seconds=f"{time.perf_counter() - t0:.2f}")
     widest = shards21[("default frame", max(MESH_SIZES))]
     shard_launches = {
         route: {k: widest[route][f"launches_{k}"] / max(MESH_SIZES)
@@ -4177,6 +4547,18 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         resampling_denoiser_ms=denoised_f["ms"],
         resampling_denoiser_bound_ms=denoised_f["bound_ms"],
         resampling_denoiser_plain_ms=denoised_f["plain_ms"]))
+    # the launches through the wrappers in phase 22's run (its captures, its
+    # frames op by op and its fresh engines)
+    in_tour = (("traverse (kernel A, default build)", "A"),
+               ("traverse (kernel A, shadow build)", "shadow"),
+               ("traverse (kernel A, NO_SKIP", "exact"),
+               ("table_lookup (kernel B)", "B"), ("camera_rays", "C"),
+               ("shade (kernel D", "D"), ("resolve", "E"),
+               ("postprocess (kernel F, runtime", "F_runtime"))
+    for k in kernels:
+        for prefix, count in in_tour:
+            if k["name"].startswith(prefix):
+                k["launches_in_key_tour"] = tour["launches"][count]
     for k in kernels:
         # no PyTorch call traces a DDA or computes the shading in one call
         k.setdefault("library_ms", None)

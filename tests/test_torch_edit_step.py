@@ -431,41 +431,52 @@ def _voxels(n, seed=0):
                      rng.integers(0, 32, n)], -1)
 
 
-def test_edit_cache_keeps_the_recent_sizes():
+def test_edit_cache_keeps_every_size():
+    """Every padded size keeps its EditStep, as the JAX engine's jit keeps
+    each shape: a return to a size takes the same step and its graphs."""
     _, rt = _cache_engine()
     assert rt._padded(1) == rt._padded(1024) == 1024
     assert rt._padded(1025) == 2048 and rt._padded(5000) == 8192
-    for n in (10, 1500, 3000, 5000, 9000):  # 1024 ... 16384 lanes
+    for n in (10, 1500, 3000, 5000, 9000, 17000):  # 1024 ... 32768 lanes
         rt.insert_voxels(_voxels(n), np.ones(n, np.uint8))
-    assert list(rt._edit_cache) == [2048, 4096, 8192, 16384]
-    kept = rt._edit_cache[4096]
-    rt.remove_voxels(_voxels(2500))  # 4096 lanes: the most recent again
-    assert list(rt._edit_cache) == [2048, 8192, 16384, 4096]
-    assert rt._edit_cache[4096] is kept
-    assert set(kept.graphs) == {("insert", False, None),
-                                ("remove", False, None)}
+    sizes = [1024 << k for k in range(6)]
+    assert list(rt._edit_cache) == sizes
+    kept = dict(rt._edit_cache)
+    rt.remove_voxels(_voxels(2500))  # 4096 lanes again
     rt.insert_voxels(_voxels(1), np.ones(1, np.uint8))
-    assert list(rt._edit_cache) == [8192, 16384, 4096, 1024]
-    assert len(rt._edit_cache) == rt._EDIT_SIZES
+    assert list(rt._edit_cache) == sizes
+    assert all(rt._edit_cache[s] is kept[s] for s in sizes)
+    assert set(kept[4096].graphs) == {("insert", False, None),
+                                      ("remove", False, None)}
+    assert not hasattr(rt, "_EDIT_SIZES")
 
 
-def test_edit_cache_dropped_where_the_scene_tensors_change():
+def test_edit_cache_kept_where_the_scene_tensors_are_rewritten():
+    """The records' first build, an empty_skip flip and a flush write into
+    the tensors the edit graphs hold: the edit steps and their graphs stay,
+    and a graph key names the records' state (none before the first
+    build and after a flush, until the next frame rebuilds them)."""
     sc, rt = _cache_engine()
     edit = (_voxels(5), np.full(5, 3, np.uint8))
     rt.insert_voxels(*edit)
-    rt.tables()  # the records' first build drops the graphs without them
-    assert not rt._edit_cache
+    step = rt._edit_cache[1024]
+    rt.tables()
     rt.insert_voxels(*edit)
-    assert set(rt._edit_cache[1024].graphs) == {("insert", True, True)}
+    assert set(step.graphs) == {("insert", False, None),
+                                ("insert", True, True)}
     rt.trace_config = tconfig.TraceConfig(empty_skip=False)
-    rt.tables()  # empty_skip flipped: the records are rebuilt
-    assert not rt._edit_cache
+    rt.tables()  # empty_skip flipped: the records rebuilt in place
     rt.insert_voxels(*edit)
-    assert set(rt._edit_cache[1024].graphs) == {("insert", True, False)}
+    assert set(step.graphs) == {("insert", False, None),
+                                ("insert", True, True),
+                                ("insert", True, False)}
+    graphs = dict(step.graphs)
     rt.flush_grid(tscenes.flat_test_scene(dim=8).grid)
-    assert not rt._edit_cache
+    rt.insert_voxels(*edit)  # the records wait for the next frame's rebuild
+    rt.tables()
     rt.insert_voxels(*edit)
-    assert rt._edit_cache[1024].buf.device == torch.device("cpu")
+    assert rt._edit_cache == {1024: step} and step.graphs == graphs
+    assert step.buf.device == torch.device("cpu")
 
 
 def test_push_materials_reaches_the_next_insert():

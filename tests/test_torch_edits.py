@@ -526,8 +526,10 @@ def test_engine_flush_and_material_pushes():
     rt.insert_voxels(np.asarray([[2, 30, 2]]), np.asarray([3], np.uint8))
     assert rt._scene_degraded()
     fresh = _parity_scene(tscenes)
+    tables = rt._tables
     rt.flush_grid(fresh.grid)
-    assert rt._tables is None and rt._dist is None
+    # the records wait for the next frame's rebuild, into their tensors
+    assert rt._tables_skip is None and rt._tables is tables
     assert not rt._scene_degraded()
     assert rt._bricks_upper == int(fresh.grid.arrays.active_bricks)
     np.testing.assert_array_equal(
@@ -536,7 +538,7 @@ def test_engine_flush_and_material_pushes():
     want = ttrace.build_trace_tables(
         rt.grid_static, rt.arrays,
         ttrace.distance_field(rt.grid_static, rt.arrays, exact=True))
-    assert torch.equal(rt.tables(), want)
+    assert torch.equal(rt.tables(), want) and rt._tables is tables
     with pytest.raises(ValueError):
         rt.flush_grid(tgrid.BrickGrid(4, 4, 4))
 

@@ -795,22 +795,109 @@ def test_launch_counters_after_replays(card):
     assert lookup.table_lookup.launches == 6 + 2 * 3
 
 
+def _pool_bytes(pool):
+    """Bytes of the segments of the CUDA memory pool `pool` (a graph's
+    `pool()` id)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 @pytest.mark.cuda
-def test_denoiser_sweep_keeps_one_graph(card):
+def test_denoiser_sweep_keeps_every_graph_in_one_pool(card):
     """Each value of the denoiser's pixel_multiplier is a key and a capture
     (samples, bias and hue tolerance are push constants: see
-    test_slider_moves_replay_one_graph); the engine keeps the current key's
-    step alone, so the memory the graphs hold stays flat over a sweep of
-    values."""
-    rt = _step_engine(card)
-    held = []
-    for i in range(6):
-        rt.set_denoiser(pixel_multiplier=1.0 + 0.25 * i)
-        rt.render()
+    test_slider_moves_replay_one_graph); the engine keeps every key's step
+    and their graphs share the engine's one pool, which holds at most 1.25
+    times the largest key's own pool (a key alone in an engine) plus each
+    key's static output. A second sweep captures nothing."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    values = [1.0 + 0.25 * i for i in range(6)]
+    alone = []
+    for m in values:
+        one = _step_engine(card)
+        one.set_denoiser(pixel_multiplier=m)
+        one.render()
         torch.cuda.synchronize()
-        held.append(torch.cuda.memory_allocated(card))
-        assert len(rt._step_cache) == 1
-    assert max(held[2:]) <= held[1]
+        alone.append(_pool_bytes(one.step().graphed.graph.pool()))
+        del one
+    rt = _step_engine(card)
+    before = GraphedCall.captures
+    for sweep in range(2):
+        for m in values:
+            rt.set_denoiser(pixel_multiplier=m)
+            rt.render()
+    torch.cuda.synchronize()
+    assert GraphedCall.captures - before == len(values)
+    assert len(rt._step_cache) == len(values)
+    pools = {tuple(s.graphed.graph.pool()) for s in rt._step_cache.values()}
+    assert pools == {tuple(rt._graphs.handle)}
+    out_bytes = 4 * 3 * 320 * 180
+    shared = _pool_bytes(rt._graphs.handle)
+    assert 0 < shared <= 1.25 * max(alone) + len(values) * out_bytes, (
+        shared, alone)
+
+
+@pytest.mark.cuda
+def test_alternating_keys_keep_their_images(card):
+    """Two keys A, B, A, B, ... over 8 frames with the camera moving: each
+    replay equals the same key's body op by op bit for bit, and an image
+    returned earlier is unchanged after the later replays of both graphs
+    (which share one pool)."""
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card)
+    before = GraphedCall.captures
+    kept = []
+    for i in range(8):
+        rt.set_denoiser(pixel_multiplier=(1.5, 2.0)[i % 2])
+        rt.camera.turn_yaw(0.05)
+        rt.update_sun(0.5)
+        want = rt.render_op_by_op()
+        got = rt.render()
+        assert torch.equal(got, want), i
+        kept.append((got, got.clone()))
+    torch.cuda.synchronize()
+    assert GraphedCall.captures - before == 2
+    for i, (got, copy) in enumerate(kept):
+        assert torch.equal(got, copy), i
+    assert not torch.equal(kept[0][0], kept[2][0])
+
+
+@pytest.mark.cuda
+def test_edit_sizes_kept_over_two_rounds(card):
+    """Inserts and removals at six padded sizes (1,024 to 32,768 lanes),
+    then again, with frames between: the second round captures nothing,
+    and the scene and records equal the same edits on the CPU."""
+    from zig_vulkan_tpu_torch.engine.key_tour import EDIT_SIZES, edit_batch
+    from zig_vulkan_tpu_torch.engine.step import GraphedCall
+
+    rt = _step_engine(card)
+    sc = scenes.default_scene(dims=(64, 32, 64))
+    cpu = VoxelRT(sc.grid, sc.materials, rt.config, device="cpu")
+    rt.render()
+    cpu.tables()
+    rng = np.random.default_rng(11)
+    box = ((0, 0, 0), rt.grid_static.voxel_dims)
+    made = []
+    for _ in range(2):
+        c0 = GraphedCall.captures
+        for n in EDIT_SIZES:
+            xyz, mats = edit_batch(rng, n, box)
+            for engine in (rt, cpu):
+                engine.insert_voxels(xyz, mats)
+            rt.render()
+            for engine in (rt, cpu):
+                engine.remove_voxels(xyz)
+            rt.render()
+        made.append(GraphedCall.captures - c0)
+    torch.cuda.synchronize()
+    assert made == [2 * len(EDIT_SIZES), 0]
+    assert sorted(rt._edit_cache) == [1024 << k for k in range(6)]
+    _same_scene(cpu.arrays, grid_mod.GridArrays(**{
+        f.name: getattr(rt.arrays, f.name).cpu()
+        for f in dataclasses.fields(rt.arrays)}))
+    assert torch.equal(rt._tables.cpu(), cpu._tables)
 
 
 @pytest.mark.cuda
@@ -833,6 +920,8 @@ def test_step_captures_on_a_second_card(card):
         assert got.device == other and torch.equal(got, want)
     assert GraphedCall.captures == before + 1
     assert rt.step().graphed.graph is not None
+    assert rt._graphs.device == other and rt._graphs.stream.device == other
+    assert tuple(rt.step().graphed.graph.pool()) == tuple(rt._graphs.handle)
 
 
 @pytest.mark.cuda

@@ -182,12 +182,14 @@ def test_denoiser_sliders_keep_the_step_and_the_frame_follows():
         want = tdn.postprocess_plain(img, cfg, oh, ow,
                                      max_samples=tdn.MAX_RUNTIME_SAMPLES)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    keys = [rt._step_key()]
     for knobs in (dict(pixel_multiplier=2.0), dict(enabled=False)):
         rt.set_denoiser(**knobs)
         rt.render()
         assert rt.step() is not step
         step = rt.step()
-        assert list(rt._step_cache) == [rt._step_key()]
+        keys.append(rt._step_key())
+        assert list(rt._step_cache) == keys
 
 
 def _host_frame(rt, sample_base=0.0):
@@ -268,15 +270,18 @@ def _edited_grid():
     return sc
 
 
-def test_flush_grid_drops_the_steps():
+def test_flush_grid_keeps_the_steps():
+    """A flush writes the new grid into the scene's tensors and the next
+    frame rebuilds the records into theirs: the same step renders the new
+    scene, as a fresh engine does."""
     rt = _port()
     before = rt.render()
-    step = rt.step()
+    step, tables = rt.step(), rt._tables
     sc = _edited_grid()
     rt.flush_grid(sc.grid)
-    assert rt._step_cache == {}
+    assert list(rt._step_cache) == [step.key]
     got = rt.render()
-    assert rt.step() is not step
+    assert rt.step() is step and rt._tables is tables
     assert torch.equal(got, _fresh(sc.grid, rt.materials_host, rt.config))
     assert not torch.equal(got, before)
 
@@ -300,29 +305,41 @@ def test_material_changes_write_in_place(how):
     assert torch.equal(got, _fresh(sc.grid, mats, rt.config))
 
 
-def test_empty_skip_flip_rebuilds_records_and_steps():
+def test_empty_skip_flip_rebuilds_records_in_place_and_keeps_steps():
+    """A flip of empty_skip rebuilds the records into their tensors (the
+    field all 0) and makes a step of the new key beside the old one; the
+    flip back rebuilds the exact field and returns to the old step. Each
+    frame equals a fresh engine's."""
     rt = _port()
-    rt.render()
-    step = rt.step()
+    first = rt.render()
+    step, tables, dist = rt.step(), rt._tables, rt._dist
     rt.trace_config = dataclasses.replace(rt.trace_config, empty_skip=False)
     got = rt.render()
     assert rt.step() is not step and not rt.step().key.empty_skip
-    assert len(rt._step_cache) == 1  # the rebuild dropped the old step
+    assert list(rt._step_cache) == [step.key, rt.step().key]
+    assert rt._tables is tables and rt._dist is dist and not dist.any()
     sc = _parity_scene(tscenes)
     assert torch.equal(got, _fresh(sc.grid, sc.materials, dataclasses.replace(
         rt.config, trace=rt.trace_config)))
+    rt.trace_config = dataclasses.replace(rt.trace_config, empty_skip=True)
+    assert torch.equal(rt.render(), first)
+    assert rt.step() is step and len(rt._step_cache) == 2
+    assert rt._dist is dist and torch.equal(dist, ttrace.distance_field(
+        rt.grid_static, rt.arrays, exact=True))
 
 
 def test_set_resolutions_gives_a_new_key():
     rt = _port()
     rt.render()
     key = rt._step_key()
+    step = rt.step()
     rt.set_resolutions(internal=(32, 24), output=(40, 30))
     assert rt._step_key() != key
     assert rt.render().shape == (30, 40, 3)
-    assert list(rt._step_cache) == [rt._step_key()]
+    assert list(rt._step_cache) == [key, rt._step_key()]
     rt.set_resolutions(internal=(48, 48), output=(64, 64))
     assert rt._step_key() == key
+    assert rt.render().shape == (64, 64, 3) and rt.step() is step
 
 
 def test_edits_between_frames_show_through_the_same_step():
@@ -466,11 +483,11 @@ def test_kernel_launches_counts_kernel_f_runtime_builds():
     assert got["F"] == 4
 
 
-def test_step_cache_keeps_one_step_over_denoiser_values():
+def test_step_cache_keeps_a_step_a_denoiser_key():
     """A slider sweep of the denoiser's push constants keeps one key and
     one step; a sweep of pixel_multiplier makes a key a value, and the
-    cache keeps the current key's step alone, so no old graph stays
-    behind."""
+    cache keeps every key's step, as the JAX engine keeps its jitted
+    steps: a second sweep over the same values builds none."""
     rt = _port(denoise=True, out=48)
     rt.render()
     step = rt.step()
@@ -479,13 +496,14 @@ def test_step_cache_keeps_one_step_over_denoiser_values():
                         samples=3 * i, inverse_hue_tolerance=1.0 + i)
         rt.render()
         assert rt.step() is step and len(rt._step_cache) == 1
-    seen = set()
-    for i in range(10):
-        rt.set_denoiser(pixel_multiplier=0.5 + 0.25 * i)
-        rt.render()
-        seen.add(rt._step_key())
-        assert len(rt._step_cache) == 1
-    assert len(seen) == 10
+    steps = {}
+    for sweep in range(2):
+        for i in range(10):
+            rt.set_denoiser(pixel_multiplier=0.5 + 0.25 * i)
+            rt.render()
+            assert steps.setdefault(i, rt.step()) is rt.step()
+            # the fifth value, 1.5, is the first frame's key
+            assert len(rt._step_cache) == (10 if sweep else 2 + i - (i >= 4))
 
 
 def test_temporal_mean_carries_over_a_denoiser_change():

@@ -9,8 +9,9 @@ step on one device, as the JAX engine's:
       -> temporal running mean (when enabled)
       -> denoise + resample (ops.denoise)
 
-`_step_key()` holds the frame's static configuration, `_step_cache` the
-current key's step (`_build_step`, `engine.step.Step`), and `_push_constants()`
+`_step_key()` holds the frame's static configuration, `_step_cache` every
+key's step (`_build_step`, `engine.step.Step`), kept as the JAX engine keeps
+its jitted steps, and `_push_constants()`
 packs every per-frame value (camera, sun, sample base, temporal count, the
 denoiser's samples, distribution bias and hue tolerance) into one f32[24]
 array in the JAX engine's layout: one host-to-device copy a frame, so a new
@@ -21,11 +22,15 @@ frame after; on the CPU its body runs op by op. `render_op_by_op()` calls
 the same body op by op on any device (for checks that hook the kernel
 wrappers, which a replay does not call).
 
-A graph bakes in the addresses of the scene's tensors. The edits write
-into them in place, so a replay sees them; `flush_grid` and a rebuild of
-the records (first frame, `empty_skip` flipped) drop every step and every
-edit graph, and `push_materials` / `push_albedo` write into the material
-table and its device-side dielectric classification in place.
+A graph bakes in the addresses of the scene's tensors, so every write to
+them is in place and every graph stays valid: the edits, `flush_grid` (the
+new grid's arrays copied into the scene's tensors), a rebuild of the
+records (after a flush, or with `empty_skip` flipped: the field rebuilt,
+exact or all 0, into the records' tensors), `push_materials` and
+`push_albedo` (the material table and its device-side dielectric
+classification). The frame and edit graphs of an engine share one memory
+pool (`engine.step.GraphPool`), so a key or a size kept costs its static
+output, not a pool.
 
 The scene's per-cell traversal records are built once, on the first frame,
 with the exact distance field, and cached. Voxel edits (`insert_voxels`,
@@ -36,8 +41,8 @@ engine, a batch is padded to `_EDIT_PAD` lanes times a power of two, and
 each padded size is an `engine.step.EditStep`: one pinned upload a batch
 and, on a CUDA device, one graph for each (insert or remove, records or
 none, their `empty_skip`) holding the edit and the refresh, captured once
-and replayed (the edit body never waits for the card). The cache keeps
-`_EDIT_SIZES` sizes, least recently used first out. `insert_voxels_op_by_op`
+and replayed (the edit body never waits for the card). Every padded size is
+kept, as the JAX engine's jit keeps each shape. `insert_voxels_op_by_op`
 and `remove_voxels_op_by_op` call the same bodies op by op. With
 `TraceConfig(empty_skip=False)` the frame runs the exact DDA and the records
 carry no distance field. Host-side mutable state is the camera and sun (the
@@ -51,7 +56,6 @@ refresh, one graph), edit_remove.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -70,8 +74,8 @@ from ..ops.tile_tracer import REGION_CELLS, region_grid
 from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
-from .step import (EditStep, GraphedCall, PushRing, Step, StepKey,
-                   pack_frame, trace_from_pc)
+from .step import (EditStep, GraphedCall, GraphPool, PushRing, Step,
+                   StepKey, pack_frame, trace_from_pc)
 
 
 class VoxelRT:
@@ -122,7 +126,8 @@ class VoxelRT:
 
         self._tables = None
         self._dist = None
-        self._tables_skip = None  # the empty_skip the records were built for
+        # the empty_skip the records hold, None until they are (re)built
+        self._tables_skip = None
         self._track_host_grid(grid)
 
         # temporal accumulation (BASELINE config 4): running mean of traced
@@ -133,9 +138,13 @@ class VoxelRT:
         self._accum_count = 0
         self._pose_key = None
 
+        # every key's step and every padded edit size, their graphs in
+        # one pool (None on the CPU, where nothing is captured)
+        self._graphs = (GraphPool(self.device) if self.device.type == "cuda"
+                        else None)
         self._step_cache = {}
         self._push = PushRing(self.device)
-        self._edit_cache = collections.OrderedDict()  # padded size -> EditStep
+        self._edit_cache = {}  # padded size -> EditStep
 
     def _track_host_grid(self, grid: BrickGrid) -> None:
         # host-side bound on the active bricks: the edit path never reads
@@ -150,24 +159,22 @@ class VoxelRT:
         """The scene's per-cell traversal records, built on first use with
         the exact distance field (ops.trace.build_trace_tables) and kept up
         to date by the edits. With `empty_skip=False` the distance lane is
-        never read and no field is built (ops.trace.no_skip_field)."""
+        never read and the field is all 0 (ops.trace.no_skip_field). After
+        a `flush_grid` or a flip of `empty_skip` the records and the field
+        are built again, into the same tensors: the graphs that read them
+        stay."""
         skip = bool(self.trace_config.empty_skip)
         if self._tables_skip != skip:
-            self._tables = None
-            self._dist = None
-        if self._tables is None:
-            # the steps' and edits' graphs read the records they were
-            # captured with
-            self._step_cache.clear()
-            self._edit_cache.clear()
+            st = self.grid_static
             with profiling.zone("build_tables"):
-                if self._dist is None:
-                    self._dist = (trace_mod.distance_field(
-                        self.grid_static, self.arrays, exact=True) if skip
-                        else trace_mod.no_skip_field(self.grid_static,
-                                                     self.arrays))
-                self._tables = trace_mod.build_trace_tables(
-                    self.grid_static, self.arrays, self._dist)
+                dist = (trace_mod.distance_field(st, self.arrays, exact=True)
+                        if skip else trace_mod.no_skip_field(st, self.arrays))
+                tables = trace_mod.build_trace_tables(st, self.arrays, dist)
+                if self._tables is None:
+                    self._tables, self._dist = tables, dist
+                else:
+                    self._tables.copy_(tables)
+                    self._dist.copy_(dist)
             self._tables_skip = skip
         return self._tables
 
@@ -186,15 +193,12 @@ class VoxelRT:
         return _checked(self._render(Step.op_by_op))
 
     def step(self) -> Step:
-        """The current key's step, built (not captured) on first use. The
-        cache keeps the current key's step alone: a new key (a resolution,
-        the denoiser's pixel_multiplier or on/off) frees the old step, its
-        graph and the graph's memory pool."""
+        """The current key's step, built (not captured) on first use and
+        kept: a return to a key replays its graph."""
         self.tables()
         key = self._step_key()
         step = self._step_cache.get(key)
         if step is None:
-            self._step_cache.clear()
             step = self._step_cache[key] = self._build_step(key)
         return step
 
@@ -206,9 +210,9 @@ class VoxelRT:
             pose = (tuple(np.asarray(d.origin).tolist()),
                     tuple(np.asarray(d.lower_left_corner).tolist()),
                     tuple(np.asarray(sun.position).tolist()))
-            # the running mean goes on into a new step of the same
-            # resolution (a change of the denoiser's key fields), as the JAX
-            # engine's does
+            # the running mean goes on into another temporal step of the
+            # same resolution and pose (a new key, or one kept from before),
+            # as the JAX engine's one accumulator does
             carry = (self._accum is not None and pose == self._pose_key
                      and self._accum.shape == step.accum.shape)
             if self._accum is not step.accum:
@@ -276,7 +280,7 @@ class VoxelRT:
 
         accum_shape = ((key.internal_height, key.internal_width, 3)
                        if key.temporal else None)
-        return Step(key, body, self.device, accum_shape)
+        return Step(key, body, self.device, accum_shape, self._graphs)
 
     def _push_constants(self) -> np.ndarray:
         """Per-frame values packed into one f32[24] array, the JAX engine's
@@ -322,16 +326,23 @@ class VoxelRT:
 
     def flush_grid(self, grid: BrickGrid) -> None:
         """Full scene re-upload from a host BrickGrid (the reference's
-        debugFlushGrid, VoxelRT.zig:95-104); the records are rebuilt with
-        the exact field on the next frame."""
+        debugFlushGrid, VoxelRT.zig:95-104), copied into the scene's
+        tensors: every step and edit graph stays. The records are rebuilt
+        with the exact field on the next frame."""
         if grid.static != self.grid_static:
             raise ValueError("flush_grid: the grid's geometry must match")
-        self.arrays = grid.arrays.to_device(self.device)
+        host = grid.arrays.to_device("cpu")
+        pairs = [(f.name, getattr(self.arrays, f.name), getattr(host, f.name))
+                 for f in dataclasses.fields(self.arrays)]
+        for name, dst, src in pairs:
+            if dst.shape != src.shape:
+                raise ValueError(f"flush_grid: {name} has shape "
+                                 f"{tuple(src.shape)}, the scene's "
+                                 f"{tuple(dst.shape)}")
+        for _, dst, src in pairs:
+            dst.copy_(src)
         self._track_host_grid(grid)
-        self._tables = None
-        self._dist = None
-        self._step_cache.clear()
-        self._edit_cache.clear()
+        self._tables_skip = None
 
     def push_materials(self, materials: MaterialTable) -> None:
         """Replace the material table (VoxelRT.zig:85-88), written into the
@@ -385,7 +396,6 @@ class VoxelRT:
     # -- voxel edits (reference C4 call stack) -----------------------------------
 
     _EDIT_PAD = 1024  # lanes of the smallest padded batch (the JAX engine's)
-    _EDIT_SIZES = 4   # padded sizes whose buffers and graphs are kept
 
     def _cells_of(self, xyz: np.ndarray) -> np.ndarray:
         """Grid cell ids (Y-flipped, Grid.zig:135/:206-211) for a batch."""
@@ -472,22 +482,21 @@ class VoxelRT:
         """Upload the batch into its padded size's buffer and run the edit
         graph of (`op`, the records' state) through `run`."""
         size = self._padded(xyz.shape[0])
-        step = self._edit_cache.pop(size, None)
+        step = self._edit_cache.get(size)
         if step is None:
-            step = EditStep(size, self.device)
-        self._edit_cache[size] = step  # the most recently used, last
-        while len(self._edit_cache) > self._EDIT_SIZES:
-            self._edit_cache.popitem(last=False)
+            step = self._edit_cache[size] = EditStep(size, self.device,
+                                                     self._graphs)
         step.upload(xyz, mats)
-        records = self._tables is not None
-        key = (op, records, self._tables_skip if records else None)
+        # the records are refreshed while they are current (not before
+        # their first build, nor after a flush: the next frame rebuilds
+        # them)
+        key = (op, self._tables_skip is not None, self._tables_skip)
         run(step.graph(key, lambda: self._edit_body(*key)))
 
     def _edit_body(self, op: str, records: bool, skip):
         """The edit of `op` over an `EditStep`'s buffer, with the records'
-        refresh when they exist, on the scene's current tensors (whose
-        addresses a graph keeps). The body holds no reference to its step,
-        so an evicted step goes (and its graph's pool with it) at once."""
+        refresh when they are current, on the scene's tensors (whose
+        addresses a graph keeps)."""
         st = self.grid_static
         arrays, tables, dist = self.arrays, self._tables, self._dist
         is_diel, ir = self._mat_is_diel, self._mat_ir

@@ -23,6 +23,27 @@ memory on the current stream, without a synchronize.
 fixed number of lanes is uploaded in one pinned copy into a static device
 buffer, and one graph per edit kind replays the edit and the refresh over
 it.
+
+`GraphPool` is one memory pool and one capture stream that the graphs of
+one engine share (`VoxelRT` keeps every key's step and every padded edit
+size, as the JAX engine keeps its jitted programs), so keeping them costs
+about the largest graph's working memory plus each graph's static output,
+not a pool a graph. That is safe while an engine holds to this:
+
+- its graphs replay on one stream, never concurrently;
+- a graph's static output is read only by the clone that directly follows
+  its replay (`Step.__call__`; the edit graphs return nothing);
+- nothing a body allocates during its capture is read after another graph
+  of the pool has replayed: every other tensor a body reads (the push
+  constants, the accumulator, the edit buffer, the scene, the records and
+  the material tables) is allocated outside the capture, and no kernel
+  wrapper keeps a device tensor it made from one call to the next (kernel
+  F's plans and tap tables are host structs passed by value; `ops.trace`'s
+  0-d constants are fills recorded into the graph).
+
+A graph whose output another graph reads between replays (the sharded
+step's trace and post-process graphs, `parallel.mesh.ShardedStep`) keeps a
+pool of its own, as does the bench's pose frame.
 """
 
 from __future__ import annotations
@@ -114,6 +135,17 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+class GraphPool:
+    """The memory pool and the capture stream that the graphs of one engine
+    share (see the module docstring), on a CUDA `device`."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        with torch.cuda.device(self.device):
+            self.handle = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+
+
 class GraphedCall:
     """`body(*args)` over static tensors `args` (their addresses are baked
     into the graph: later calls see what was written into them in place).
@@ -121,15 +153,18 @@ class GraphedCall:
     On the CPU every call runs the body. On a CUDA device the first call
     runs it on a side stream, returns that result and captures the body as
     a graph; every later call replays the graph and returns the static
-    output, which the next call overwrites. `captures` counts the captures
-    of every GraphedCall in the process."""
+    output, which the next call overwrites. With a `GraphPool` the capture
+    takes the pool's memory and its stream; without one the graph has a
+    pool of its own. `captures` counts the captures of every GraphedCall in
+    the process."""
 
     captures = 0
 
-    def __init__(self, body, *args):
+    def __init__(self, body, *args, pool: GraphPool | None = None):
         self.body = body
         self.args = args
         self.device = next(_tensors(args)).device
+        self.pool = pool
         self.graph = None
         self.out = None
 
@@ -145,7 +180,10 @@ class GraphedCall:
         # the capture stream is opened on the current device: make it ours
         with torch.cuda.device(self.device):
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
+            # a pool reuses a block only on the stream that freed it: the
+            # graphs of one pool capture on its one stream
+            side = (torch.cuda.Stream(self.device) if self.pool is None
+                    else self.pool.stream)
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 result = self.body(*self.args)  # the warm-up: this frame
@@ -161,7 +199,9 @@ class GraphedCall:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, stream=side):
+                with torch.cuda.graph(
+                        graph, stream=side,
+                        pool=None if self.pool is None else self.pool.handle):
                     out = self.body(*self.args)
             finally:
                 if collecting:
@@ -205,11 +245,12 @@ class Step:
     """One compiled step (the JAX engine's `_build_step(key)`): the frame
     `body(pc, accum)`, its static push constants `pc` (f32[24]), the
     temporal accumulator `accum` (None unless the key is temporal) and the
-    graph over them. `__call__` runs the frame through the graph (the body
+    graph over them, captured into `pool` (a `GraphPool`, or None for a
+    pool of its own). `__call__` runs the frame through the graph (the body
     on the CPU); `op_by_op` calls the body directly. Both return a fresh
     image: later frames do not overwrite it."""
 
-    def __init__(self, key, body, device, accum_shape=None):
+    def __init__(self, key, body, device, accum_shape=None, pool=None):
         self.key = key
         self.body = body
         self.pc = torch.zeros(PUSH_CONSTANTS, dtype=torch.float32,
@@ -217,7 +258,7 @@ class Step:
         self.accum = (None if accum_shape is None else
                       torch.zeros(accum_shape, dtype=torch.float32,
                                   device=device))
-        self.graphed = GraphedCall(body, self.pc, self.accum)
+        self.graphed = GraphedCall(body, self.pc, self.accum, pool=pool)
 
     def __call__(self):
         return self.graphed().clone()
@@ -233,13 +274,15 @@ class EditStep:
     ([size, 3]), their materials ([size]) and the count of live lanes, the
     pinned ring that uploads a batch into it (one host-to-device copy an
     edit), and one `GraphedCall` over the buffer for each edit kind the
-    caller names (`graph(key, make_body)`)."""
+    caller names (`graph(key, make_body)`), captured into `pool` (as
+    `Step`'s). The buffer and the ring are the step's own."""
 
-    def __init__(self, size: int, device):
+    def __init__(self, size: int, device, pool=None):
         self.size = int(size)
         self.buf = torch.zeros(4 * self.size + 1, dtype=torch.int32,
                                device=device)
         self.ring = PushRing(device, self.buf.numel(), torch.int32)
+        self.pool = pool
         self.graphs = {}
 
     def upload(self, xyz: np.ndarray, mats=None) -> None:
@@ -266,5 +309,6 @@ class EditStep:
         `make_body()` on first use."""
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = GraphedCall(make_body(), self.buf)
+            g = self.graphs[key] = GraphedCall(make_body(), self.buf,
+                                               pool=self.pool)
         return g
