@@ -77,7 +77,9 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     the default build's flip rate against the oracle (< 0.5%) and against
     its twin; full-RGB frames of the exact path through the engine against
     `oracle.render` on two poses; NO_SKIP against the default build on the
-    1080p primary rays;
+    1080p primary rays; each NO_SKIP build (exact, shadow, stats, both) on
+    the same rays over records with the exact field, the conservative one
+    and all 0, bit for bit (the exact DDA never reads the field);
 13. the app: `python -m zig_vulkan_tpu_torch.app.run`'s `main` at its
     defaults with `--frames 8 --out`, `--script demo`, `--benchmark`,
     `--profile` (the zones in the trace) and `--live` (output captured);
@@ -178,15 +180,21 @@ a replayed frame are counted in a `torch.profiler` trace of the card
     rounds, then a flush of the default scene and empty_skip flipped and
     back: each frame's `render()` by CUDA events and the host clock, equal
     bit for bit to the same frame op by op and to a fresh engine's first
-    replay of that state, the captures of each move (the engine keeps
-    every key's step and every edit size, their graphs in one pool: the
+    replay of that state, the records' builds of each move (only the first
+    frame and a flush build them; an empty_skip flip keeps the records and
+    the field bit for bit, and after the tour's flipped edits and the flip
+    back the field is the edited grid's conservative one, the cells where
+    it differs from the exact one counted), the captures of each move (the
+    engine keeps every key's step and every edit size, their graphs in one
+    pool: the
     second round and the rest make none), the shared pool's bytes, each
     new key's own pool (its fresh engine's) and the card's allocated and
     reserved bytes after each new key, the records' rebuild ms after each
     flush; then each key a user flips toggled back and forth over
     TOGGLE_FRAMES timed frames (every one a return to a kept key, no
-    capture), beside a re-capture of the key (`recapture_split`: build,
-    warm-up, capture); and the kernels' launches through the wrappers in
+    capture; the empty_skip toggles build no records), beside a
+    re-capture of the key (`recapture_split`: build, warm-up, capture);
+    and the kernels' launches through the wrappers in
     the phase (A's default, shadow and NO_SKIP builds, B to E and F's
     runtime builds each at least once).
 
@@ -2021,7 +2029,7 @@ def edit_routes(dev, scene, scale):
                              f"routes: arrays {differ}, records equal "
                              f"{tables_equal}, images {images_equal}")
     # the frame's step, one insert and one removal graph of 1,024 lanes
-    if made != 3 or keys != [("insert", True, True), ("remove", True, True)]:
+    if made != 3 or keys != [("insert", True), ("remove", True)]:
         raise AssertionError(f"expected the frame's and one capture an edit "
                              f"kind over config 3's frames, got {made}: "
                              f"{keys}")
@@ -2339,32 +2347,35 @@ def fresh_replay(rt, state):
     return image, rebuilt, pool_bytes(fresh._graphs.handle)
 
 
-def tour_frame(rt, label, rnd, rows, c_prev, rebuilt=False):
+def tour_frame(rt, label, rnd, rows, c_prev, b_prev, rebuilt=False,
+               kept=None, move_ms=None):
     """One frame of the key tour after the move `label` of round `rnd`:
     `render()` timed by CUDA events and the host clock, the same frame op
     by op from the same state and a fresh engine's replay, both bit for
-    bit; the captures `rt` made since `c_prev`, and for a key new to `rt`
-    its pool's bytes and the card's allocated and reserved bytes. With
-    `rebuilt` (the move rebuilt the records) the records must also equal
-    the fresh engine's own build. Appends the row to `rows`."""
+    bit; the captures `rt` made since `c_prev` and the records' builds
+    since `b_prev` (`RECORD_BUILDS`), and for a key new to `rt` its pool's
+    bytes and the card's allocated and reserved bytes. With `rebuilt` (the
+    move rebuilt the records: one build) the records must also equal the
+    fresh engine's own build, and without it the move built none. With
+    `kept`, the records and the field before an empty_skip flip, they must
+    be bit for bit what they were. `move_ms`: the move's (device, wall)
+    ms. Appends the row to `rows`."""
     import torch
 
     key = rt._step_key()
-    kept = key in rt._step_cache
-    returning = kept and rows and rows[-1]["key"] != key
+    kept_key = key in rt._step_cache
+    returning = kept_key and rows and rows[-1]["key"] != key
     state = temporal_state(rt)
-    torch.cuda.synchronize()
-    e0, e1, _ = frame_events()
-    t0 = time.perf_counter()
-    e0.record()
-    got = rt.render()
-    e1.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    row = dict(round=rnd, move=label, key=key, new_key=not kept,
-               return_to_key=bool(returning), device_ms=e0.elapsed_time(e1),
-               wall_ms=wall_ms)
-    if not kept:
+    got, device_ms, wall_ms = timed(rt.render)
+    row = dict(round=rnd, move=label, key=key, new_key=not kept_key,
+               return_to_key=bool(returning), device_ms=device_ms,
+               wall_ms=wall_ms, records_builds=RECORD_BUILDS[0] - b_prev)
+    if move_ms is not None:
+        row["move_device_ms"], row["move_wall_ms"] = move_ms
+    if kept is not None:
+        row["records_kept"] = bool(torch.equal(rt._tables, kept[0])
+                                   and torch.equal(rt._dist, kept[1]))
+    if not kept_key:
         row.update(pool_bytes=pool_bytes(rt._graphs.handle),
                    memory_allocated=torch.cuda.memory_allocated(),
                    memory_reserved=torch.cuda.memory_reserved())
@@ -2376,7 +2387,7 @@ def tour_frame(rt, label, rnd, rows, c_prev, rebuilt=False):
     row["equal_op_by_op"] = _same(got, want)
     fresh, row["records_as_built"], alone = fresh_replay(rt, state)
     row["equal_fresh"] = _same(got, fresh)
-    if not kept:
+    if not kept_key:
         row["pool_bytes_alone"] = alone
     row["shape"] = list(got.shape)
     row["finite"] = bool(torch.isfinite(got).all())
@@ -2384,20 +2395,85 @@ def tour_frame(rt, label, rnd, rows, c_prev, rebuilt=False):
     log("tour", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                    for k, v in row.items() if k != "key"})
     if not (row["equal_op_by_op"] and row["equal_fresh"] and row["finite"]
-            and (row["records_as_built"] or not rebuilt)):
+            and (row["records_as_built"] or not rebuilt)
+            and row["records_builds"] == int(rebuilt)
+            and row.get("records_kept", True)):
         raise AssertionError(f"key tour, round {rnd}, {label}: the replay "
                              f"differs from op by op or from a fresh "
-                             f"engine, is not finite, or the rebuilt "
-                             f"records differ from a build: {row}")
+                             f"engine, is not finite, the records were "
+                             f"built on another move than a flush, the "
+                             f"rebuilt records differ from a build, or an "
+                             f"empty_skip flip changed them: {row}")
     return row
+
+
+# the engine's records builds (`ops.trace.build_trace_tables` called by
+# `VoxelRT.tables()`), counted while phase 22 runs
+RECORD_BUILDS = [0]
+
+
+@contextlib.contextmanager
+def counting_record_builds():
+    """Count the engine's records builds in RECORD_BUILDS: its module's
+    `build_trace_tables` wrapped, and put back on the way out."""
+    from zig_vulkan_tpu_torch.engine import engine
+
+    build = engine.trace_mod.build_trace_tables
+
+    def counted(*args, **kw):
+        RECORD_BUILDS[0] += 1
+        return build(*args, **kw)
+
+    engine.trace_mod.build_trace_tables = counted
+    try:
+        yield
+    finally:
+        engine.trace_mod.build_trace_tables = build
+
+
+def timed(fn):
+    """(`fn()`, its device ms by CUDA events, its wall ms to a
+    synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1, _ = frame_events()
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+
+
+def field_after_flip_back(rt, rnd):
+    """After the tour's flipped edits and the flip back: the field is the
+    edited grid's conservative one, as the JAX engine's (not a build's
+    exact one). Returns the cells where the two differ."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import trace
+
+    st, a = rt.grid_static, rt.arrays
+    conservative = trace.distance_field(st, a)
+    differ = int((conservative
+                  != trace.distance_field(st, a, exact=True)).sum())
+    log("tour", round=rnd, field_after_flip_back="conservative",
+        cells=st.cells, cells_conservative_differs_from_exact=differ)
+    if not torch.equal(rt._dist, conservative):
+        raise AssertionError(f"key tour, round {rnd}: after the flipped "
+                             f"edits and the flip back the field is not "
+                             f"the conservative one of the edited grid")
+    return differ
 
 
 def key_toggles(rt, ui):
     """Phase 22's toggles: for each key a user flips (and none, the plain
     replay), TOGGLE_FRAMES frames back to back, the key flipped before
     each: every frame a return to a key `rt` holds. Median device ms
-    (CUDA events) and wall ms (host clock to a synchronize) a frame; the
-    empty_skip flip also rebuilds the records."""
+    (CUDA events) and wall ms (host clock to a synchronize) a frame, and
+    the records' builds over each key's frames (none: an empty_skip flip
+    keeps the records, which must end bit for bit as they began)."""
     import torch
 
     d = rt.camera.d_camera
@@ -2433,6 +2509,8 @@ def key_toggles(rt, ui):
         for flip in flips:  # both keys once, outside the timing
             flip()
             rt.render()
+        records = (rt._tables.clone(), rt._dist.clone())
+        b0 = RECORD_BUILDS[0]
         times = []
         for i in range(TOGGLE_FRAMES):
             torch.cuda.synchronize()
@@ -2447,11 +2525,19 @@ def key_toggles(rt, ui):
                           (time.perf_counter() - t0) * 1e3))
         flips[1]()
         dev_ms, wall_ms = (float(np.median(v)) for v in zip(*times))
+        kept = bool(torch.equal(rt._tables, records[0])
+                    and torch.equal(rt._dist, records[1]))
         out[name] = dict(device_ms=dev_ms, wall_ms=wall_ms,
-                         max_wall_ms=max(w for _, w in times))
+                         max_wall_ms=max(w for _, w in times),
+                         records_builds=RECORD_BUILDS[0] - b0,
+                         records_kept=kept)
         log("tour", toggle=name, frames=TOGGLE_FRAMES,
             median_device_ms=f"{dev_ms:.4f}", median_wall_ms=f"{wall_ms:.4f}",
-            max_wall_ms=f"{out[name]['max_wall_ms']:.4f}")
+            max_wall_ms=f"{out[name]['max_wall_ms']:.4f}",
+            records_builds=out[name]["records_builds"], records_kept=kept)
+        if out[name]["records_builds"] or not kept:
+            raise AssertionError(f"the {name} toggles built the records or "
+                                 f"changed them: {out[name]}")
     return out
 
 
@@ -2460,6 +2546,11 @@ def key_tour_phase(dev, scene, cfg):
     full width, two rounds, then a flush of the default scene and an
     empty_skip flip and flip back; see the module docstring. Returns the
     kernel launches through the wrappers and the phase's numbers."""
+    with counting_record_builds():
+        return _key_tour(dev, scene, cfg)
+
+
+def _key_tour(dev, scene, cfg):
     import copy
 
     import torch
@@ -2493,18 +2584,22 @@ def key_tour_phase(dev, scene, cfg):
 
     rows = []
     c0 = captures()
-    tour_frame(rt, "first frame", 0, rows, c0)
+    tour_frame(rt, "first frame", 0, rows, c0, RECORD_BUILDS[0], rebuilt=True)
     pool_one_key = rows[0]["pool_bytes"]
     round_captures = []
+    field_cells_differ = []
     for rnd in range(2):
         c_round = captures()
         for label, move in key_tour.key_tour(rt, flush(edited), box,
                                              seed=rnd):
-            c_move = captures()
-            move(rt, ui)
-            tour_frame(rt, label, rnd, rows, c_move,
-                       rebuilt=label in ("flush_grid", "empty_skip flipped",
-                                         "empty_skip back"))
+            c_move, b_move = captures(), RECORD_BUILDS[0]
+            kept = ((rt._tables.clone(), rt._dist.clone())
+                    if label.startswith("empty_skip") else None)
+            tour_frame(rt, label, rnd, rows, c_move, b_move,
+                       rebuilt=label == "flush_grid", kept=kept,
+                       move_ms=timed(lambda: move(rt, ui))[1:])
+            if label == "empty_skip back":
+                field_cells_differ.append(field_after_flip_back(rt, rnd))
         round_captures.append(sum(r["captures"] for r in rows
                                   if r["round"] == rnd and
                                   r["move"] != "first frame"))
@@ -2514,16 +2609,18 @@ def key_tour_phase(dev, scene, cfg):
             edit_graphs=graphs_of(rt)["edits"],
             pool_bytes=pool_bytes(rt._graphs.handle))
     # the default scene flushed in, then empty_skip flipped and back
-    c_after = captures()
+    c_after, b_after = captures(), RECORD_BUILDS[0]
     flush(scene.grid)(rt)
     tour_frame(rt, "flush_grid of the default scene", 2, rows, c_after,
-               rebuilt=True)
+               b_after, rebuilt=True)
     skip = rt.trace_config.empty_skip
     for value, label in ((not skip, "empty_skip flipped"),
                          (skip, "empty_skip back")):
+        kept = (rt._tables.clone(), rt._dist.clone())
+        c_flip, b_flip = captures(), RECORD_BUILDS[0]
         rt.trace_config = dataclasses.replace(rt.trace_config,
                                               empty_skip=value)
-        tour_frame(rt, label, 2, rows, captures(), rebuilt=True)
+        tour_frame(rt, label, 2, rows, c_flip, b_flip, kept=kept)
     after_captures = sum(r["captures"] for r in rows if r["round"] == 2)
     counts = dict(read_counts(), **read_shading_counts(),
                   shadow=tile_tracer.grid_hit_tiles.build_launches["shadow"],
@@ -2554,6 +2651,12 @@ def key_tour_phase(dev, scene, cfg):
         round_2_median_wall_ms=float(np.median(
             [r["wall_ms"] for r in replays])),
         records_rebuild_ms=rebuild_ms,
+        edit_move_device_ms_round_2={
+            r["move"]: r["move_device_ms"] for r in replays
+            if "insert" in r["move"] or "remove" in r["move"]},
+        records_builds=sum(r["records_builds"] for r in rows),
+        flips_records_kept=sum(r.get("records_kept", False) for r in rows),
+        field_cells_conservative_differs_from_exact=field_cells_differ,
         toggles=toggles, toggle_captures=toggle_captures,
         pool_bytes_one_key=pool_one_key,
         pool_bytes_all_keys=pool_bytes(rt._graphs.handle),
@@ -3488,6 +3591,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     if flip_rate >= 0.005:
         raise AssertionError("the default build flips more than 0.5% of the "
                              "oracle's hits")
+    exact_builds_ignore_the_field(st, rt.arrays, poses_1080[0])
 
     def frame_diff(got, want):
         d = np.abs(got - want).max(axis=-1)
@@ -3529,6 +3633,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
     counts = {"exact": 0, "other_A": 0, "B": 0, "expected_A": 0,
               "expected_B": 0, "captures": 0}
     path_frame_launches = None
+    build_ms = []  # an empty_skip=False engine's first records build
     for i in RGB_POSES:
         origin = tuple(float(v) for v in PATH_POINTS[i])
         for primary in (True, False):
@@ -3540,7 +3645,11 @@ def oracle_parity(dev, scene, rt, poses_1080):
                 camera=camera, sun=SunConfig(enabled=not primary),
                 denoiser=DenoiserConfig(enabled=False),
                 trace=TraceConfig(empty_skip=False)), device=dev)
-            ert.tables()
+            torch.cuda.synchronize()
+            t_build = time.perf_counter()
+            ert.tables()  # the exact field, as with empty_skip=True
+            torch.cuda.synchronize()
+            build_ms.append((time.perf_counter() - t_build) * 1e3)
             tile_tracer.reset_launch_counts()
             lookup.table_lookup.launches = 0
             c0 = captures()
@@ -3581,6 +3690,7 @@ def oracle_parity(dev, scene, rt, poses_1080):
                 raise AssertionError(f"exact-path frame differs from the "
                                      f"oracle at pose {PATH_POINTS[i]}")
     log("oracle rgb", launches=json.dumps(counts, separators=(",", ":")),
+        records_build_ms=json.dumps([round(v, 3) for v in build_ms]),
         seconds=f"{time.perf_counter() - t0:.2f}")
     if (counts["exact"] != counts["expected_A"] or counts["other_A"]
             or counts["B"] != counts["expected_B"]
@@ -3633,6 +3743,64 @@ def oracle_parity(dev, scene, rt, poses_1080):
                 **a_bound(int(hon.numel()), counted[True],
                           counted[True]["n_step"]),
                 plain_ms=plain_ms)
+
+
+def exact_builds_ignore_the_field(st, arrays, rays):
+    """Phase 12: each NO_SKIP build of kernel A (exact, shadow, stats,
+    both) on `rays` (with scattered live lanes, dielectric keys and, for
+    the shadow builds, sun targets scattered around the scene) over the
+    scene's records with the exact field, the conservative one and all 0:
+    the same answer bit for bit (the exact DDA never reads the field), and
+    its plain twin's. The default build's steps on the exact and the
+    conservative field, to show that the two differ where the rays go."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import tile_tracer, trace
+
+    t0 = time.perf_counter()
+    fields = {"exact": trace.distance_field(st, arrays, exact=True),
+              "conservative": trace.distance_field(st, arrays),
+              "zero": trace.no_skip_field(st, arrays)}
+    tables = {k: trace.build_trace_tables(st, arrays, v)
+              for k, v in fields.items()}
+    n = rays[0].shape[0]
+    rng = np.random.default_rng(14)
+    dev = rays[0].device
+    active = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    key = torch.from_numpy(rng.choice(np.array([np.nan, 1.333, 1.5],
+                                               np.float32), n)).to(dev)
+    targets = tuple(torch.from_numpy(
+        (rng.standard_normal(n) * 1000.0).astype(np.float32)).to(dev)
+        for _ in range(3))
+    mat_idx = arrays.material_indices
+    checked = []
+    for shadow, stats in itertools.product((False, True), (False, True)):
+        kw = dict(ray_key=key, stats=stats, use_skip=False,
+                  shadow_targets=targets if shadow else None)
+        build = tile_tracer._build_name(shadow, stats, False)
+        want = tile_tracer.grid_hit_plain(st, tables["exact"], mat_idx,
+                                          *rays, active, **kw)
+        for name, tab in tables.items():
+            got = tile_tracer.grid_hit_tiles(st, tab, mat_idx, *rays,
+                                             active, **kw)
+            compare_exact(f"NO_SKIP build {build} on the {name} field", got,
+                          want, list(want))
+        checked.append(build)
+    steps = {k: tile_tracer.grid_hit_tiles(
+        st, tables[k], mat_idx, *rays, active, stats=True)["n_step"]
+        for k in ("exact", "conservative")}
+    cells = int((fields["exact"] != fields["conservative"]).sum())
+    steps_differ = int((steps["exact"] != steps["conservative"]).sum())
+    log("oracle", check="NO_SKIP builds on three fields", rays=n,
+        builds=",".join(checked), fields="exact,conservative,zero",
+        equal_bit_for_bit=True, cells=st.cells,
+        cells_conservative_differs_from_exact=cells,
+        default_build_rays_whose_steps_differ=steps_differ,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if not cells or not steps_differ:
+        raise AssertionError("the exact and conservative fields do not "
+                             "differ where the rays go: the check shows "
+                             "nothing")
 
 
 def app_phase(app_args):

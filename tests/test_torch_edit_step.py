@@ -392,7 +392,7 @@ def test_engine_edit_sequence_matches_the_jax_engine():
                                       np.asarray(ref._tables))
     assert sorted(port._edit_cache) == [1024, 2048]
     assert set(port._edit_cache[1024].graphs) == {
-        ("insert", True, True), ("remove", True, True)}
+        ("insert", True), ("remove", True)}
 
 
 def test_op_by_op_edits_equal_the_edit_step():
@@ -446,31 +446,29 @@ def test_edit_cache_keeps_every_size():
     rt.insert_voxels(_voxels(1), np.ones(1, np.uint8))
     assert list(rt._edit_cache) == sizes
     assert all(rt._edit_cache[s] is kept[s] for s in sizes)
-    assert set(kept[4096].graphs) == {("insert", False, None),
-                                      ("remove", False, None)}
+    assert set(kept[4096].graphs) == {("insert", False),
+                                      ("remove", False)}
     assert not hasattr(rt, "_EDIT_SIZES")
 
 
 def test_edit_cache_kept_where_the_scene_tensors_are_rewritten():
-    """The records' first build, an empty_skip flip and a flush write into
-    the tensors the edit graphs hold: the edit steps and their graphs stay,
-    and a graph key names the records' state (none before the first
-    build and after a flush, until the next frame rebuilds them)."""
+    """The records' first build and a flush write into the tensors the
+    edit graphs hold, and an empty_skip flip writes nothing: the edit
+    steps and their graphs stay, and a graph key names whether the records
+    are current (not before the first build and after a flush, until the
+    next frame rebuilds them), not empty_skip."""
     sc, rt = _cache_engine()
     edit = (_voxels(5), np.full(5, 3, np.uint8))
     rt.insert_voxels(*edit)
     step = rt._edit_cache[1024]
     rt.tables()
     rt.insert_voxels(*edit)
-    assert set(step.graphs) == {("insert", False, None),
-                                ("insert", True, True)}
-    rt.trace_config = tconfig.TraceConfig(empty_skip=False)
-    rt.tables()  # empty_skip flipped: the records rebuilt in place
-    rt.insert_voxels(*edit)
-    assert set(step.graphs) == {("insert", False, None),
-                                ("insert", True, True),
-                                ("insert", True, False)}
     graphs = dict(step.graphs)
+    assert set(graphs) == {("insert", False), ("insert", True)}
+    rt.trace_config = tconfig.TraceConfig(empty_skip=False)
+    rt.tables()  # empty_skip flipped: the records as they were
+    rt.insert_voxels(*edit)  # the unflipped insert's graph
+    assert step.graphs == graphs
     rt.flush_grid(tscenes.flat_test_scene(dim=8).grid)
     rt.insert_voxels(*edit)  # the records wait for the next frame's rebuild
     rt.tables()

@@ -529,7 +529,7 @@ def test_engine_flush_and_material_pushes():
     tables = rt._tables
     rt.flush_grid(fresh.grid)
     # the records wait for the next frame's rebuild, into their tensors
-    assert rt._tables_skip is None and rt._tables is tables
+    assert not rt._records_current and rt._tables is tables
     assert not rt._scene_degraded()
     assert rt._bricks_upper == int(fresh.grid.arrays.active_bricks)
     np.testing.assert_array_equal(

@@ -10,8 +10,9 @@ versions on the card, kernel F (the post-process: ops.denoise) with its
 plain version on every mode, band and knob, and the voxel edits on the
 card with the same edits on the CPU; where `torch.cuda.is_available()` is False they skip.
 Kernel A's NO_SKIP builds (`use_skip=False`, the exact DDA) are held against
-their twin and against the port's numpy oracle. The build helpers are
-tested everywhere. The compiled steps (the frame, the edits, the sharded
+their twin and against the port's numpy oracle, and on records with the
+exact field, the conservative one and all 0 (they never read it). The
+build helpers are tested everywhere. The compiled steps (the frame, the edits, the sharded
 bands) are held here as replays against their bodies op by op.
 """
 
@@ -390,7 +391,49 @@ def test_exact_frame_launches_the_exact_build(card):
     assert after["exact"] - before["exact"] == 6
     assert after["default"] == before["default"]
     assert bool(torch.isfinite(img).all())
-    assert not rt.tables()[:, 3].any()
+    # the records keep the exact field whatever empty_skip is
+    assert torch.equal(rt.tables()[:, 3], trace.distance_field(
+        rt.grid_static, rt.arrays, exact=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["exact", "exact+shadow", "exact+stats",
+                                   "exact+shadow+stats"])
+def test_exact_builds_ignore_the_distance_lane(scene_on_card, card, build):
+    """Each NO_SKIP build on the scene's records with the exact field, the
+    conservative one and all 0: the same answer bit for bit, equal to its
+    plain twin's, on primary and random rays with scattered live lanes and
+    dielectric keys. The default build's steps differ between the fields,
+    so the fields differ where the rays go."""
+    rt = scene_on_card
+    st, arrays = rt.grid_static, rt.arrays
+    fields = {name: trace.build_trace_tables(st, arrays, dist)
+              for name, dist in (
+                  ("exact", trace.distance_field(st, arrays, exact=True)),
+                  ("conservative", trace.distance_field(st, arrays)),
+                  ("zero", trace.no_skip_field(st, arrays)))}
+    prim, _ = _primary(rt, card)
+    rand = _random_rays(rt, 100_000, 14, card)
+    rays = tuple(torch.cat([p, q]).contiguous() for p, q in zip(prim, rand))
+    n = rays[0].shape[0]
+    active, key = _mixed(n, 14, card, share=0.8)
+    kw = dict(ray_key=key, stats="stats" in build, use_skip=False)
+    if "shadow" in build:
+        kw["shadow_targets"] = _targets(rays)
+    args = (st, fields["exact"], arrays.material_indices, *rays, active)
+    want = tile_tracer.grid_hit_plain(*args, **kw)
+    for name, tables in fields.items():
+        got = tile_tracer.grid_hit_tiles(st, tables, arrays.material_indices,
+                                         *rays, active, **kw)
+        torch.cuda.synchronize()
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+    assert int(want["found"].sum()) > 1000
+    steps = [tile_tracer.grid_hit_tiles(
+        st, fields[name], arrays.material_indices, *rays, active,
+        stats=True)["n_step"] for name in ("exact", "conservative")]
+    assert not torch.equal(*steps)
 
 
 def _random_rays(rt, n, seed, card):

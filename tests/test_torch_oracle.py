@@ -14,8 +14,10 @@
   rays draw from the sin hash, which turns last-bit differences of the
   shading's operation order into other random numbers); primary frames to
   1e-5.
-- The engine runs `TraceConfig(empty_skip=False)`: its records carry no
-  distance field, edits keep them so, and the frame is the exact DDA's.
+- The engine runs `TraceConfig(empty_skip=False)`: its records carry the
+  exact field of its first build and the conservative one of its inserts,
+  as the JAX engine's records do whatever `empty_skip` is, and the frame
+  is the exact DDA's, which never reads the field.
 """
 
 import jax
@@ -327,8 +329,11 @@ def test_engine_renders_the_exact_path(setup):
     img = rt.draw()
     assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
     tables = rt.tables()
-    assert not tables[:, 3].any()  # no distance field built
-    assert torch.equal(tables, setup.tables)
+    st = rt.grid_static
+    assert torch.equal(tables[:, 3], ttrace.distance_field(st, rt.arrays,
+                                                          exact=True))
+    lanes = [0, 1, 2, 4, 5, 6, 7]
+    assert torch.equal(tables[:, lanes], setup.tables[:, lanes])
     # the engine's frame is the exact DDA's (denoiser off: a 1:1 resample)
     cam = rt.camera.d_camera
     sun = rt.sun.device_data
@@ -340,6 +345,10 @@ def test_engine_renders_the_exact_path(setup):
 
 
 def test_engine_exact_path_edits_keep_records_without_field():
+    """Edits on the exact path keep the records up to date as on the skip
+    path: the touched rows gathered anew and the inserts' conservative
+    field in the distance lane, which the exact DDA never reads; a switch
+    to empty_skip=True then traces on those records as they are."""
     rt = _engine(empty_skip=False)
     rt.draw()
     rng = np.random.default_rng(4)
@@ -349,16 +358,16 @@ def test_engine_exact_path_edits_keep_records_without_field():
     rt.insert_voxels(xyz, rng.integers(1, 8, 64).astype(np.uint8))
     rt.remove_voxels(xyz[::2])
     st = rt.grid_static
-    full = ttrace.build_trace_tables(st, rt.arrays,
-                                     ttrace.no_skip_field(st, rt.arrays))
+    field = ttrace.distance_field(st, rt.arrays)
+    full = ttrace.build_trace_tables(st, rt.arrays, field)
     tables = rt.tables()
-    assert not tables[:, 3].any()
+    assert torch.equal(tables[:, 3], field)  # the inserts' conservative one
     live = tables[:, 0] != -1
     assert torch.equal(tables[live], full[live])
-    # switching the config rebuilds the records with the exact field
+    # switching the config keeps the records, as the JAX engine does
+    before = tables.clone()
     rt.trace_config = tconfig.TraceConfig(empty_skip=True)
-    assert torch.equal(rt.tables()[:, 3],
-                       ttrace.distance_field(st, rt.arrays, exact=True))
+    assert rt.tables() is tables and torch.equal(tables, before)
 
 
 def _terrain(grid_cls, cfg_mod, materials_fn, terrain_mod):

@@ -306,26 +306,29 @@ def test_material_changes_write_in_place(how):
 
 
 def test_empty_skip_flip_rebuilds_records_in_place_and_keeps_steps():
-    """A flip of empty_skip rebuilds the records into their tensors (the
-    field all 0) and makes a step of the new key beside the old one; the
-    flip back rebuilds the exact field and returns to the old step. Each
-    frame equals a fresh engine's."""
+    """A flip of empty_skip keeps the records and their exact field as they
+    are (the JAX engine's records do not follow empty_skip either: nothing
+    is rebuilt) and makes a step of the new key beside the old one; the
+    flip back returns to the old step. Each frame equals a fresh engine's."""
     rt = _port()
     first = rt.render()
     step, tables, dist = rt.step(), rt._tables, rt._dist
+    before = tables.clone()
+    exact = ttrace.distance_field(rt.grid_static, rt.arrays, exact=True)
     rt.trace_config = dataclasses.replace(rt.trace_config, empty_skip=False)
     got = rt.render()
     assert rt.step() is not step and not rt.step().key.empty_skip
     assert list(rt._step_cache) == [step.key, rt.step().key]
-    assert rt._tables is tables and rt._dist is dist and not dist.any()
+    assert rt._tables is tables and rt._dist is dist
+    assert torch.equal(tables, before) and torch.equal(dist, exact)
     sc = _parity_scene(tscenes)
     assert torch.equal(got, _fresh(sc.grid, sc.materials, dataclasses.replace(
         rt.config, trace=rt.trace_config)))
     rt.trace_config = dataclasses.replace(rt.trace_config, empty_skip=True)
     assert torch.equal(rt.render(), first)
     assert rt.step() is step and len(rt._step_cache) == 2
-    assert rt._dist is dist and torch.equal(dist, ttrace.distance_field(
-        rt.grid_static, rt.arrays, exact=True))
+    assert rt._dist is dist and torch.equal(dist, exact)
+    assert torch.equal(tables, before)
 
 
 def test_set_resolutions_gives_a_new_key():

@@ -25,29 +25,31 @@ wrappers, which a replay does not call).
 A graph bakes in the addresses of the scene's tensors, so every write to
 them is in place and every graph stays valid: the edits, `flush_grid` (the
 new grid's arrays copied into the scene's tensors), a rebuild of the
-records (after a flush, or with `empty_skip` flipped: the field rebuilt,
-exact or all 0, into the records' tensors), `push_materials` and
-`push_albedo` (the material table and its device-side dielectric
-classification). The frame and edit graphs of an engine share one memory
-pool (`engine.step.GraphPool`), so a key or a size kept costs its static
-output, not a pool.
+records after a flush (the exact field, into the records' tensors),
+`push_materials` and `push_albedo` (the material table and its device-side
+dielectric classification). The frame and edit graphs of an engine share
+one memory pool (`engine.step.GraphPool`), so a key or a size kept costs
+its static output, not a pool.
 
-The scene's per-cell traversal records are built once, on the first frame,
-with the exact distance field, and cached. Voxel edits (`insert_voxels`,
-`remove_voxels`) update the scene arrays on the device and bring the cached
-records up to date in place, with the fast conservative field (the
-reference's dirty-range uploads, VoxelRT.zig:107-172). As in the JAX
-engine, a batch is padded to `_EDIT_PAD` lanes times a power of two, and
-each padded size is an `engine.step.EditStep`: one pinned upload a batch
-and, on a CUDA device, one graph for each (insert or remove, records or
-none, their `empty_skip`) holding the edit and the refresh, captured once
-and replayed (the edit body never waits for the card). Every padded size is
-kept, as the JAX engine's jit keeps each shape. `insert_voxels_op_by_op`
-and `remove_voxels_op_by_op` call the same bodies op by op. With
-`TraceConfig(empty_skip=False)` the frame runs the exact DDA and the records
-carry no distance field. Host-side mutable state is the camera and sun (the
-reference's push constants), the roamability mirror, the brick-count bound
-and the metrics ring.
+The scene's per-cell traversal records are built once, on the first frame
+(and the first after a flush), with the exact distance field, and cached,
+whatever `empty_skip` is, as the JAX engine's. Voxel edits
+(`insert_voxels`, `remove_voxels`) update the scene arrays on the device
+and bring the cached records up to date in place, an insert with the fast
+conservative field (the reference's dirty-range uploads,
+VoxelRT.zig:107-172). As in the JAX engine, a batch is padded to
+`_EDIT_PAD` lanes times a power of two, and each padded size is an
+`engine.step.EditStep`: one pinned upload a batch and, on a CUDA device,
+one graph for each (insert or remove, records current or not) holding the
+edit and the refresh, captured once and replayed (the edit body never
+waits for the card). Every padded size is kept, as the JAX engine's jit
+keeps each shape. `insert_voxels_op_by_op` and `remove_voxels_op_by_op`
+call the same bodies op by op. `TraceConfig(empty_skip=False)` picks only
+the frame's traversal, the exact DDA, which never reads the records'
+distance lane: a flip of it keeps the records and the field, and returns
+to a key the engine holds by a replay. Host-side mutable state is the
+camera and sun (the reference's push constants), the roamability mirror,
+the brick-count bound and the metrics ring.
 
 The profiling zones (`utils.profiling.zone`) carry the JAX engine's names:
 draw, device_sync, render_step, build_tables, edit_insert (the edit and its
@@ -126,8 +128,8 @@ class VoxelRT:
 
         self._tables = None
         self._dist = None
-        # the empty_skip the records hold, None until they are (re)built
-        self._tables_skip = None
+        # False until the first frame builds the records, and after a flush
+        self._records_current = False
         self._track_host_grid(grid)
 
         # temporal accumulation (BASELINE config 4): running mean of traced
@@ -157,25 +159,23 @@ class VoxelRT:
 
     def tables(self):
         """The scene's per-cell traversal records, built on first use with
-        the exact distance field (ops.trace.build_trace_tables) and kept up
-        to date by the edits. With `empty_skip=False` the distance lane is
-        never read and the field is all 0 (ops.trace.no_skip_field). After
-        a `flush_grid` or a flip of `empty_skip` the records and the field
-        are built again, into the same tensors: the graphs that read them
-        stay."""
-        skip = bool(self.trace_config.empty_skip)
-        if self._tables_skip != skip:
+        the exact distance field (ops.trace.build_trace_tables), whatever
+        `empty_skip` is, and kept up to date by the edits, as the JAX
+        engine keeps its records. After a `flush_grid` the records and the
+        field are built again, into the same tensors: the graphs that read
+        them stay. Nothing else rebuilds them: `empty_skip` picks only the
+        frame's traversal."""
+        if not self._records_current:
             st = self.grid_static
             with profiling.zone("build_tables"):
-                dist = (trace_mod.distance_field(st, self.arrays, exact=True)
-                        if skip else trace_mod.no_skip_field(st, self.arrays))
+                dist = trace_mod.distance_field(st, self.arrays, exact=True)
                 tables = trace_mod.build_trace_tables(st, self.arrays, dist)
                 if self._tables is None:
                     self._tables, self._dist = tables, dist
                 else:
                     self._tables.copy_(tables)
                     self._dist.copy_(dist)
-            self._tables_skip = skip
+            self._records_current = True
         return self._tables
 
     def render(self):
@@ -342,7 +342,7 @@ class VoxelRT:
         for _, dst, src in pairs:
             dst.copy_(src)
         self._track_host_grid(grid)
-        self._tables_skip = None
+        self._records_current = False
 
     def push_materials(self, materials: MaterialTable) -> None:
         """Replace the material table (VoxelRT.zig:85-88), written into the
@@ -489,14 +489,14 @@ class VoxelRT:
         step.upload(xyz, mats)
         # the records are refreshed while they are current (not before
         # their first build, nor after a flush: the next frame rebuilds
-        # them)
-        key = (op, self._tables_skip is not None, self._tables_skip)
+        # them), whatever empty_skip is, as the JAX engine's edits
+        key = (op, self._records_current)
         run(step.graph(key, lambda: self._edit_body(*key)))
 
-    def _edit_body(self, op: str, records: bool, skip):
+    def _edit_body(self, op: str, records: bool):
         """The edit of `op` over an `EditStep`'s buffer, with the records'
-        refresh when they are current, on the scene's tensors (whose
-        addresses a graph keeps)."""
+        refresh when they are current (an insert writes the conservative
+        field), on the scene's tensors (whose addresses a graph keeps)."""
         st = self.grid_static
         arrays, tables, dist = self.arrays, self._tables, self._dist
         is_diel, ir = self._mat_is_diel, self._mat_ir
@@ -509,8 +509,7 @@ class VoxelRT:
                 apply_edits(st, arrays, xyz, mats, live, is_diel, ir)
                 if records:
                     trace_mod.refresh_tables_after_insert(
-                        st, arrays, tables, cells, live, use_skip=skip,
-                        dist=dist)
+                        st, arrays, tables, cells, live, dist=dist)
             else:
                 remove_edits(st, arrays, xyz, live)
                 if records:

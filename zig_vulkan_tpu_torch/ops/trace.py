@@ -183,8 +183,12 @@ def distance_field(static: GridStatic, arrays: GridArrays,
 
 
 def no_skip_field(static: GridStatic, arrays: GridArrays):
-    """The distance lane of the exact DDA's records: all 0 (no leap). The
-    exact traversal never reads it, so no distance field is built."""
+    """An all-0 distance lane (no leap), for records that only the exact
+    DDA reads: those of the one-shot paths (`one_shot_tables`: the
+    one-shot renders and the sharded step with `use_skip=False`). The
+    exact traversal never reads the lane, so no distance field is built.
+    The engine does not use it: its records keep a live field whatever
+    `empty_skip` is."""
     return torch.zeros(static.cells, dtype=torch.int32,
                        device=arrays.statuses.device)
 
@@ -235,8 +239,7 @@ def one_shot_tables(static: GridStatic, arrays: GridArrays,
 
 
 def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
-                                tables, cells, valid, use_skip: bool = True,
-                                dist=None):
+                                tables, cells, valid, dist=None):
     """Bring cached tables up to date after an insert batch
     (zig_vulkan_tpu/ops/trace.py:354-373), in place: the conservative
     skip field is rebuilt whole (inserts can load new cells, lowering
@@ -248,18 +251,10 @@ def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
     brick 0's words, which stay as they were when an edit changes brick 0,
     as in the reference; no traversal reads them.) A `dist` tensor given
     receives the field in place (the engine's cached field, whose address
-    its edit graphs hold).
-
-    With `use_skip=False` (the exact DDA, which never reads lane 3) no
-    field is built: the touched rows get distance 0, as
-    `no_skip_field` builds the whole table (a `dist` given is that field
-    already)."""
-    if use_skip:
-        field = distance_field(static, arrays)
-        dist = field if dist is None else dist.copy_(field)
-        tables[:, 3] = dist
-    elif dist is None:
-        dist = no_skip_field(static, arrays)
+    its edit graphs hold)."""
+    field = distance_field(static, arrays)
+    dist = field if dist is None else dist.copy_(field)
+    tables[:, 3] = dist
     _refresh_rows(static, arrays, tables, dist, cells, valid)
     return tables, dist
 
