@@ -448,23 +448,22 @@ def test_debug_validation_rejects_a_corrupt_scene():
 # -- utils.profiling -----------------------------------------------------------------
 
 def test_zones_are_no_ops_unless_enabled():
-    seen = []
-    profiling.set_log_fn(lambda name, dt, extra: seen.append(name))
+    assert not profiling.enabled()
+    with profiling.zone("draw"):
+        pass
+    profiling.count("edit_lanes", 3)
+    rt = _small_engine(tscenes.flat_test_scene(dim=8))
     try:
-        assert not profiling.enabled()
-        with profiling.zone("draw"):
-            pass
-        profiling.frame_mark()
-        assert seen == []
         profiling.enable()
-        rt = _small_engine(tscenes.flat_test_scene(dim=8))
+        assert profiling.snapshot()["zones"] == {}
         rt.draw()
-        profiling.frame_mark()
     finally:
         profiling.enable(False)
-        profiling.set_log_fn(None)
-    assert seen == ["build_tables", "render_step", "device_sync", "draw",
-                    "frame"]
+    snap = profiling.snapshot()
+    assert set(snap["zones"]) == {"build_tables", "step_lookup",
+                                  "push_constants", "render_step",
+                                  "device_sync", "draw"}
+    assert snap["counters"] == {"host_waits": 1}  # the records' first build
 
 
 def test_trace_session_writes_the_zones(tmp_path):

@@ -135,13 +135,11 @@ def main(argv=None) -> int:
                 demo_script(frame, inp)
             inp.apply_to_camera(rt.camera, dt if frame else 1e-3)
             rt.update_sun(dt if frame else 1e-3)
-            with profiling.zone("draw"):
-                image = rt.draw(dt if frame else None)
+            image = rt.draw(dt if frame else None)
             if args.out:
                 os.makedirs(args.out, exist_ok=True)
                 write_png(os.path.join(args.out, f"frame_{frame:04d}.png"),
                           rt.device_image_to_host(image))
-            profiling.frame_mark()
         print(f"rendered {args.frames} frames; metrics: {rt.metrics.summary()}",
               file=sys.stderr)
     return 0

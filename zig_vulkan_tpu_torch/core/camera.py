@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 
 from ..config import CameraConfig
-from ..utils import quat as q
+from ..utils import profiling, quat as q
 
 _F32 = np.float32
 
@@ -156,15 +156,16 @@ class Camera:
 
     def propagate_pitch_change(self) -> None:
         """Recompute the device basis after orientation/origin change
-        (Camera.zig:167-175)."""
-        forward = self.forward_dir()
-        right = q.normalize(np.cross(_WORLD_UP, forward))
-        up = q.normalize(np.cross(forward, right))
-        self.d_camera.horizontal = right * self.viewport_width
-        self.d_camera.vertical = up * self.viewport_height
-        self.d_camera.lower_left_corner = (
-            self.d_camera.origin
-            - self.d_camera.horizontal * _F32(0.5)
-            - self.d_camera.vertical * _F32(0.5)
-            - forward
-        )
+        (Camera.zig:167-175): the profiling zone `pose`."""
+        with profiling.zone("pose"):
+            forward = self.forward_dir()
+            right = q.normalize(np.cross(_WORLD_UP, forward))
+            up = q.normalize(np.cross(forward, right))
+            self.d_camera.horizontal = right * self.viewport_width
+            self.d_camera.vertical = up * self.viewport_height
+            self.d_camera.lower_left_corner = (
+                self.d_camera.origin
+                - self.d_camera.horizontal * _F32(0.5)
+                - self.d_camera.vertical * _F32(0.5)
+                - forward
+            )

@@ -51,9 +51,12 @@ to a key the engine holds by a replay. Host-side mutable state is the
 camera and sun (the reference's push constants), the roamability mirror,
 the brick-count bound and the metrics ring.
 
-The profiling zones (`utils.profiling.zone`) carry the JAX engine's names:
-draw, device_sync, render_step, build_tables, edit_insert (the edit and its
-refresh, one graph), edit_remove.
+The profiling zones (`utils.profiling.zone`) carry the JAX engine's names
+(draw, device_sync, render_step, build_tables, edit_insert, edit_remove)
+and split them where the host's work is: a frame's step_lookup and
+push_constants, an edit's edit_guard, edit_upload and edit_launch; the
+edit graphs mark their span (edit_graph) and the insert's field rebuild
+(edit_field) on the card. `utils.profiling` lists them all.
 """
 
 from __future__ import annotations
@@ -167,7 +170,7 @@ class VoxelRT:
         frame's traversal."""
         if not self._records_current:
             st = self.grid_static
-            with profiling.zone("build_tables"):
+            with profiling.wait("build_tables"):
                 dist = trace_mod.distance_field(st, self.arrays, exact=True)
                 tables = trace_mod.build_trace_tables(st, self.arrays, dist)
                 if self._tables is None:
@@ -204,26 +207,28 @@ class VoxelRT:
 
     def _render(self, run):
         """One frame of the current step through `run(step)`."""
-        step = self.step()
-        if step.accum is not None:
-            d, sun = self.camera.d_camera, self.sun.device_data
-            pose = (tuple(np.asarray(d.origin).tolist()),
-                    tuple(np.asarray(d.lower_left_corner).tolist()),
-                    tuple(np.asarray(sun.position).tolist()))
-            # the running mean goes on into another temporal step of the
-            # same resolution and pose (a new key, or one kept from before),
-            # as the JAX engine's one accumulator does
-            carry = (self._accum is not None and pose == self._pose_key
-                     and self._accum.shape == step.accum.shape)
-            if self._accum is not step.accum:
-                if carry:
-                    step.accum.copy_(self._accum)
-                self._accum = step.accum
-            if not carry:
-                step.accum.zero_()
-                self._accum_count = 0
-            self._pose_key = pose
-        self._push.upload(self._push_constants(), step.pc)
+        with profiling.zone("step_lookup"):
+            step = self.step()
+        with profiling.zone("push_constants"):
+            if step.accum is not None:
+                d, sun = self.camera.d_camera, self.sun.device_data
+                pose = (tuple(np.asarray(d.origin).tolist()),
+                        tuple(np.asarray(d.lower_left_corner).tolist()),
+                        tuple(np.asarray(sun.position).tolist()))
+                # the running mean goes on into another temporal step of
+                # the same resolution and pose (a new key, or one kept from
+                # before), as the JAX engine's one accumulator does
+                carry = (self._accum is not None and pose == self._pose_key
+                         and self._accum.shape == step.accum.shape)
+                if self._accum is not step.accum:
+                    if carry:
+                        step.accum.copy_(self._accum)
+                    self._accum = step.accum
+                if not carry:
+                    step.accum.zero_()
+                    self._accum_count = 0
+                self._pose_key = pose
+            self._push.upload(self._push_constants(), step.pc)
         with profiling.zone("render_step"):
             image = run(step)
         if step.accum is not None:
@@ -447,6 +452,14 @@ class VoxelRT:
         self._remove(xyz, _call_body)
 
     def _insert(self, xyz, material_index, run) -> None:
+        with profiling.zone("edit_insert"):
+            with profiling.zone("edit_guard"):
+                xyz, mats = self._insert_guard(xyz, material_index)
+            self._edit("insert", xyz, mats, run)
+
+    def _insert_guard(self, xyz, material_index):
+        """The insert batch (int32[n, 3], uint8[n]) once validated and held
+        to `brick_alloc`, with the regions it marks recorded."""
         xyz = self._edit_batch(xyz)
         mats = np.asarray(material_index, dtype=np.uint8).ravel()
         if mats.shape[0] != xyz.shape[0]:
@@ -454,11 +467,13 @@ class VoxelRT:
         st = self.grid_static
         uniq_cells = np.unique(self._cells_of(xyz))
         if self._bricks_upper + uniq_cells.size > st.brick_alloc:
-            statuses = self.arrays.statuses.cpu().numpy().view(np.uint32)
+            with profiling.wait("guard_statuses"):
+                statuses = self.arrays.statuses.cpu().numpy().view(np.uint32)
             loaded = (statuses[uniq_cells // 32]
                       >> (uniq_cells % 32).astype(np.uint32)) & 1
             actually_new = int((loaded == 0).sum())
-            active = int(self.arrays.active_bricks)
+            with profiling.wait("guard_active_bricks"):
+                active = int(self.arrays.active_bricks)
             if active + actually_new > st.brick_alloc:
                 raise MemoryError(
                     f"brick allocation exhausted: {active} active "
@@ -470,12 +485,12 @@ class VoxelRT:
         # batch marks no region
         self._nonempty_regions.update(
             _regions_of_cells(st, uniq_cells).tolist())
-        with profiling.zone("edit_insert"):
-            self._edit("insert", xyz, mats, run)
+        return xyz, mats
 
     def _remove(self, xyz, run) -> None:
-        xyz = self._edit_batch(xyz)
         with profiling.zone("edit_remove"):
+            with profiling.zone("edit_guard"):
+                xyz = self._edit_batch(xyz)
             self._edit("remove", xyz, None, run)
 
     def _edit(self, op: str, xyz, mats, run) -> None:
@@ -486,22 +501,29 @@ class VoxelRT:
         if step is None:
             step = self._edit_cache[size] = EditStep(size, self.device,
                                                      self._graphs)
-        step.upload(xyz, mats)
+        with profiling.zone("edit_upload"):
+            step.upload(xyz, mats)
+        profiling.count("edit_lanes", xyz.shape[0])
+        profiling.count("edit_padded", size)
         # the records are refreshed while they are current (not before
         # their first build, nor after a flush: the next frame rebuilds
         # them), whatever empty_skip is, as the JAX engine's edits
         key = (op, self._records_current)
-        run(step.graph(key, lambda: self._edit_body(*key)))
+        with profiling.zone("edit_launch"):
+            run(step.graph(key, lambda: self._edit_body(*key)))
 
     def _edit_body(self, op: str, records: bool):
         """The edit of `op` over an `EditStep`'s buffer, with the records'
         refresh when they are current (an insert writes the conservative
-        field), on the scene's tensors (whose addresses a graph keeps)."""
+        field), on the scene's tensors (whose addresses a graph keeps). Its
+        first and last ops are `edit_graph` device marks: in a graph, the
+        card's time of each replay."""
         st = self.grid_static
         arrays, tables, dist = self.arrays, self._tables, self._dist
         is_diel, ir = self._mat_is_diel, self._mat_ir
 
         def body(buf):
+            profiling.device_mark("edit_graph", buf.device)
             xyz, mats, live = EditStep.lanes(buf)
             x, y, z = (xyz[:, i].to(torch.int64) for i in range(3))
             cells = grid_at(st, x, (st.voxel_dims[1] - 1) - y, z)
@@ -515,6 +537,7 @@ class VoxelRT:
                 if records:
                     trace_mod.refresh_tables_after_remove(
                         st, arrays, tables, dist, cells, live)
+            profiling.device_mark("edit_graph", buf.device)
 
         return body
 

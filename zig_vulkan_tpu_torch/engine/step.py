@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import trace as trace_mod
+from ..utils import profiling
 
 PUSH_CONSTANTS = 24  # float32 values a frame (the JAX engine's layout)
 PUSH_SLOTS = 4       # pinned host buffers behind the uploads
@@ -156,7 +157,9 @@ class GraphedCall:
     output, which the next call overwrites. With a `GraphPool` the capture
     takes the pool's memory and its stream; without one the graph has a
     pool of its own. `captures` counts the captures of every GraphedCall in
-    the process."""
+    the process. The warm-up and capture are the `capture` zone; the
+    body's `utils.profiling.device_mark` pairs become nodes of the graph
+    (`marks`), which each replay first hands to `profiling.replaying`."""
 
     captures = 0
 
@@ -167,12 +170,16 @@ class GraphedCall:
         self.pool = pool
         self.graph = None
         self.out = None
+        self.marks = []
 
     def __call__(self):
         if self.device.type != "cuda":
             return self.body(*self.args)
         if self.graph is None:
-            return self._capture()
+            with profiling.zone("capture"):
+                return self._capture()
+        if self.marks:
+            profiling.replaying(self.marks)
         self.graph.replay()
         return self.out
 
@@ -199,14 +206,14 @@ class GraphedCall:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(
-                        graph, stream=side,
-                        pool=None if self.pool is None else self.pool.handle):
+                pool = None if self.pool is None else self.pool.handle
+                with torch.cuda.graph(graph, stream=side, pool=pool), \
+                        profiling.capture_marks() as marks:
                     out = self.body(*self.args)
             finally:
                 if collecting:
                     gc.enable()
-        self.graph, self.out = graph, out
+        self.graph, self.out, self.marks = graph, out, marks
         GraphedCall.captures += 1
         return result
 
@@ -219,7 +226,8 @@ class PushRing:
     synchronize never rewrite a buffer a pending copy still reads), then
     copies it to the device tensor with `non_blocking` on the current
     stream. The host waits only when it runs PUSH_SLOTS uploads ahead of
-    the card. On the CPU it is a plain copy."""
+    the card: while tracing is on, such a wait is the host wait
+    `push_ring`. On the CPU it is a plain copy."""
 
     def __init__(self, device, numel=PUSH_CONSTANTS, dtype=torch.float32):
         self.device = torch.device(device)
@@ -235,7 +243,12 @@ class PushRing:
             return
         i = self.next
         self.next = (i + 1) % PUSH_SLOTS
-        self.events[i].synchronize()  # returns at once if never recorded
+        ev = self.events[i]
+        if profiling.enabled() and not ev.query():
+            with profiling.wait("push_ring"):
+                ev.synchronize()
+        else:
+            ev.synchronize()  # returns at once if never recorded
         self.host[i].numpy()[:] = values
         dst.copy_(self.host[i], non_blocking=True)
         self.events[i].record(torch.cuda.current_stream(self.device))

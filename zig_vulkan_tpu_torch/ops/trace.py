@@ -42,6 +42,7 @@ import torch
 from ..config import BRICK_DIMENSION, BRICK_WORDS, TraceConfig
 from ..core.grid import GridArrays, GridStatic
 from ..core.materials import MAT_DIELECTRIC, MaterialTable
+from ..utils import profiling
 from . import rng
 from .lookup import table_lookup
 
@@ -251,10 +252,13 @@ def refresh_tables_after_insert(static: GridStatic, arrays: GridArrays,
     brick 0's words, which stay as they were when an edit changes brick 0,
     as in the reference; no traversal reads them.) A `dist` tensor given
     receives the field in place (the engine's cached field, whose address
-    its edit graphs hold)."""
+    its edit graphs hold). The field's rebuild is the `edit_field` device
+    span (`utils.profiling.device_mark`)."""
+    profiling.device_mark("edit_field", tables.device)
     field = distance_field(static, arrays)
     dist = field if dist is None else dist.copy_(field)
     tables[:, 3] = dist
+    profiling.device_mark("edit_field", tables.device)
     _refresh_rows(static, arrays, tables, dist, cells, valid)
     return tables, dist
 
