@@ -12,8 +12,11 @@ as a host-side mutable wrapper around a pure float32 state:
   `max_bounce + 1` rule (Camera.zig:74): user-facing max_bounce of 0 means
   "primary rays only", and the device value is user value + 1.
 
-The camera basis math runs on host numpy (it is a handful of flops per
-frame); only `CameraDevice` crosses to the device, as trace-time scalars.
+The camera basis runs on the host: each pose as one native routine
+(`core.pose_host`, csrc/pose_host.cpp, about 150 float32 flops in one ctypes
+call), whose plain twin is the numpy body
+(`Camera.propagate_pitch_change_plain`), equal to it bit for bit. Only
+`CameraDevice` crosses to the device, as the frame's push constants.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 
 from ..config import CameraConfig
 from ..utils import profiling, quat as q
+from . import pose_host
 
 _F32 = np.float32
 
@@ -65,6 +69,7 @@ class Camera:
         self.vertical_fov = _F32(vertical_fov)
         self.pitch = q.quat_identity()
         self.yaw = q.quat_identity()
+        self._pose = pose_host.Pose()
 
         right = q.normalize(np.cross(_WORLD_UP, _FORWARD))
         up = q.normalize(np.cross(_FORWARD, right))
@@ -156,16 +161,34 @@ class Camera:
 
     def propagate_pitch_change(self) -> None:
         """Recompute the device basis after orientation/origin change
-        (Camera.zig:167-175): the profiling zone `pose`."""
+        (Camera.zig:167-175): the profiling zone `pose`. The native routine
+        (`core.pose_host`) takes the pose where it is loaded and yaw, pitch
+        and origin are float32, each such pose counted under `pose_native`;
+        `propagate_pitch_change_plain` takes any other, bit for bit the
+        same where both can."""
         with profiling.zone("pose"):
-            forward = self.forward_dir()
-            right = q.normalize(np.cross(_WORLD_UP, forward))
-            up = q.normalize(np.cross(forward, right))
-            self.d_camera.horizontal = right * self.viewport_width
-            self.d_camera.vertical = up * self.viewport_height
-            self.d_camera.lower_left_corner = (
-                self.d_camera.origin
-                - self.d_camera.horizontal * _F32(0.5)
-                - self.d_camera.vertical * _F32(0.5)
-                - forward
-            )
+            d = self.d_camera
+            basis = self._pose(self.yaw, self.pitch, d.origin,
+                               self.viewport_width, self.viewport_height)
+            if basis is None:
+                profiling.count("pose_native", 0)
+                self.propagate_pitch_change_plain()
+            else:
+                profiling.count("pose_native")
+                d.horizontal = basis[0:3]
+                d.vertical = basis[3:6]
+                d.lower_left_corner = basis[6:9]
+
+    def propagate_pitch_change_plain(self) -> None:
+        """The basis update in numpy: the native routine's plain twin."""
+        forward = self.forward_dir()
+        right = q.normalize(np.cross(_WORLD_UP, forward))
+        up = q.normalize(np.cross(forward, right))
+        self.d_camera.horizontal = right * self.viewport_width
+        self.d_camera.vertical = up * self.viewport_height
+        self.d_camera.lower_left_corner = (
+            self.d_camera.origin
+            - self.d_camera.horizontal * _F32(0.5)
+            - self.d_camera.vertical * _F32(0.5)
+            - forward
+        )

@@ -42,9 +42,11 @@ the host waits (`wait`, counted under `host_waits`): build_tables (the
 records' first build), guard_statuses and guard_active_bricks (the
 capacity guard's reads), push_ring (an upload that finds its pinned slot
 still in use), device_marks (marks read before the card ran them); the
-counters edit_lanes and edit_padded (an edit's live and padded lanes); the
-device spans (`device_mark` pairs) edit_graph (an edit graph from its first
-node to its last) and edit_field (the insert's field rebuild).
+counters edit_lanes and edit_padded (an edit's live and padded lanes) and
+pose_native (1 a pose the native routine took, 0 a pose its numpy twin
+took); the device spans (`device_mark` pairs) edit_graph (an edit graph
+from its first node to its last) and edit_field (the insert's field
+rebuild).
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog
