@@ -56,7 +56,10 @@ The profiling zones (`utils.profiling.zone`) carry the JAX engine's names
 and split them where the host's work is: a frame's step_lookup and
 push_constants, an edit's edit_guard, edit_upload and edit_launch; the
 edit graphs mark their span (edit_graph) and the insert's field rebuild
-(edit_field) on the card. `utils.profiling` lists them all.
+(edit_field) on the card; a temporal frame's carry or reset of the running
+mean is the zone temporal, counted under temporal_frames and
+temporal_resets, and its frame graph marks the mean (temporal) on the
+card. `utils.profiling` lists them all.
 """
 
 from __future__ import annotations
@@ -211,29 +214,39 @@ class VoxelRT:
             step = self.step()
         with profiling.zone("push_constants"):
             if step.accum is not None:
-                d, sun = self.camera.d_camera, self.sun.device_data
-                pose = (tuple(np.asarray(d.origin).tolist()),
-                        tuple(np.asarray(d.lower_left_corner).tolist()),
-                        tuple(np.asarray(sun.position).tolist()))
-                # the running mean goes on into another temporal step of
-                # the same resolution and pose (a new key, or one kept from
-                # before), as the JAX engine's one accumulator does
-                carry = (self._accum is not None and pose == self._pose_key
-                         and self._accum.shape == step.accum.shape)
-                if self._accum is not step.accum:
-                    if carry:
-                        step.accum.copy_(self._accum)
-                    self._accum = step.accum
-                if not carry:
-                    step.accum.zero_()
-                    self._accum_count = 0
-                self._pose_key = pose
+                with profiling.zone("temporal"):
+                    self._carry_or_reset(step)
             self._push.upload(self._push_constants(), step.pc)
         with profiling.zone("render_step"):
             image = run(step)
         if step.accum is not None:
             self._accum_count += 1
         return image
+
+    def _carry_or_reset(self, step: Step) -> None:
+        """Point the running mean at `step`'s accumulator: carried over
+        while the pose key (camera origin, lower-left corner, sun position)
+        holds, zeroed with the count after a move. Counted under
+        `temporal_frames` and `temporal_resets`."""
+        d, sun = self.camera.d_camera, self.sun.device_data
+        pose = (tuple(np.asarray(d.origin).tolist()),
+                tuple(np.asarray(d.lower_left_corner).tolist()),
+                tuple(np.asarray(sun.position).tolist()))
+        # the running mean goes on into another temporal step of the same
+        # resolution and pose (a new key, or one kept from before), as the
+        # JAX engine's one accumulator does
+        carry = (self._accum is not None and pose == self._pose_key
+                 and self._accum.shape == step.accum.shape)
+        if self._accum is not step.accum:
+            if carry:
+                step.accum.copy_(self._accum)
+            self._accum = step.accum
+        if not carry:
+            step.accum.zero_()
+            self._accum_count = 0
+            profiling.count("temporal_resets")
+        profiling.count("temporal_frames")
+        self._pose_key = pose
 
     def _step_key(self) -> StepKey:
         """The frame's static configuration (the JAX engine's `_step_key`
@@ -270,8 +283,11 @@ class VoxelRT:
                 max_steps=key.max_steps, shadow_probe=key.sun_in_kernel,
                 use_skip=key.empty_skip)
             if accum is not None:
-                # running mean over pose-static frames, in place
+                # running mean over pose-static frames, in place, between
+                # the `temporal` device marks
+                profiling.device_mark("temporal", accum.device)
                 accum.add_(trace_mod._div(img - accum, pc[22] + 1.0))
+                profiling.device_mark("temporal", accum.device)
                 img = accum
             # 0-d views of the push constants: kernel F's runtime build
             # reads them in place, so a replay takes each frame's values

@@ -26,6 +26,8 @@ The zones of the engine (`engine.engine.VoxelRT`, `engine.step`,
       step_lookup       the records (build_tables on first use), the key,
                         the step cache
       push_constants    the frame's push constants and their upload
+        temporal          a temporal key's carry or reset of the running
+                          mean
       render_step       the step's replay (its capture on first use) and
                         the image's clone
       device_sync       the wait for the frame's end
@@ -44,9 +46,11 @@ capacity guard's reads), push_ring (an upload that finds its pinned slot
 still in use), device_marks (marks read before the card ran them); the
 counters edit_lanes and edit_padded (an edit's live and padded lanes) and
 pose_native (1 a pose the native routine took, 0 a pose its numpy twin
-took); the device spans (`device_mark` pairs) edit_graph (an edit graph
-from its first node to its last) and edit_field (the insert's field
-rebuild).
+took), temporal_frames and temporal_resets (1 a frame drawn with a temporal
+key, 1 a frame whose running mean was zeroed); the device spans
+(`device_mark` pairs) edit_graph (an edit graph from its first node to its
+last), edit_field (the insert's field rebuild) and temporal (the running
+mean inside the frame graph).
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog
