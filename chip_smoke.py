@@ -61,7 +61,16 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    A's steps per primary ray (stats build) before and after the edits;
    holds the decoded scene against a host replay of the edits, the
    refreshed records against a full rebuild, and kernel A against its
-   plain version on the sprayed scene;
+   plain version on the sprayed scene; the edit kernels' launches through
+   their wrappers (`ops.edit`) in the phase, its graphs' captures alone;
+8b. the edit kernels (csrc/edit.cu through `ops.edit.insert` / `remove`)
+   against their plain body (`ops.edit.insert_plain` / `remove_plain`, the
+   ATen chains) on the card: config 3's batches of 512 random voxels in
+   1,024 lanes, inserts and removals in turn, each route on its own copy of
+   one scene and its records, bit for bit on the nine arrays, the field
+   and the records after every batch; each route's device time (the plain
+   body's host-bound), the bound, and the kernels a replayed insert and a
+   replayed removal of an engine run on the card, from a trace;
 9. the sun-shadow probe: kernel A's shadow build against its plain
    version, and default frames with `sun_in_kernel` on and off;
 10. temporal accumulation: five frames of a static pose, then
@@ -150,7 +159,8 @@ a replayed frame are counted in a `torch.profiler` trace of the card
 21. the compiled edit path and shards: (a) config 3's 16 edit frames on
     two engines built from one scene, one through the edit and frame
     graphs, one through the same bodies op by op (`insert_voxels_op_by_op`,
-    `render_op_by_op`), in turns (op, replay, replay, op; twice): the nine
+    `render_op_by_op`; on the card both routes run the edit kernels, which
+    phase 8b holds against their plain body), in turns (op, replay, replay, op; twice): the nine
     arrays, the records and each frame's image bit for bit, one capture an
     edit kind (and the frame's), every edit after the captures under
     `torch.cuda.set_sync_debug_mode("error")`, insert + refresh, remove +
@@ -212,8 +222,9 @@ count them (phase 20: on both routes of each case, 1 C, one D a level, 1 E
 and, with the denoiser, 1 F a frame; 1 C a pose frame).
 
 The line before the last is a JSON object with one entry per kernel build
-and per shading kernel and two for kernel F, its runtime build (the default
-frame's) and its static builds (the sharded and entry steps'): their
+and per shading kernel, two for kernel F, its runtime build (the default
+frame's) and its static builds (the sharded and entry steps'), and two for
+the edit kernels, an insert and a removal (phases 8 and 8b): their
 launches through the wrapper in this run, launches a replayed frame on the
 card, time, plain time, bound, share of the bound and, for kernel B,
 `index_select`'s time, for kernel F's static builds `grid_sample`'s on the
@@ -249,6 +260,12 @@ FRAMES = 10
 HEADLINE_POSES = 10
 HEADLINE_PASSES = 3  # passes over the poses: one pass is too short to time
 EDIT_FRAMES = 8      # timed frames of phase 8: 4 insert and 4 remove batches
+EDIT_CHECKS = 16     # phase 8b: config 3's batches, 8 inserts and 8 removals
+EDIT_LANES = 1024    # phase 8b: the padded lanes of a config 3 batch
+EDIT_REPS = 64       # phase 8b: timed back-to-back calls of the kernel route
+# the edit kernels by the names a trace shows (csrc/edit.cu)
+EDIT_KERNELS = (("insert", "insert_kernel"), ("field", "field_kernel"),
+                ("remove", "remove_kernel"))
 PROBE_FRAMES = 3     # timed default frames per group in phase 9 (2 groups
                      # per variant)
 TEMPORAL_FRAMES = 5
@@ -490,6 +507,7 @@ def edit_flythrough(dev, scene, scale, frames):
 
     from zig_vulkan_tpu_torch.benchmarks import configs
     from zig_vulkan_tpu_torch.core.grid import dense_materials
+    from zig_vulkan_tpu_torch.ops import edit as edit_ops
     from zig_vulkan_tpu_torch.ops import lookup, tile_tracer, trace
 
     host = copy.deepcopy(scene.grid)  # the host replay of every edit
@@ -542,6 +560,7 @@ def edit_flythrough(dev, scene, scale, frames):
     # the first frame is the step's capture, counted with the frames
     tile_tracer.reset_launch_counts()
     lookup.table_lookup.launches = 0
+    edit_ops.insert.launches = edit_ops.remove.launches = 0
     c0 = captures()
     g0 = graphs_of(rt)
     for insert in (True, False):
@@ -573,6 +592,8 @@ def edit_flythrough(dev, scene, scale, frames):
     launches = {"A": tile_tracer.grid_hit_tiles.build_launches["default"],
                 "A_all": tile_tracer.grid_hit_tiles.launches,
                 "B": lookup.table_lookup.launches}
+    edit_launches = {"insert": edit_ops.insert.launches,
+                     "remove": edit_ops.remove.launches}
     made = captures() - c0
     new = {k: v - g0[k] for k, v in graphs_of(rt).items()}
     peak = torch.cuda.max_memory_allocated()
@@ -587,7 +608,8 @@ def edit_flythrough(dev, scene, scale, frames):
         median_insert_refresh_ms=f"{np.median(edit_ms[True]):.3f}",
         median_remove_refresh_ms=f"{np.median(edit_ms[False]):.3f}",
         peak_bytes=peak, launches_A=launches["A"], launches_B=launches["B"],
-        shape=list(img.shape))
+        launches_edit_insert=edit_launches["insert"],
+        launches_edit_remove=edit_launches["remove"], shape=list(img.shape))
     log("edit", nonempty_region_fraction_by_insert_batches=json.dumps(
         [round(f, 4) for f in fractions]),
         after_1=f"{fractions[1]:.4f}", after_3=f"{fractions[3]:.4f}",
@@ -609,6 +631,11 @@ def edit_flythrough(dev, scene, scale, frames):
     if (on_card["A"], on_card["A_all"], on_card["B"]) != (4, 4, 2):
         raise AssertionError(f"expected 4 A and 2 B launches a replayed edit "
                              f"frame on the card, got {on_card}")
+    # the wrappers ran on the two edit graphs' captures alone (each its run
+    # and its capture): an insert's 4 launches and a removal's 1, twice
+    if edit_launches != {"insert": 2 * 4, "remove": 2 * 1}:
+        raise AssertionError(f"expected 4 launches an insert and 1 a removal "
+                             f"twice (the captures), got {edit_launches}")
     if not rt._scene_degraded():
         raise AssertionError("the sprayed scene did not degrade")
 
@@ -689,6 +716,7 @@ def edit_flythrough(dev, scene, scale, frames):
                      max_abs_err=sprayed_err, ms=sprayed_ms,
                      plain_ms=sprayed_plain_ms,
                      **a_bound(n, after, after["n_step"])),
+        edit_launches=edit_launches,
         stats=dict(launches=stats_launches,
                    # no frame runs it: a replayed frame's other builds
                    launches_per_frame=on_card["A_all"] - on_card["A"],
@@ -696,6 +724,106 @@ def edit_flythrough(dev, scene, scale, frames):
                    plain_ms=stats_plain_ms,
                    **a_bound(n, after, after["n_step"], stats=True)),
         engine=rt)
+
+
+def edit_kernels(dev, scene, scale):
+    """Phase 8b: the edit kernels (`ops.edit.insert` / `remove`, csrc/edit.cu)
+    against their plain body (`ops.edit.insert_plain` / `remove_plain`) on
+    the card, each route on its own copy of config 3's scene and records:
+    EDIT_CHECKS of config 3's batches (`EditStream`, 512 random voxels in
+    EDIT_LANES lanes), inserts and removals in turn, bit for bit on every
+    array, the field and the records after each; then each route's device
+    time on the last batch of each kind (repeated: the same batch again
+    changes nothing, which the copies are held to after the timing), the
+    bound, and the kernels a replayed insert and a replayed removal of the
+    engine run on the card, from a trace. Returns {"insert": row numbers,
+    "remove": row numbers}."""
+    import torch
+
+    from zig_vulkan_tpu_torch.benchmarks import configs
+    from zig_vulkan_tpu_torch.ops import edit as edit_ops
+    from zig_vulkan_tpu_torch.utils import roofline
+
+    rt = configs.build_config3(scale, dev, scene=scene)
+    st = rt.grid_static
+    rt.tables()
+    stream = configs.EditStream(rt)
+    is_diel, ir = rt._mat_is_diel, rt._mat_ir
+
+    def copy():
+        arrays = dataclasses.replace(rt.arrays, **{
+            f: getattr(rt.arrays, f).clone() for f in _FIELDS})
+        return arrays, (rt._tables.clone(), rt._dist.clone())
+
+    routes = {"kernels": copy(), "plain": copy()}
+
+    def run(route, op, buf):
+        arrays, records = routes[route]
+        if op == "insert":
+            fn = edit_ops.insert if route == "kernels" else edit_ops.insert_plain
+            return fn(st, arrays, buf, is_diel, ir, records)
+        fn = edit_ops.remove if route == "kernels" else edit_ops.remove_plain
+        return fn(st, arrays, buf, records)
+
+    def differs():
+        (ka, (kt, kd)), (pa, (pt, pd)) = routes["kernels"], routes["plain"]
+        return scene_differs(ka, pa) + [
+            name for name, a, b in (("dist", kd, pd), ("tables", kt, pt))
+            if not torch.equal(a, b)]
+
+    last = {}
+    for i in range(EDIT_CHECKS):
+        xyz, mats = stream.draw(i)
+        op = "insert" if mats is not None else "remove"
+        buf = torch.from_numpy(edit_ops.pack(EDIT_LANES, xyz, mats)).to(dev)
+        last[op] = xyz, mats, buf
+        if run("kernels", op, buf) is not True:
+            raise AssertionError("ops.edit took the plain body on the card")
+        run("plain", op, buf)
+        torch.cuda.synchronize()
+        bad = differs()
+        if bad:
+            raise AssertionError(f"the edit kernels differ from their plain "
+                                 f"body after batch {i} ({op}): {bad}")
+
+    out = {}
+    for op in ("insert", "remove"):
+        xyz, mats, buf = last[op]
+        ms = cuda_ms(lambda: run("kernels", op, buf), reps=EDIT_REPS)
+        plain_ms = cuda_ms(lambda: run("plain", op, buf), reps=3)
+        bound, by = roofline.edit_bound_ms(op, EDIT_LANES, st.cells)
+        # the engine's own graph of this batch: captured, then traced
+        call = ((lambda: rt.insert_voxels(xyz, mats)) if op == "insert"
+                else (lambda: rt.remove_voxels(xyz)))
+        call()
+        torch.cuda.synchronize()
+        t = device_trace(call, TRACE_FRAMES)
+        out[op] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       kernels_per_replay=t["kernels"],
+                       launches_per_replay=t["edit_launches"],
+                       replay_kernel_ms=t["edit_kernel_ms"],
+                       replay_busy_ms=t["busy_ms"], lanes=EDIT_LANES,
+                       cells=st.cells, max_abs_err=0.0)
+    torch.cuda.synchronize()
+    bad = differs()
+    log("edit kernels", batches=EDIT_CHECKS, lanes=EDIT_LANES,
+        cells=st.cells, equal_bit_for_bit=not bad,
+        **{f"{op}_{k}": (json.dumps(v, separators=(",", ":"))
+                         if isinstance(v, dict) else v)
+           for op, row in out.items() for k, v in row.items()
+           if k not in ("lanes", "cells", "max_abs_err")})
+    if bad:
+        raise AssertionError(f"the edit kernels differ from their plain body "
+                             f"after the timed repeats: {bad}")
+    want = {"insert": (4, {"insert": 1, "field": 3, "remove": 0}),
+            "remove": (1, {"insert": 0, "field": 0, "remove": 1})}
+    got = {op: (row["kernels_per_replay"], row["launches_per_replay"])
+           for op, row in out.items()}
+    if got != want:
+        raise AssertionError(f"expected an insert replay of 4 kernels (1 "
+                             f"insert, 3 field) and a removal replay of 1, "
+                             f"nothing else, got {got}")
+    return out
 
 
 def step_times(fn, frames):
@@ -3019,7 +3147,9 @@ def device_trace(fn, frames):
     call, "htod_pageable": those from pageable memory, "kernels": kernels a
     call, "copies": {copy or memset kind: count a call}, "launches": kernel
     A to F launches a call (`card_counts`), "kernel_ms": the device ms a
-    call of kernels A to F and of every other kernel ("other")}.
+    call of kernels A to F and of every other kernel ("other"),
+    "edit_launches": the edit kernels' launches a call by `EDIT_KERNELS`'
+    key, "edit_kernel_ms": their device ms a call}.
 
     A trace may lose its first device records and its device timestamps may
     sit earlier than the host's: filtered by the host's time, the pose
@@ -3105,14 +3235,23 @@ def device_trace(fn, frames):
     launches = profiling.kernel_launches(e["name"] for e in dev
                                          if e["cat"] == "kernel")
     kernel_ms = collections.Counter()
+    edit_launches = dict.fromkeys((k for k, _ in EDIT_KERNELS), 0)
+    edit_ms = 0.0
     for e in dev:
         if e["cat"] == "kernel":
             kind = profiling.kernel_kind(e["name"])[0] or "other"
             kernel_ms[kind] += e["dur"] / 1e3 / frames
+            for key, symbol in EDIT_KERNELS:
+                if symbol in e["name"]:
+                    edit_launches[key] += 1
+                    edit_ms += e["dur"] / 1e3 / frames
     return dict(busy_ms=busy / 1e3 / frames, events=len(spans) / frames,
                 kernel_ms={k: round(v, 5) for k, v in sorted(
                     kernel_ms.items())},
                 launches=card_counts(launches, frames),
+                edit_launches={k: v / frames
+                               for k, v in edit_launches.items()},
+                edit_kernel_ms=edit_ms,
                 htod=len(htod) / frames,
                 htod_pageable=sum("Pageable" in n for n in htod) / frames,
                 kernels=sum(e["cat"] == "kernel" for e in dev) / frames,
@@ -4470,6 +4609,11 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     edit = edit_flythrough(dev, scene, scale, edit_frames)
     log("edit", phase_seconds=f"{time.perf_counter() - t0:.2f}")
 
+    # -- 8b. the edit kernels against their plain body -----------------------------
+    t0 = time.perf_counter()
+    edit_rows = edit_kernels(dev, scene, scale)
+    log("edit kernels", phase_seconds=f"{time.perf_counter() - t0:.2f}")
+
     # -- 9. the sun-shadow probe at the default EngineConfig -----------------------
     shadow = shadow_probe(rt, primary, all_on, (bounce, live, key))
 
@@ -4715,6 +4859,28 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
         resampling_denoiser_ms=denoised_f["ms"],
         resampling_denoiser_bound_ms=denoised_f["bound_ms"],
         resampling_denoiser_plain_ms=denoised_f["plain_ms"]))
+    # the edit kernels: their launches through the wrappers in the main
+    # path's edit run (phase 8: its graphs' captures), the kernels of a
+    # replayed insert and removal on the card, and phase 8b's times on
+    # config 3's batches against the plain body (ATen op by op, host-bound)
+    for op, name, replaces in (
+            ("insert", "edit insert (insert_kernel, then field_kernel<0..2>: "
+             "the skip field, lane 3 and the touched rows)",
+             "zig_vulkan_tpu/core/grid.py:393, zig_vulkan_tpu/ops/trace.py:193"),
+            ("remove", "edit removal (remove_kernel: the bits, then the "
+             "touched rows)", "zig_vulkan_tpu/core/grid.py:546")):
+        row = edit_rows[op]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="zig_vulkan_tpu_torch/csrc/edit.cu", replaces=replaces,
+            launches=edit["edit_launches"][op],
+            **{f"launches_per_replayed_{op}": sum(
+                row["launches_per_replay"].values())},
+            **{f"launches_per_replayed_{op}_by_kernel":
+               row["launches_per_replay"]},
+            **{k: row[k] for k in ("max_abs_err", "lanes", "cells", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "replay_kernel_ms", "replay_busy_ms")}))
     # the launches through the wrappers in phase 22's run (its captures, its
     # frames op by op and its fresh engines)
     in_tour = (("traverse (kernel A, default build)", "A"),

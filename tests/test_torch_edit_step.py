@@ -29,6 +29,7 @@ from zig_vulkan_tpu_torch.core.camera import Camera
 from zig_vulkan_tpu_torch.engine import engine as tengine
 from zig_vulkan_tpu_torch.engine import step as tstep
 from zig_vulkan_tpu_torch.models import scenes as tscenes
+from zig_vulkan_tpu_torch.ops import edit as tedit
 from zig_vulkan_tpu_torch.ops import tile_tracer as ttile
 from zig_vulkan_tpu_torch.ops import trace as ttrace
 from zig_vulkan_tpu_torch.parallel import mesh as pmesh
@@ -316,6 +317,39 @@ def test_lanes_past_brick_alloc_are_dropped_as_in_the_jax_package(past):
     assert bricks == list(range(st.brick_alloc - 3, st.brick_alloc + 2))
 
 
+def test_removals_in_cells_past_brick_alloc_are_dropped_as_in_the_jax_package():
+    """After five new bricks where three fit, a removal of every voxel the
+    insert gave: the two cells past `brick_alloc` are loaded but have no
+    words, so their lanes clear nothing (the JAX package drops them), and
+    the last brick that fits keeps the voxel left in it, whose bit the
+    lanes past `brick_alloc` share."""
+    grid, mats = _scene(rgrid.BrickGrid, brick_alloc=None)
+    active = int(grid.arrays.active_bricks)
+    small, _ = _scene(rgrid.BrickGrid, brick_alloc=active + 3)
+    st = small.static
+    # two voxels of each cell, one in each word of its brick
+    xyz = np.asarray([(4 * k, y, 60) for k in range(5) for y in (28, 30)],
+                     np.int32)
+    m = np.full(len(xyz), 3, np.uint8)
+    pxyz, pm, valid = _padded(xyz, m, 1024, 6)
+    ref = _ref_apply(st, small.device_arrays(), jnp.asarray(pxyz),
+                     jnp.asarray(pm), jnp.asarray(valid),
+                     *_classified(mats, True))
+    port = tgrid.apply_edits(st, tgrid.GridArrays.to_device(small.arrays,
+                                                            "cpu"),
+                             _t(pxyz), _t(pm), _t(valid),
+                             *_classified(mats, False))
+    _assert_equal(port, ref)
+    # all but the word-1 voxel (y 28) of the last brick that fits
+    gone = xyz[[0, 1, 3, 5, 6, 8, 9]]
+    rxyz, _, rvalid = _padded(gone, np.zeros(len(gone), np.uint8), 1024, 7)
+    ref = _ref_remove(st, ref, jnp.asarray(rxyz), jnp.asarray(rvalid))
+    port = tgrid.remove_edits(st, port, _t(rxyz), _t(rvalid))
+    _assert_equal(port, ref)
+    last = 2 * (st.brick_alloc - 1)
+    assert port.occupancy[last].item() == 0 and port.occupancy[last + 1] != 0
+
+
 def test_past_alloc_bytes_follow_cell_order_over_an_older_last_brick():
     """The last brick that fits is an older one, in a cell after the two
     bricks past `brick_alloc`; a voxel of it and theirs share one address of
@@ -508,10 +542,10 @@ def test_edit_step_upload_lays_out_the_batch():
     step = tstep.EditStep(1024, "cpu")
     xyz = np.asarray([[1, 2, 3], [4, 5, 6]], np.int32)
     step.upload(xyz, np.asarray([7, 250], np.uint8))
-    got, mats, live = step.lanes(step.buf)
+    got, mats, live = tedit.lanes(step.buf)
     assert got.shape == (1024, 3) and mats.shape == live.shape == (1024,)
     np.testing.assert_array_equal(got[:2].numpy(), xyz)
     assert not got[2:].any() and mats[:3].tolist() == [7, 250, 0]
     assert live.sum() == 2 and live[:2].all()
     step.upload(xyz[:1])  # a removal: no materials
-    assert step.lanes(step.buf)[2].sum() == 1 and not step.buf[3 * 1024:4 * 1024].any()
+    assert tedit.lanes(step.buf)[2].sum() == 1 and not step.buf[3 * 1024:4 * 1024].any()

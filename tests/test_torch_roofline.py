@@ -3,7 +3,7 @@
 The least time of a kernel launch on the card is computed from its shapes
 and its data (chip_smoke.py reports it beside each kernel's time); these
 tests hold the byte counts to a count by hand of what each build of kernel
-A and kernel B reads and writes, and the warp-use share to hand-made step
+A and kernel B and the edits read and write, and the warp-use share to hand-made step
 counts. No JAX.
 """
 
@@ -78,6 +78,22 @@ def test_lookup_bytes_and_bound():
     assert got == n * 24 + 5 * 256 * 4
     ms, by = roofline.bound_ms(got)
     assert by == "bytes" and 0.00844 < ms < 0.00847
+
+
+@pytest.mark.parametrize("op,records,want", [
+    # 1,024 lanes of 16 bytes; an insert with the records current also
+    # reads the 1M-cell status bits (128 KiB) and writes the field (4 MiB)
+    ("insert", True, 1024 * 16 + (1 << 17) + (1 << 22)),
+    ("insert", False, 1024 * 16),
+    ("remove", True, 1024 * 16),
+])
+def test_edit_bytes_of_a_brush_stroke(op, records, want):
+    """The edit cell's stroke on the 128x64x128-cell world: an insert's
+    bound 1.3 us at 3.35 TB/s, a removal's 5 ns, both bytes."""
+    cells = 128 * 64 * 128
+    assert roofline.edit_bytes(op, 1024, cells, records) == want
+    ms, by = roofline.edit_bound_ms(op, 1024, cells, records)
+    assert by == "bytes" and ms == pytest.approx(want / 3.35e12 * 1e3)
 
 
 def test_bound_takes_the_larger_time():

@@ -130,6 +130,22 @@ class DenoiseArgs(ctypes.Structure):
         ("runtime", ctypes.c_int)] + _pointers("samples", "bias", "hue")
 
 
+class EditArgs(ctypes.Structure):
+    """Mirror of `struct EditArgs` in csrc/edit.cu (the voxel edits)."""
+
+    _fields_ = _pointers(
+        "statuses", "indices", "occupancy", "start_indices",
+        "material_indices", "active_bricks", "material_cursor", "diel_mask",
+        "brick_ir", "mat_is_diel", "mat_ir", "buf", "tables", "dist",
+        "scratch") + [
+        ("size", ctypes.c_int64),
+        ("material_bytes", ctypes.c_int64),
+        ("dims", ctypes.c_int * 3),
+        ("cells", ctypes.c_int),
+        ("brick_alloc", ctypes.c_int),
+    ]
+
+
 # C entry points: name -> argtypes; every one returns a CUDA error code
 _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
@@ -147,6 +163,10 @@ _SIGNATURES = {
     # args, blocks an SM (out)
     "zvt_denoise_occupancy": [ctypes.POINTER(DenoiseArgs),
                               ctypes.POINTER(ctypes.c_int)],
+    # args, stream
+    "zvt_edit_insert": [ctypes.POINTER(EditArgs), _P],
+    "zvt_edit_field": [ctypes.POINTER(EditArgs), _P],
+    "zvt_edit_remove": [ctypes.POINTER(EditArgs), _P],
 }
 
 _LIB = None

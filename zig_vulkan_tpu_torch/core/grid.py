@@ -634,7 +634,9 @@ def remove_edits(static: GridStatic, arrays: GridArrays, xyz,
     word_start = _run_starts(w_s)
     clear = _run_or(word_start, _bit(nth[order] % 32),
                     v_s & _run_starts(key))
-    rmw = word_start & v_s
+    # a brick past brick_alloc has no words: its lanes write nothing, as
+    # the JAX package's dropped scatter
+    rmw = word_start & v_s & (w_s < a.occupancy.numel())
     w = w_s.clamp(0, a.occupancy.numel() - 1)
     _put(a.occupancy, w, a.occupancy[w] & ~clear, rmw)
     _put(a.diel_mask, w, a.diel_mask[w] & ~clear, rmw)

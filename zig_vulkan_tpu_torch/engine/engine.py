@@ -42,9 +42,15 @@ VoxelRT.zig:107-172). As in the JAX engine, a batch is padded to
 `engine.step.EditStep`: one pinned upload a batch and, on a CUDA device,
 one graph for each (insert or remove, records current or not) holding the
 edit and the refresh, captured once and replayed (the edit body never
-waits for the card). Every padded size is kept, as the JAX engine's jit
-keeps each shape. `insert_voxels_op_by_op` and `remove_voxels_op_by_op`
-call the same bodies op by op. `TraceConfig(empty_skip=False)` picks only
+waits for the card). On a card the edit and the refresh are the
+hand-written kernels of `ops.edit` (csrc/edit.cu); on the CPU their plain
+body, `core.grid.apply_edits` / `remove_edits` and the refreshes of
+`ops.trace`. Each edit counts `edit_kernel` 1 where its graph or body
+ran the kernels, 0 where it ran the plain body: the route the body took
+when it ran (a graph keeps what its capture returned). Every padded size is kept, as the JAX
+engine's jit keeps each shape. `insert_voxels_op_by_op` and
+`remove_voxels_op_by_op` call the same bodies op by op.
+`TraceConfig(empty_skip=False)` picks only
 the frame's traversal, the exact DDA, which never reads the records'
 distance lane: a flip of it keeps the records and the field, and returns
 to a key the engine holds by a replay. Host-side mutable state is the
@@ -73,10 +79,11 @@ import torch
 
 from ..config import DenoiserConfig, EngineConfig
 from ..core.camera import Camera
-from ..core.grid import BrickGrid, apply_edits, grid_at, remove_edits
+from ..core.grid import BrickGrid, grid_at
 from ..core.materials import MAT_DIELECTRIC, MaterialTable
 from ..core.sun import Sun
 from ..ops import denoise as denoise_mod
+from ..ops import edit as edit_ops
 from ..ops import trace as trace_mod
 from ..ops.tile_tracer import REGION_CELLS, region_grid
 from ..utils import profiling, validation
@@ -444,7 +451,8 @@ class VoxelRT:
         """Insert voxels on the device (the updateGridDelta analog,
         VoxelRT.zig:107-172): `core.grid.apply_edits`, then the cached
         records' refresh (`ops.trace.refresh_tables_after_insert`), one
-        replayed graph on a CUDA device.
+        replayed graph of the hand-written edit kernels on a CUDA device
+        (`ops.edit.insert`, csrc/edit.cu).
 
         Raises MemoryError, before touching the scene, if the batch could
         exhaust `brick_alloc`. The check is a host-side bound (each distinct
@@ -460,7 +468,7 @@ class VoxelRT:
         """Remove voxels on the device (BASELINE config 3):
         `core.grid.remove_edits`, then the touched records' refresh with
         the cached skip field (bricks are never freed), one replayed graph
-        on a CUDA device."""
+        of one edit kernel on a CUDA device (`ops.edit.remove`)."""
         self._remove(xyz, GraphedCall.__call__)
 
     def remove_voxels_op_by_op(self, xyz) -> None:
@@ -526,34 +534,30 @@ class VoxelRT:
         # them), whatever empty_skip is, as the JAX engine's edits
         key = (op, self._records_current)
         with profiling.zone("edit_launch"):
-            run(step.graph(key, lambda: self._edit_body(*key)))
+            kernels = run(step.graph(key, lambda: self._edit_body(*key)))
+        profiling.count("edit_kernel", int(kernels))
 
     def _edit_body(self, op: str, records: bool):
-        """The edit of `op` over an `EditStep`'s buffer, with the records'
-        refresh when they are current (an insert writes the conservative
-        field), on the scene's tensors (whose addresses a graph keeps). Its
-        first and last ops are `edit_graph` device marks: in a graph, the
-        card's time of each replay."""
-        st = self.grid_static
-        arrays, tables, dist = self.arrays, self._tables, self._dist
+        """The edit of `op` over an `EditStep`'s buffer (`ops.edit.insert`
+        / `remove`: csrc/edit.cu on a CUDA device, the plain body on the
+        CPU), with the records' refresh when they are current (an insert
+        writes the conservative field), on the scene's tensors (whose
+        addresses a graph keeps). Its first and last ops are `edit_graph`
+        device marks: in a graph, the card's time of each replay. It
+        returns the route `ops.edit` took: True for the kernels."""
+        st, arrays = self.grid_static, self.arrays
         is_diel, ir = self._mat_is_diel, self._mat_ir
+        cached = (self._tables, self._dist) if records else None
 
         def body(buf):
             profiling.device_mark("edit_graph", buf.device)
-            xyz, mats, live = EditStep.lanes(buf)
-            x, y, z = (xyz[:, i].to(torch.int64) for i in range(3))
-            cells = grid_at(st, x, (st.voxel_dims[1] - 1) - y, z)
             if op == "insert":
-                apply_edits(st, arrays, xyz, mats, live, is_diel, ir)
-                if records:
-                    trace_mod.refresh_tables_after_insert(
-                        st, arrays, tables, cells, live, dist=dist)
+                kernels = edit_ops.insert(st, arrays, buf, is_diel, ir,
+                                          cached)
             else:
-                remove_edits(st, arrays, xyz, live)
-                if records:
-                    trace_mod.refresh_tables_after_remove(
-                        st, arrays, tables, dist, cells, live)
+                kernels = edit_ops.remove(st, arrays, buf, cached)
             profiling.device_mark("edit_graph", buf.device)
+            return kernels
 
         return body
 

@@ -21,8 +21,9 @@ memory on the current stream, without a synchronize.
 `EditStep` does the same for the voxel edits (the JAX engine's jitted
 `apply_edits` / `remove_edits` and records refresh): a batch padded to a
 fixed number of lanes is uploaded in one pinned copy into a static device
-buffer, and one graph per edit kind replays the edit and the refresh over
-it.
+buffer (its layout is `ops.edit`'s), and one graph per edit kind
+replays the edit and the refresh over it: on a card, the edit kernels of
+`ops.edit`.
 
 `GraphPool` is one memory pool and one capture stream that the graphs of
 one engine share (`VoxelRT` keeps every key's step and every padded edit
@@ -54,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import edit as edit_ops
 from ..ops import trace as trace_mod
 from ..utils import profiling
 
@@ -283,8 +285,8 @@ class Step:
 class EditStep:
     """The edits of one padded batch size (the JAX engine's jitted
     `apply_edits` / `remove_edits` at one batch shape): a static device
-    buffer int32[4 * size + 1] holding the lanes' voxel coordinates
-    ([size, 3]), their materials ([size]) and the count of live lanes, the
+    edit buffer (`ops.edit.pack`: the lanes' voxel coordinates, their
+    materials and the count of live lanes, int32[4 * size + 1]), the
     pinned ring that uploads a batch into it (one host-to-device copy an
     edit), and one `GraphedCall` over the buffer for each edit kind the
     caller names (`graph(key, make_body)`), captured into `pool` (as
@@ -292,30 +294,16 @@ class EditStep:
 
     def __init__(self, size: int, device, pool=None):
         self.size = int(size)
-        self.buf = torch.zeros(4 * self.size + 1, dtype=torch.int32,
-                               device=device)
+        self.buf = torch.zeros(edit_ops.buffer_length(self.size),
+                               dtype=torch.int32, device=device)
         self.ring = PushRing(device, self.buf.numel(), torch.int32)
         self.pool = pool
         self.graphs = {}
 
     def upload(self, xyz: np.ndarray, mats=None) -> None:
-        """Write a batch (int32[n, 3], uint8[n] or None) into the buffer;
-        the lanes from n on are zeros."""
-        s, n = self.size, xyz.shape[0]
-        host = np.zeros(4 * s + 1, dtype=np.int32)
-        host[:3 * n] = xyz.reshape(-1)
-        if mats is not None:
-            host[3 * s:3 * s + n] = mats
-        host[4 * s] = n
-        self.ring.upload(host, self.buf)
-
-    @staticmethod
-    def lanes(buf):
-        """(xyz int32[size, 3], materials int32[size], live bool[size]) as
-        views and device ops over an edit buffer `buf`."""
-        s = (buf.numel() - 1) // 4
-        live = torch.arange(s, device=buf.device) < buf[4 * s]
-        return buf[:3 * s].view(s, 3), buf[3 * s:4 * s], live
+        """Write a batch (int32[n, 3], uint8[n] or None) into the buffer
+        (`ops.edit.pack`); the lanes from n on are zeros."""
+        self.ring.upload(edit_ops.pack(self.size, xyz, mats), self.buf)
 
     def graph(self, key, make_body) -> GraphedCall:
         """The `GraphedCall` of `key`, over the buffer, its body made by

@@ -44,13 +44,15 @@ the host waits (`wait`, counted under `host_waits`): build_tables (the
 records' first build), guard_statuses and guard_active_bricks (the
 capacity guard's reads), push_ring (an upload that finds its pinned slot
 still in use), device_marks (marks read before the card ran them); the
-counters edit_lanes and edit_padded (an edit's live and padded lanes) and
-pose_native (1 a pose the native routine took, 0 a pose its numpy twin
-took), temporal_frames and temporal_resets (1 a frame drawn with a temporal
-key, 1 a frame whose running mean was zeroed); the device spans
-(`device_mark` pairs) edit_graph (an edit graph from its first node to its
-last), edit_field (the insert's field rebuild) and temporal (the running
-mean inside the frame graph).
+counters edit_lanes and edit_padded (an edit's live and padded lanes),
+edit_kernel (1 an edit that ran the hand-written edit kernels, 0 an edit
+that ran their plain body), pose_native (1 a pose the native routine took,
+0 a pose its numpy twin took), temporal_frames and temporal_resets (1 a
+frame drawn with a temporal key, 1 a frame whose running mean was zeroed);
+the device spans (`device_mark` pairs) edit_graph (an edit graph from its
+first node to its last), edit_field (the insert's field rebuild; on a card
+its three launches, the last of which also writes the touched rows) and
+temporal (the running mean inside the frame graph).
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog

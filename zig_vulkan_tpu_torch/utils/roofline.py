@@ -41,6 +41,12 @@ value that is not finite (elsewhere it adds +0): the caller counts those
 pixels from the image; the taps' influences from the knobs are needed once
 a launch.
 
+The voxel edits (csrc/edit.cu) read the edit buffer, 16 bytes a lane
+(three coordinates and a material, int32 each); an insert with the records
+current also reads the status bitmap (a bit a cell) and writes the field
+(int32 a cell). The bricks, words and rows an edit changes (a few hundred
+bytes a brush stroke) are not counted, so the bound is low, never high.
+
 `warp_use_share` measures divergence from a stats build's `n_step`: the
 share of lane-iterations that do work when lanes 32w..32w+31 run together
 as warp w until the longest of them is done. `slowest_lanes` picks the rays
@@ -289,6 +295,22 @@ def denoise_bound_ms(in_pixels: int, out_pixels: int, taps: int, mode: int,
     return bound_ms(denoise_bytes(in_pixels, out_pixels, influences > 0),
                     denoise_ops(out_pixels, taps, mode, masked_taps,
                                 masked_pixels, influences))
+
+
+EDIT_LANE_BYTES = 4 * 4  # x, y, z and the material, int32 each
+
+
+def edit_bytes(op: str, lanes: int, cells: int, records: bool = True) -> int:
+    """Bytes of one edit ("insert" or "remove") of `lanes` padded lanes on
+    a grid of `cells` cells: the buffer in and, for an insert with the
+    records current, the status bits in and the field out."""
+    field = cells // 8 + 4 * cells if op == "insert" and records else 0
+    return lanes * EDIT_LANE_BYTES + field
+
+
+def edit_bound_ms(op: str, lanes: int, cells: int, records: bool = True):
+    """(bound ms, what bounds it) of one edit (`edit_bytes`' arguments)."""
+    return bound_ms(edit_bytes(op, lanes, cells, records))
 
 
 def warp_use_share(n_step) -> float:
