@@ -54,8 +54,9 @@ engine's jit keeps each shape. `insert_voxels_op_by_op` and
 the frame's traversal, the exact DDA, which never reads the records'
 distance lane: a flip of it keeps the records and the field, and returns
 to a key the engine holds by a replay. Host-side mutable state is the
-camera and sun (the reference's push constants), the roamability mirror,
-the brick-count bound and the metrics ring.
+camera and sun (the reference's push constants), the brick-count bound
+and the metrics ring. The roamability report (`nonempty_region_fraction`)
+reads the scene's status bits from the device when it is asked.
 
 The profiling zones (`utils.profiling.zone`) carry the JAX engine's names
 (draw, device_sync, render_step, build_tables, edit_insert, edit_remove)
@@ -85,7 +86,6 @@ from ..core.sun import Sun
 from ..ops import denoise as denoise_mod
 from ..ops import edit as edit_ops
 from ..ops import trace as trace_mod
-from ..ops.tile_tracer import REGION_CELLS, region_grid
 from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
@@ -143,7 +143,9 @@ class VoxelRT:
         self._dist = None
         # False until the first frame builds the records, and after a flush
         self._records_current = False
-        self._track_host_grid(grid)
+        # host-side bound on the active bricks: the edit path never reads
+        # the device unless the bound says a batch could exhaust brick_alloc
+        self._bricks_upper = int(grid.arrays.active_bricks)
 
         # temporal accumulation (BASELINE config 4): running mean of traced
         # frames while the camera and sun pose stay put, with fresh jitter
@@ -160,15 +162,6 @@ class VoxelRT:
         self._step_cache = {}
         self._push = PushRing(self.device)
         self._edit_cache = {}  # padded size -> EditStep
-
-    def _track_host_grid(self, grid: BrickGrid) -> None:
-        # host-side bound on the active bricks: the edit path never reads
-        # the device unless the bound says a batch could exhaust brick_alloc
-        self._bricks_upper = int(grid.arrays.active_bricks)
-        # host mirror of which regions hold a loaded cell (exact: removals
-        # never unload a cell, so regions only ever turn non-empty)
-        self._n_regions, self._nonempty_regions = _region_occupancy(
-            self.grid_static, np.asarray(grid.arrays.statuses))
 
     def tables(self):
         """The scene's per-cell traversal records, built on first use with
@@ -369,7 +362,7 @@ class VoxelRT:
                                  f"{tuple(dst.shape)}")
         for _, dst, src in pairs:
             dst.copy_(src)
-        self._track_host_grid(grid)
+        self._bricks_upper = int(grid.arrays.active_bricks)
         self._records_current = False
 
     def push_materials(self, materials: MaterialTable) -> None:
@@ -449,10 +442,10 @@ class VoxelRT:
 
     def insert_voxels(self, xyz, material_index) -> None:
         """Insert voxels on the device (the updateGridDelta analog,
-        VoxelRT.zig:107-172): `core.grid.apply_edits`, then the cached
-        records' refresh (`ops.trace.refresh_tables_after_insert`), one
-        replayed graph of the hand-written edit kernels on a CUDA device
-        (`ops.edit.insert`, csrc/edit.cu).
+        VoxelRT.zig:107-172) through `ops.edit.insert`, with the cached
+        records' refresh: on a CUDA device one replayed graph of the
+        hand-written edit kernels (csrc/edit.cu), on the CPU their plain
+        body.
 
         Raises MemoryError, before touching the scene, if the batch could
         exhaust `brick_alloc`. The check is a host-side bound (each distinct
@@ -483,7 +476,7 @@ class VoxelRT:
 
     def _insert_guard(self, xyz, material_index):
         """The insert batch (int32[n, 3], uint8[n]) once validated and held
-        to `brick_alloc`, with the regions it marks recorded."""
+        to `brick_alloc`."""
         xyz = self._edit_batch(xyz)
         mats = np.asarray(material_index, dtype=np.uint8).ravel()
         if mats.shape[0] != xyz.shape[0]:
@@ -491,8 +484,7 @@ class VoxelRT:
         st = self.grid_static
         uniq_cells = np.unique(self._cells_of(xyz))
         if self._bricks_upper + uniq_cells.size > st.brick_alloc:
-            with profiling.wait("guard_statuses"):
-                statuses = self.arrays.statuses.cpu().numpy().view(np.uint32)
+            statuses = self._host_statuses()
             loaded = (statuses[uniq_cells // 32]
                       >> (uniq_cells % 32).astype(np.uint32)) & 1
             actually_new = int((loaded == 0).sum())
@@ -505,11 +497,13 @@ class VoxelRT:
             self._bricks_upper = active + actually_new
         else:
             self._bricks_upper += uniq_cells.size
-        # roamability bookkeeping after the capacity guard: a rejected
-        # batch marks no region
-        self._nonempty_regions.update(
-            _regions_of_cells(st, uniq_cells).tolist())
         return xyz, mats
+
+    def _host_statuses(self) -> np.ndarray:
+        """The scene's status bits read to the host (uint32 words): a host
+        wait on the card."""
+        with profiling.wait("guard_statuses"):
+            return self.arrays.statuses.cpu().numpy().view(np.uint32)
 
     def _remove(self, xyz, run) -> None:
         with profiling.zone("edit_remove"):
@@ -563,8 +557,11 @@ class VoxelRT:
 
     def nonempty_region_fraction(self) -> float:
         """The share of 4x16x16-cell regions that hold a loaded cell: the
-        direct measure of how far empty-space roaming has collapsed."""
-        return len(self._nonempty_regions) / max(1, self._n_regions)
+        direct measure of how far empty-space roaming has collapsed. Read
+        from the scene's status bits on the device when asked."""
+        n, nonempty = _region_occupancy(self.grid_static,
+                                        self._host_statuses())
+        return len(nonempty) / max(1, n)
 
     def _scene_degraded(self) -> bool:
         """True when more than `degraded_nonempty_fraction` of the regions
@@ -668,11 +665,19 @@ def device_name(device) -> str:
     return f"{device.type} ({device.type})"
 
 
+# region edge lengths in grid cells (y, z, x) of the JAX package's TPU
+# kernel's region blocks (zig_vulkan_tpu/ops/tile_tracer.py:98): the
+# roamability report counts regions of this size
+REGION_CELLS = (4, 16, 16)
+
+
 def _region_occupancy(static, statuses: np.ndarray):
     """(n_regions, set of region ids holding a loaded cell) from host
-    status bits (zig_vulkan_tpu/engine/engine.py:615-628)."""
+    status bits (zig_vulkan_tpu/engine/engine.py:615-628); the grid's dims
+    are padded up to whole regions."""
     ry, rz, rx = REGION_CELLS
-    ny, nz, nx = region_grid(static)
+    ny, nz, nx = (-(-static.dim_y // ry), -(-static.dim_z // rz),
+                  -(-static.dim_x // rx))
     cells = static.dim_x * static.dim_y * static.dim_z
     bits = np.unpackbits(statuses.view(np.uint8), bitorder="little")[:cells]
     vol = np.zeros((ny * ry, nz * rz, nx * rx), dtype=bool)
@@ -680,13 +685,3 @@ def _region_occupancy(static, statuses: np.ndarray):
         bits.reshape(static.dim_y, static.dim_z, static.dim_x))
     nonempty = vol.reshape(ny, ry, nz, rz, nx, rx).any(axis=(1, 3, 5))
     return ny * nz * nx, set(np.flatnonzero(nonempty.reshape(-1)).tolist())
-
-
-def _regions_of_cells(static, cells: np.ndarray) -> np.ndarray:
-    """Region ids (x fastest) of grid cell ids."""
-    ry, rz, rx = REGION_CELLS
-    ny, nz, nx = region_grid(static)
-    cy = cells // (static.dim_x * static.dim_z)
-    cz = (cells // static.dim_x) % static.dim_z
-    cx = cells % static.dim_x
-    return ((cx // rx) + nx * ((cz // rz) + nz * (cy // ry))).astype(np.int64)

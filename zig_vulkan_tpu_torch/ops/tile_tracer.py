@@ -43,23 +43,6 @@ from .trace import _grid_hit_soa, shadow_dirs, trace_constants
 _RAY_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz")
 _OUT_FIELDS = ("found", "t", "px", "py", "pz", "nx", "ny", "nz", "index")
 
-# region edge lengths in grid cells (y, z, x) of the TPU kernel's region
-# blocks (zig_vulkan_tpu/ops/tile_tracer.py:98); the engine's roamability
-# report counts regions of this size
-REGION_CELLS = (4, 16, 16)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def region_grid(static: GridStatic):
-    """Number of regions per axis (y, z, x); dims are padded up."""
-    ry, rz, rx = REGION_CELLS
-    return (_cdiv(static.dim_y, ry), _cdiv(static.dim_z, rz),
-            _cdiv(static.dim_x, rx))
-
-
 _BUILDS = ("default", "shadow", "stats", "shadow+stats", "exact",
            "exact+shadow", "exact+stats", "exact+shadow+stats")
 

@@ -444,10 +444,10 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     where there is one), or all onto `device` when one is named."""
     from ..config import CameraConfig, SunConfig
     from ..core.camera import Camera
-    from ..core.grid import apply_edits, grid_at
     from ..core.materials import MAT_DIELECTRIC
     from ..core.sun import Sun
     from ..models.scenes import small_test_scene
+    from ..ops import edit as edit_ops
 
     if device is None:
         cards = make_mesh().devices
@@ -471,8 +471,13 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         max_bounce=max_bounce, sun_enabled=True, denoiser=denoiser)
     arrays_r, mats_r = replicate_scene(
         mesh, sc.grid.arrays, trace_mod.materials_to_device(sc.materials, first))
-    tables = map_replicas(
-        mesh, lambda a: trace_mod.build_trace_tables(static, a), arrays_r)
+
+    def build_records(a):
+        dist = trace_mod.distance_field(static, a)
+        return trace_mod.build_trace_tables(static, a, dist), dist
+
+    records = map_replicas(mesh, build_records, arrays_r)
+    tables = tuple(r[0] for r in records)
     cam_vecs = trace_mod.camera_vectors(cam.d_camera, first)
 
     def sharded():
@@ -499,33 +504,25 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     img = sharded()
     check(img, "first render")
 
-    # the same edits on every replica, then the records' refresh
-    # (a wall between the camera and the scene's cube, in view of even a
-    # 4-row frame)
+    # the same edits on every replica, with the records' refresh, through
+    # the engine's route (`ops.edit.insert`), in place (a wall between the
+    # camera and the scene's cube, in view of even a 4-row frame)
     ex, ey, ez = np.meshgrid(np.arange(2, 30), np.arange(4, 28),
                              np.arange(22, 24), indexing="ij")
     xyz = np.stack([ex.ravel(), ey.ravel(), ez.ravel()], -1).astype(np.int32)
     mats_e = np.where(ey.ravel() % 2 == 0, 3, 4).astype(np.uint8)
     table = sc.materials
-    fy = (static.voxel_dims[1] - 1) - xyz[:, 1]
-    cells = grid_at(static, xyz[:, 0], fy, xyz[:, 2]).astype(np.int64)
+    buf = edit_ops.pack(xyz.shape[0], xyz, mats_e)
 
-    def edit(arrays, tab):
+    def edit(arrays, recs):
         dev = arrays.statuses.device
-        valid = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
-        arrays = apply_edits(
-            static, arrays, torch.from_numpy(xyz).to(dev),
-            torch.from_numpy(mats_e).to(dev), valid,
+        edit_ops.insert(
+            static, arrays, torch.from_numpy(buf).to(dev),
             torch.from_numpy(np.asarray(table.mtype) == MAT_DIELECTRIC).to(dev),
             torch.from_numpy(np.asarray(table.type_data,
-                                        dtype=np.float32)).to(dev))
-        tab, _ = trace_mod.refresh_tables_after_insert(
-            static, arrays, tab, torch.from_numpy(cells).to(dev), valid)
-        return arrays, tab
+                                        dtype=np.float32)).to(dev), recs)
 
-    edited = map_replicas(mesh, edit, arrays_r, tables)
-    arrays_r = tuple(e[0] for e in edited)
-    tables = tuple(e[1] for e in edited)
+    map_replicas(mesh, edit, arrays_r, records)
     img2 = sharded()
     check(img2, "render after the edits")
     if torch.equal(img, img2):

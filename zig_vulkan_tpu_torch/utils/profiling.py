@@ -34,15 +34,15 @@ The zones of the engine (`engine.engine.VoxelRT`, `engine.step`,
     pose              Camera.propagate_pitch_change
     edit_insert,      a whole insert_voxels / remove_voxels call
     edit_remove
-      edit_guard        validation, cells, the brick-capacity guard and
-                        the region bookkeeping
+      edit_guard        validation, cells and the brick-capacity guard
       edit_upload       the batch's pinned upload
       edit_launch       the edit graph's replay (its capture on first use)
     capture           GraphedCall's warm-up and capture of a graph
 
 the host waits (`wait`, counted under `host_waits`): build_tables (the
 records' first build), guard_statuses and guard_active_bricks (the
-capacity guard's reads), push_ring (an upload that finds its pinned slot
+capacity guard's reads; the roamability report reads the statuses under
+guard_statuses too), push_ring (an upload that finds its pinned slot
 still in use), device_marks (marks read before the card ran them); the
 counters edit_lanes and edit_padded (an edit's live and padded lanes),
 edit_kernel (1 an edit that ran the hand-written edit kernels, 0 an edit
