@@ -37,8 +37,11 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    one by one (`frame_kernels`): each bit for bit
    against its plain version, its device time warm and after an L2
    flush, its bound, kernel A's steps, warp-use shares and its time with
-   no lane live, with only its slowest 1% of rays live and through the
-   builds that divide (at a 0.3 cell, also bit for bit), kernel B's
+   no lane live (the 5 launches after the first take kernel D's queue of
+   live lanes, and are checked and timed on it, also emptied and beside
+   the same launch over every lane), with only its slowest 1% of rays
+   live and through the builds that divide (at a 0.3 cell, also bit for
+   bit), kernel B's
    `torch.index_select` time, the plain versions' times of C, D, E and F
    (kernel D's inputs restored before each call: it updates the ray state
    in place); kernel F's launch is the runtime build (the knobs read from
@@ -2891,7 +2894,9 @@ def _clone(v):
     if isinstance(v, torch.Tensor):
         return v.clone()
     if isinstance(v, tuple):
-        return tuple(_clone(a) for a in v)
+        vals = tuple(_clone(a) for a in v)
+        # a named tuple (ops.trace.LaneQueue) keeps its type
+        return type(v)(*vals) if hasattr(v, "_fields") else vals
     if isinstance(v, dict):
         return {k: _clone(a) for k, a in v.items()}
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
@@ -2949,11 +2954,36 @@ def compare_bits(got, want):
     return bad, err, set(got) == set(want) and not any(bad.values())
 
 
+def queued_lanes(queue, n=None, device=None):
+    """The lane ids of an `ops.trace.LaneQueue` (int64, in its order), or
+    every lane 0..n-1 where `queue` is None."""
+    import torch
+
+    if queue is None:
+        return torch.arange(n, device=device)
+    return queue.lanes[:int(queue.count[0])].long()
+
+
+def fresh_queues(kw):
+    """Empty copies of the lane queues a captured kernel D launch fills."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import trace
+
+    return {name: trace.LaneQueue(torch.full_like(kw[name].lanes, -1),
+                                  torch.zeros_like(kw[name].count))
+            for name in ("next_queue", "shadow_queue")
+            if kw.get(name) is not None}
+
+
 def replay_shading(kind, args, kw):
     """(kernel, plain) results of a captured launch of kernel C, D or E
     (`SHADING`) on its own inputs: kernel C's rays; kernel D's outputs and
     the state it updates in place (each run on a copy of the captured
-    state, keys `state.*`); kernel E's pixels."""
+    state, keys `state.*`, and into empty queues, compared as sets of
+    lanes); kernel E's pixels."""
+    import torch
+
     from zig_vulkan_tpu_torch.ops import shade
 
     if kind == "C":
@@ -2963,10 +2993,25 @@ def replay_shading(kind, args, kw):
         runs = []
         for fn in (shade.shade, shade.shade_plain):
             state = _clone(args[0])
-            out = fn(state, *args[1:], **kw)
+            queues = fresh_queues(kw)
+            out = fn(state, *args[1:], **dict(kw, **queues))
             runs.append(dict(out, **{f"state.{k}": v
-                                     for k, v in state.items()}))
-        return tuple(runs)
+                                     for k, v in state.items()},
+                             **{name: torch.sort(queued_lanes(q)).values
+                                for name, q in queues.items()}))
+        # with its queues kernel D writes the shadow launch's inputs and the
+        # next level's only for the lanes of their queue
+        got, want = runs
+        for name, mask, keys in (
+                ("shadow_queue", "active", shade.SHADOW_KEYS),
+                ("next_queue", "state.bouncing",
+                 ("key",) + shade.TARGET_KEYS)):
+            if kw.get(name) is not None:
+                m = want[mask]
+                for k in keys:
+                    if k in want:
+                        got[k], want[k] = got[k][m], want[k][m]
+        return got, want
     return ({"pixels": shade.resolve(*args, **kw)},
             {"pixels": shade.resolve_plain(*args, **kw)})
 
@@ -3083,24 +3128,32 @@ def check_frame_launches(label, frame, want_a, want_b, renders=1, posts=0):
                     k: v for k, v in bad.items() if v}})
     for i, (args, kw) in enumerate(cap_a):
         keys = HIT_KEYS + (("occluded",) if kw.get("shadow_targets") else ())
-        got = tile_tracer.grid_hit_tiles(*args, **kw)
+        # a queued launch writes only its queue's lanes
+        lanes = queued_lanes(kw.get("queue"), args[9].numel(),
+                             args[9].device)
+        got = {k: v[lanes] for k, v in
+               tile_tracer.grid_hit_tiles(*args, **kw).items()}
         bad, e, same = mismatches(
-            got, tile_tracer.grid_hit_plain(*args, **kw), keys)
+            got, {k: v[lanes] for k, v in
+                  tile_tracer.grid_hit_plain(*args, **kw).items()}, keys)
         err = max(err, e)
         if not same:
             differ.append({f"A launch {i}": bad})
         rows.append(dict(
             lanes=int(args[9].numel()), active=int(args[9].sum()),
+            queued=None if kw.get("queue") is None else int(lanes.numel()),
             keyed=kw.get("ray_key") is not None, device=str(args[9].device),
             hits=int(got["found"].sum()),
             emissive=int((got["found"] & (got["index"] == EMISSIVE)).sum())))
     for i, (args, kw) in enumerate(cap_b):
         mats, idx = args
-        got = torch.stack(lookup.table_lookup(mats, idx))
-        plain = lookup._table_lookup_plain(mats, idx)
-        err = max(err, (got - plain).abs().max().item())
-        if not (torch.equal(got, plain)
-                and torch.equal(got, torch.index_select(mats, 1, idx))):
+        lanes = queued_lanes(kw.get("queue"), idx.numel(), idx.device)
+        got = torch.stack(lookup.table_lookup(mats, idx, **kw))[:, lanes]
+        plain = lookup._table_lookup_plain(mats, idx[lanes])
+        if got.numel():
+            err = max(err, (got - plain).abs().max().item())
+        if not (torch.equal(got, plain) and torch.equal(
+                got, torch.index_select(mats, 1, idx[lanes]))):
             differ.append({f"B launch {i}": int((got != plain).sum())})
     log(f"{label}: launches against plain", A=len(cap_a), B=len(cap_b),
         **{k: len(v) for k, v in cap.items()}, F=launched_f,
@@ -3261,12 +3314,16 @@ def device_trace(fn, frames):
 def frame_kernels(rt, reps: int = FRAME_REPS):
     """Phase 6b: the kernel A and kernel B launches of one frame of `rt`'s
     step run op by op, captured and replayed one by one: each against its plain version, bit
-    for bit; device time warm and after an L2 flush; for A, the stats
-    build's steps over the active lanes, the warp-use shares (lanes in
-    launch order, and the active lanes packed together), and the launch's
-    time with no lane live, with only its slowest 1% of rays live and
-    through the builds that divide (its own check and time); for B,
-    `torch.index_select`'s time on the same inputs; for C, D and E (the
+    for bit (a launch that took a queue of live lanes on the queue's
+    lanes, its queue the launch's live lanes each once); device time warm
+    and after an L2 flush; for A, the stats build's steps over the active
+    lanes, the warp-use shares (lanes in the launch's order: the queue's,
+    or lane order without one; the live lanes in lane order with the
+    masked lanes idle; the live lanes packed in lane order), and the
+    launch's time with no lane live (a queued launch: its queue emptied),
+    over every lane without its queue, with only its slowest 1% of rays
+    live and through the builds that divide (its own check and time); for
+    B, `torch.index_select`'s time on the same lanes; for C, D and E (the
     shading), each launch bit for bit against its plain version, its time
     warm and after an L2 flush (kernel D's on its inputs restored before
     each call: it updates the ray state in place) and its plain version's.
@@ -3321,9 +3378,13 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
                 # the state kernel D updates in place, restored each call
                 work = _clone(args[0])
 
-                def before(work=work, state=args[0]):
+                def before(work=work, state=args[0], kw=kw):
                     for k, v in state.items():
                         work[k].copy_(v)
+                    # the queues it fills start empty each call
+                    for name in ("next_queue", "shadow_queue"):
+                        if kw.get(name) is not None:
+                            kw[name].count.zero_()
                 call_args = (work, *args[1:])
             else:
                 call_args = args
@@ -3371,31 +3432,57 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
         active = args[9]
         n = int(active.numel())
         keyed = kw.get("ray_key") is not None
+        queue = kw.get("queue")
         label = (f"level {i // per} "
                  f"{'scatter' if i % per == 0 else 'shadow'}"
                  f"{' keyed' if keyed else ''}")
+        # a queued launch writes only its queue's lanes (the live ones, in
+        # the queue's order); a launch without one, every lane in order
+        lanes = queued_lanes(queue, n, active.device)
+
+        def on(out):
+            return {k: v[lanes] for k, v in out.items()}
 
         def run(plain=False, **extra):
             fn = (tile_tracer.grid_hit_plain if plain
                   else tile_tracer.grid_hit_tiles)
             return fn(*args, **dict(kw, **extra))
 
-        got = run()
-        compare_exact(f"frame launch A {label}", got, run(plain=True), keys)
+        got = on(run())
+        compare_exact(f"frame launch A {label}", got, on(run(plain=True)),
+                      keys)
         n_step = run(stats=True)["n_step"]
+        if queue is not None and not torch.equal(
+                torch.sort(lanes).values,
+                torch.nonzero(active).reshape(-1)):
+            raise AssertionError(f"frame launch A {label}: the queue is not "
+                                 f"the launch's live lanes, each once")
         act = n_step[active].float()
         hits = int(got["found"].sum())
-        iters = int(n_step.sum())
-        bound, by = roofline.traverse_bound_ms(n, hits, iters, has_key=keyed)
+        iters = int(n_step[lanes].sum())
+        bound, by = roofline.traverse_bound_ms(int(lanes.numel()), hits,
+                                               iters, has_key=keyed)
         p99 = torch.quantile(act, 0.99).item() if act.numel() else 0.0
-        # the same launch with no ray live (the reads and writes of every
-        # lane), and with only its slowest 1% of rays live (what the longest
-        # chains of dependent steps add)
+        # the same launch with no ray live (without a queue: the reads and
+        # writes of every lane; with one: its queue emptied), with only its
+        # slowest 1% of rays live (what the longest chains of dependent
+        # steps add), and over every lane without a queue (the launch
+        # before the queues)
         tail = roofline.slowest_lanes(n_step, active)
 
         def run_live(live):
             return tile_tracer.grid_hit_tiles(*args[:9], live, *args[10:],
                                               **kw)
+
+        if queue is None:
+            def run_none():
+                return run_live(torch.zeros_like(active))
+        else:
+            empty = trace.LaneQueue(queue.lanes, torch.zeros_like(
+                queue.count))
+
+            def run_none():
+                return run(queue=empty)
 
         # the same launch through the builds that divide: the records at a
         # cell size of 0.3, no power of two
@@ -3407,18 +3494,23 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
             return fn(*odd, **kw)
 
         compare_exact(f"frame launch A {label}, dividing build",
-                      run_dividing(), run_dividing(plain=True), keys)
+                      on(run_dividing()), on(run_dividing(plain=True)), keys)
 
         row = dict(
-            launch=label, lanes=n, active=int(active.sum()), hits=hits,
+            launch=label, lanes=n, active=int(active.sum()),
+            queued=None if queue is None else int(lanes.numel()), hits=hits,
             mean_steps=act.mean().item() if act.numel() else 0.0,
-            p99_steps=p99, max_steps=int(n_step.max()),
-            warp_use_share=roofline.warp_use_share(n_step.cpu().numpy()),
+            p99_steps=p99, max_steps=int(n_step[lanes].max()),
+            warp_use_share=roofline.warp_use_share(
+                n_step[lanes].cpu().numpy()),
+            warp_use_share_lane_order=roofline.warp_use_share(
+                torch.where(active, n_step, 0).cpu().numpy()),
             warp_use_share_packed=roofline.warp_use_share(
                 n_step[active].cpu().numpy()),
             ms=device_ms(run, reps), ms_l2_flushed=device_ms(run, reps, flush),
-            ms_none_live=device_ms(
-                lambda: run_live(torch.zeros_like(active)), reps),
+            ms_none_live=device_ms(run_none, reps),
+            ms_all_lanes=(None if queue is None
+                          else device_ms(lambda: run(queue=None), reps)),
             tail_lanes=int(tail.sum()),
             ms_tail_only=device_ms(lambda: run_live(tail), reps),
             ms_dividing=device_ms(run_dividing, reps),
@@ -3429,23 +3521,27 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
                           for k, v in row.items()})
     for i, (args, kw) in enumerate(cap_b):
         mats, idx = args
-        got = torch.stack(lookup.table_lookup(mats, idx))
-        lib = torch.index_select(mats, 1, idx)
-        if not (torch.equal(got, lookup._table_lookup_plain(mats, idx))
+        queue = kw.get("queue")
+        lanes = queued_lanes(queue, idx.numel(), idx.device)
+        got = torch.stack(lookup.table_lookup(mats, idx, **kw))[:, lanes]
+        sub = idx[lanes]
+        lib = torch.index_select(mats, 1, sub)
+        if not (torch.equal(got, lookup._table_lookup_plain(mats, sub))
                 and torch.equal(got, lib)):
             raise AssertionError(f"kernel B on frame launch {i} differs from "
                                  f"its plain version or index_select")
         bound, by = roofline.bound_ms(roofline.lookup_bytes(
-            int(idx.numel()), *mats.shape))
+            int(lanes.numel()), *mats.shape))
         row = dict(
             launch=f"level {i}", lanes=int(idx.numel()),
-            ms=device_ms(lambda: lookup.table_lookup(mats, idx), reps),
-            ms_l2_flushed=device_ms(lambda: lookup.table_lookup(mats, idx),
-                                    reps, flush),
-            library_ms=device_ms(lambda: torch.index_select(mats, 1, idx),
+            queued=None if queue is None else int(lanes.numel()),
+            ms=device_ms(lambda: lookup.table_lookup(mats, idx, **kw), reps),
+            ms_l2_flushed=device_ms(
+                lambda: lookup.table_lookup(mats, idx, **kw), reps, flush),
+            library_ms=device_ms(lambda: torch.index_select(mats, 1, sub),
                                  reps),
             library_ms_l2_flushed=device_ms(
-                lambda: torch.index_select(mats, 1, idx), reps, flush),
+                lambda: torch.index_select(mats, 1, sub), reps, flush),
             bound_ms=bound, bound_by=by)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows["B"].append(row)
@@ -4262,6 +4358,7 @@ def ptxas_summary(text):
                           r"Lb([01])E", m[1])
             name = (f"A {_build_name(t[1] == '1', t[2] == '1', t[3] == '1')}"
                     f"{' pow2' if t[4] == '1' else ''}"
+                    f"{' queued' if '5Queue' in m[1] else ''}"
                     if t else "B aligned" if "lookup_kernelILb1E" in m[1]
                     else "B" if "lookup_kernel" in m[1]
                     else "C" if "camera_rays_kernel" in m[1]

@@ -30,6 +30,7 @@ from zig_vulkan_tpu_torch.engine import engine as tengine
 from zig_vulkan_tpu_torch.engine import step as tstep
 from zig_vulkan_tpu_torch.models import scenes as tscenes
 from zig_vulkan_tpu_torch.ops import edit as tedit
+from zig_vulkan_tpu_torch.ops import shade as tshade
 from zig_vulkan_tpu_torch.ops import tile_tracer as ttile
 from zig_vulkan_tpu_torch.ops import trace as ttrace
 from zig_vulkan_tpu_torch.parallel import mesh as pmesh
@@ -220,7 +221,9 @@ def test_the_checker_finds_boolean_mask_indexing():
 @pytest.mark.parametrize("denoise", [False, True])
 def test_shard_band_bodies_make_no_host_sync(monkeypatch, denoise):
     """A shard's trace and post-process bodies, the kernel launches aside
-    (their plain versions loop until every ray is done)."""
+    (their plain versions loop until every ray is done, and those of
+    kernels A, B and D read and fill the bounce levels' lane queues on the
+    host)."""
     sc = tscenes.flat_test_scene(dim=8)
     st = sc.grid.static
     mesh = pmesh.make_mesh(["cpu"] * 2)
@@ -238,6 +241,9 @@ def test_shard_band_bodies_make_no_host_sync(monkeypatch, denoise):
     with HostSyncs() as mode:
         monkeypatch.setattr(ttile, "grid_hit_tiles",
                             mode.kernel(ttile.grid_hit_tiles))
+        monkeypatch.setattr(ttrace, "table_lookup",
+                            mode.kernel(ttrace.table_lookup))
+        monkeypatch.setattr(tshade, "shade", mode.kernel(tshade.shade))
         bands = [step.plan.trace(i, pc, tables, arrays.material_indices,
                                  mats) for i in range(2)]
         pieces = [bands[j][r0 - 16 * j:r1 - 16 * j]

@@ -463,7 +463,10 @@ def test_zones_are_no_ops_unless_enabled():
     assert set(snap["zones"]) == {"build_tables", "step_lookup",
                                   "push_constants", "render_step",
                                   "device_sync", "draw"}
-    assert snap["counters"] == {"host_waits": 1}  # the records' first build
+    # the records' first build, and the frame's kernel A launches: two
+    # levels without the sun, the second queued
+    assert snap["counters"] == {"host_waits": 1, "trace_launches": 2,
+                                "trace_queued": 1}
 
 
 def test_trace_session_writes_the_zones(tmp_path):

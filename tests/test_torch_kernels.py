@@ -65,9 +65,10 @@ def test_shading_args_layouts_match_the_c_structs():
     assert c.base.offset == 160 and c.sun_p.offset == 164
     assert c.radius.offset == 176 and ctypes.sizeof(c) == 184
     assert d.found.offset == 0 and d.radius_ptr.offset == 40 * 8
-    assert d.n.offset == 328 and d.sun.offset == 336
-    assert d.sun_c.offset == 352 and d.radius.offset == 364
-    assert ctypes.sizeof(d) == 368
+    assert d.shadow_count.offset == 44 * 8
+    assert d.n.offset == 360 and d.sun.offset == 368
+    assert d.sun_c.offset == 384 and d.radius.offset == 396
+    assert ctypes.sizeof(d) == 400
     assert e.out.offset == 80 and e.m.offset == 88 and e.gamma.offset == 104
     assert e.sun_c.offset == 108 and ctypes.sizeof(e) == 120
 

@@ -87,7 +87,8 @@ class ShadeArgs(ctypes.Structure):
         "loop_count", "bouncing", "cr", "cg", "cb",
         "pr", "pg", "pb", "prev_occluded",
         "active", "shx", "shy", "shz", "key", "tx", "ty", "tz",
-        "sun_p_ptr", "sun_c_ptr", "radius_ptr") + [
+        "sun_p_ptr", "sun_c_ptr", "radius_ptr", "next_queue", "next_count",
+        "shadow_queue", "shadow_count") + [
         ("n", ctypes.c_int64),
         ("sun", ctypes.c_int),
         ("sun_p", ctypes.c_float * 3),
@@ -151,10 +152,14 @@ _SIGNATURES = {
     # params, tables, material_indices, ox, oy, oz, dx, dy, dz, ray_key
     # (NULL = no key), active, sun targets tx, ty, tz (NULL = no shadow
     # ray), found, t, px, py, pz, nx, ny, nz, index, occluded (with the
-    # targets), n_step (NULL = no stats), stream
-    "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 25,
-    # tables, n_tables, size, idx, n, out, stream
-    "zvt_table_lookup": [_P, _I32, _I32, _P, _I64, _P, _P],
+    # targets), n_step (NULL = no stats), queue and its count (NULL = every
+    # lane), stream
+    "zvt_traverse": [ctypes.POINTER(TraceParams)] + [_P] * 27,
+    # tables, n_tables, size, idx, n, out, queue and its count (NULL = every
+    # lane), stream
+    "zvt_table_lookup": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
+    # device pointer, bytes, stream
+    "zvt_zero": [_P, _I64, _P],
     # args, stream
     "zvt_camera_rays": [ctypes.POINTER(CameraArgs), _P],
     "zvt_shade": [ctypes.POINTER(ShadeArgs), _P],

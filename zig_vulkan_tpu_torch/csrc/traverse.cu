@@ -37,7 +37,19 @@
 // lanes into full warps), a pass that queues the live lanes first, a
 // 16-byte hot record plane, prefetching the next cell's record on brick
 // entry and branch-free DDA steps were built and measured on the frame's
-// launches and lost or tied (PERF.md, Findings). The TPU kernel's region
+// launches and lost or tied (PERF.md, Findings).
+//
+// A queue built inside this kernel cannot spare a launch its masked lanes,
+// as every lane's outputs are read after it. So the frame's launches after
+// its first take a queue that kernel D fills (csrc/shade.cu): each build
+// has an overload over a queue, one thread a queued lane, which reads and
+// writes that lane's entries only. Its grid is the whole wavefront's,
+// since the queue's length is known only on the card: the blocks past the
+// count exit at once, ~0.6 ns a block on an H100, so an empty queue costs
+// 10.5 us at 1,179,648 lanes where a launch with no lane live cost 32 us.
+// One resident wave striding the queue costs 5.5 us empty, but 9-26% more
+// than this grid on the frame's queues of 20-88% of the lanes (PERF.md,
+// Findings). The TPU kernel's region
 // blocks, region vote, pixel tiles and bin sorts existed because a TPU has
 // no fast per-lane gather and are left out.
 //
@@ -341,6 +353,13 @@ struct Buffers {
   int32_t* n_step;  // STATS builds
 };
 
+// A queue of lanes (kernel D's appends): lane ids, and their count on the
+// card.
+struct Queue {
+  const int32_t* lanes;
+  const int32_t* count;
+};
+
 // Lane i from start to end: its ray, the traversal (none when !LIVE: the
 // twin's values of a masked-off lane, whose loop never runs), the epilogue
 // (normal from the face code, hit point, material byte) and, in the SHADOW
@@ -407,25 +426,45 @@ traverse_kernel(TraceParams p, Inverses inv, Buffers b) {
     run_lane<SHADOW, STATS, SKIP, POW2, false>(p, inv, b, i);
 }
 
+// The same build over a queue: thread j traces lane q.lanes[j] for j below
+// the queue's count and leaves every lane outside the queue as it was.
+// The grid is the whole wavefront's, as the queue's length is known only
+// on the card; a block past the count exits at once.
+template <bool SHADOW, bool STATS, bool SKIP, bool POW2>
+__global__ void __launch_bounds__(THREADS, SHADOW ? 7 : 8)
+traverse_kernel(TraceParams p, Inverses inv, Buffers b, Queue q) {
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= *q.count) return;
+  const int i = q.lanes[j];
+  if (b.active[i])
+    run_lane<SHADOW, STATS, SKIP, POW2, true>(p, inv, b, i);
+  else
+    run_lane<SHADOW, STATS, SKIP, POW2, false>(p, inv, b, i);
+}
+
 template <bool SHADOW, bool STATS, bool SKIP, bool POW2>
 void launch(const TraceParams& p, const Inverses& inv, const Buffers& b,
-            cudaStream_t s) {
+            const Queue& q, cudaStream_t s) {
   const unsigned blocks = (unsigned)((p.n + THREADS - 1) / THREADS);
-  traverse_kernel<SHADOW, STATS, SKIP, POW2><<<blocks, THREADS, 0, s>>>(
-      p, inv, b);
+  if (q.lanes == nullptr)
+    traverse_kernel<SHADOW, STATS, SKIP, POW2><<<blocks, THREADS, 0, s>>>(
+        p, inv, b);
+  else
+    traverse_kernel<SHADOW, STATS, SKIP, POW2><<<blocks, THREADS, 0, s>>>(
+        p, inv, b, q);
 }
 
 template <bool SKIP, bool POW2>
 void launch(const TraceParams& p, const Inverses& inv, const Buffers& b,
-            bool shadow, bool stats, cudaStream_t s) {
+            const Queue& q, bool shadow, bool stats, cudaStream_t s) {
   if (shadow && stats)
-    launch<true, true, SKIP, POW2>(p, inv, b, s);
+    launch<true, true, SKIP, POW2>(p, inv, b, q, s);
   else if (shadow)
-    launch<true, false, SKIP, POW2>(p, inv, b, s);
+    launch<true, false, SKIP, POW2>(p, inv, b, q, s);
   else if (stats)
-    launch<false, true, SKIP, POW2>(p, inv, b, s);
+    launch<false, true, SKIP, POW2>(p, inv, b, q, s);
   else
-    launch<false, false, SKIP, POW2>(p, inv, b, s);
+    launch<false, false, SKIP, POW2>(p, inv, b, q, s);
 }
 
 // x a power of two whose reciprocal is a normal float
@@ -446,6 +485,7 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
                             void* found, void* t, void* px, void* py,
                             void* pz, void* nx, void* ny, void* nz,
                             void* index, void* occluded, void* n_step,
+                            const void* queue, const void* count,
                             void* stream) {
   const TraceParams p = *params;
   const Buffers b{(const int4*)tables, (const uint8_t*)material_indices,
@@ -456,9 +496,12 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
                   (bool*)found, (float*)t, (float*)px, (float*)py,
                   (float*)pz, (float*)nx, (float*)ny, (float*)nz,
                   (int32_t*)index, (bool*)occluded, (int32_t*)n_step};
+  const Queue q{(const int32_t*)queue, (const int32_t*)count};
   const bool shadow = tx != nullptr;
   const bool stats = n_step != nullptr;
   if (shadow && (ty == nullptr || tz == nullptr || occluded == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((queue == nullptr) != (count == nullptr))
     return (int)cudaErrorInvalidValue;
   if (p.n > INT32_MAX - THREADS) return (int)cudaErrorInvalidValue;
   if (p.n > 0) {
@@ -466,13 +509,13 @@ extern "C" int zvt_traverse(const TraceParams* params, const void* tables,
     const bool pow2 = power_of_two(p.scale) && power_of_two(p.voxel_scale);
     cudaStream_t s = (cudaStream_t)stream;
     if (p.use_skip && pow2)
-      launch<true, true>(p, inv, b, shadow, stats, s);
+      launch<true, true>(p, inv, b, q, shadow, stats, s);
     else if (p.use_skip)
-      launch<true, false>(p, inv, b, shadow, stats, s);
+      launch<true, false>(p, inv, b, q, shadow, stats, s);
     else if (pow2)
-      launch<false, true>(p, inv, b, shadow, stats, s);
+      launch<false, true>(p, inv, b, q, shadow, stats, s);
     else
-      launch<false, false>(p, inv, b, shadow, stats, s);
+      launch<false, false>(p, inv, b, q, shadow, stats, s);
   }
   return (int)cudaGetLastError();
 }

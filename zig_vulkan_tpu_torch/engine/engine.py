@@ -66,7 +66,10 @@ edit graphs mark their span (edit_graph) and the insert's field rebuild
 (edit_field) on the card; a temporal frame's carry or reset of the running
 mean is the zone temporal, counted under temporal_frames and
 temporal_resets, and its frame graph marks the mean (temporal) on the
-card. `utils.profiling` lists them all.
+card; each frame counts kernel A's launches (trace_launches) and those
+that took a queue of live lanes (trace_queued), as the frame's body
+reported them (a replay what its capture's body did). `utils.profiling`
+lists them all.
 """
 
 from __future__ import annotations
@@ -274,14 +277,16 @@ class VoxelRT:
         tables = self._tables
         material_indices = self.arrays.material_indices
         mats = self.mats
+        report = {}  # the body's kernel A counts, as its last run took them
 
         def body(pc, accum):
+            report.clear()
             img = trace_from_pc(
                 pc, static, tables, material_indices, mats,
                 key.internal_width, key.internal_height,
                 key.samples_per_pixel, key.max_bounce, key.sun_enabled,
                 max_steps=key.max_steps, shadow_probe=key.sun_in_kernel,
-                use_skip=key.empty_skip)
+                use_skip=key.empty_skip, report=report)
             if accum is not None:
                 # running mean over pose-static frames, in place, between
                 # the `temporal` device marks
@@ -301,7 +306,8 @@ class VoxelRT:
 
         accum_shape = ((key.internal_height, key.internal_width, 3)
                        if key.temporal else None)
-        return Step(key, body, self.device, accum_shape, self._graphs)
+        return Step(key, body, self.device, accum_shape, self._graphs,
+                    report)
 
     def _push_constants(self) -> np.ndarray:
         """Per-frame values packed into one f32[24] array, the JAX engine's

@@ -86,7 +86,7 @@ def trace_from_pc(pc, static, tables, material_indices, mats, width, height,
     """`ops.trace.render_rows` with the camera, the sun and the sample base
     read from the device push constants `pc` (`pack_frame`'s layout);
     `rows` are its keyword arguments (max_steps, shadow_probe, use_skip, a
-    band's row0 and rows)."""
+    band's row0 and rows, report)."""
     return trace_mod.render_rows(
         static, tables, material_indices, mats,
         trace_mod.basis_views(pc[0:12]), width, height, spp, max_bounce,
@@ -263,11 +263,16 @@ class Step:
     graph over them, captured into `pool` (a `GraphPool`, or None for a
     pool of its own). `__call__` runs the frame through the graph (the body
     on the CPU); `op_by_op` calls the body directly. Both return a fresh
-    image: later frames do not overwrite it."""
+    image: later frames do not overwrite it. `report` is a dict of
+    counters that the body fills each time it runs (kernel A's
+    `trace_launches` and `trace_queued`): each frame adds them to the
+    profiling counters, a replay those of the capture's body."""
 
-    def __init__(self, key, body, device, accum_shape=None, pool=None):
+    def __init__(self, key, body, device, accum_shape=None, pool=None,
+                 report=None):
         self.key = key
         self.body = body
+        self.report = {} if report is None else report
         self.pc = torch.zeros(PUSH_CONSTANTS, dtype=torch.float32,
                               device=device)
         self.accum = (None if accum_shape is None else
@@ -276,10 +281,18 @@ class Step:
         self.graphed = GraphedCall(body, self.pc, self.accum, pool=pool)
 
     def __call__(self):
-        return self.graphed().clone()
+        image = self.graphed().clone()
+        self._count()
+        return image
 
     def op_by_op(self):
-        return self.body(self.pc, self.accum).clone()
+        image = self.body(self.pc, self.accum).clone()
+        self._count()
+        return image
+
+    def _count(self):
+        for name, n in self.report.items():
+            profiling.count(name, n)
 
 
 class EditStep:

@@ -19,12 +19,13 @@ their counterparts, one hand-written CUDA kernel each, with the wrappers
   tone map, and the samples' sum, division and square root.
 
 The module has no JAX counterpart. A level runs A scatter -> B -> D -> A
-shadow. With a shadow launch (the sun on, not traced in kernel A), a
-level's lit term needs that launch's `occluded`, so D writes it as a
-pending term that the next level's D (or E, after the last level) adds,
-where the sun ray was not occluded, before its own terms: each lane's
-float adds keep the order of `_ray_color_soa` (colour + emitted, then +
-lit, level after level).
+shadow; D also fills the queues of live lanes that the later launches of
+A and B take (`ops.trace._trace_levels`, `zeroed_counts`). With a shadow
+launch (the sun on, not traced in kernel A), a level's lit term needs that
+launch's `occluded`, so D writes it as a pending term that the next
+level's D (or E, after the last level) adds, where the sun ray was not
+occluded, before its own terms: each lane's float adds keep the order of
+`_ray_color_soa` (colour + emitted, then + lit, level after level).
 
 The ray state is a dict of f32[N] (int32, bool) tensors (`new_state`):
 origin and direction (`RAY_KEYS`), `internal_refl`, `ignore_type`,
@@ -157,10 +158,35 @@ camera_rays.launches = 0
 
 # -- kernel D: one bounce level's shading ---------------------------------------
 
+def zeroed_counts(k: int, device) -> torch.Tensor:
+    """int32[k] zeros on `device`: the count slots of a wavefront's lane
+    queues. On a card one memset (a memset node in a captured graph), no
+    host value."""
+    counts = torch.empty(k, dtype=torch.int32, device=device)
+    if counts.device.type != "cuda":
+        return counts.zero_()
+    lib = _build.library()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device).cuda_stream
+        _build.check(lib.zvt_zero(counts.data_ptr(), 4 * k, stream),
+                     "zvt_zero")
+    return counts
+
+
+def _append(queue, take) -> None:
+    """Append the lanes where `take` to `queue`, in lane order (the
+    plain version of kernel D's appends)."""
+    ids = torch.nonzero(take).reshape(-1).to(torch.int32)
+    c = int(queue.count[0])
+    queue.lanes[c:c + ids.numel()] = ids
+    queue.count[0] = c + ids.numel()
+
+
 def shade_plain(state: dict, hit: dict, looked, mode: int,
                 sun_position=None, sun_color=None, sun_radius=None,
                 prev_occluded=None, next_key: bool = False,
-                next_targets: bool = False) -> dict:
+                next_targets: bool = False, next_queue=None,
+                shadow_queue=None) -> dict:
     """The plain torch version of kernel D (the body of a bounce level of
     `_ray_color_soa`, brick_raytracer.comp:203-259); see `shade`."""
     s = state
@@ -288,12 +314,17 @@ def shade_plain(state: dict, hit: dict, looked, mode: int,
             _radius(sun_radius))))
     for k, v in new.items():
         s[k].copy_(v)
+    if next_queue is not None:
+        _append(next_queue, bouncing)
+    if shadow_queue is not None:
+        _append(shadow_queue, active)
     return out
 
 
 def shade(state: dict, hit: dict, looked, mode: int, sun_position=None,
           sun_color=None, sun_radius=None, prev_occluded=None,
-          next_key: bool = False, next_targets: bool = False) -> dict:
+          next_key: bool = False, next_targets: bool = False,
+          next_queue=None, shadow_queue=None) -> dict:
     """Shade one bounce level: update `state` (`new_state`'s dict) in place
     from kernel A's hit `hit` (found, px..pz, nx..nz; `occluded` with
     SUN_PROBE) and kernel B's `looked` = (albedo r, g, b, mtype, type_data),
@@ -309,15 +340,29 @@ def shade(state: dict, hit: dict, looked, mode: int, sun_position=None,
     launch's mask `active` (bool) and directions `shx, shy, shz`; with
     `next_key` the next level's dielectric key `key` (the ir of a refracted
     ray, NaN otherwise); with `next_targets` the next level's sun targets
-    `tx, ty, tz`."""
+    `tx, ty, tz`.
+
+    `next_queue` and `shadow_queue` (`ops.trace.LaneQueue`s, or None)
+    gain the lanes left bouncing and (SUN_DEFERRED) the lanes of the
+    shadow mask `active`: the next scatter launch's and this level's shadow
+    launch's lanes. Each lane is appended once, after the count's value;
+    the plain version appends in lane order, the kernel in lane order
+    within each block of 256 lanes. Since the launches read only their
+    queue's lanes, the kernel then writes `shx, shy, shz` only for the
+    lanes of the shadow queue, and `key` and `tx, ty, tz` only for those
+    of the next queue (the plain version writes every lane)."""
+    if shadow_queue is not None and mode != SUN_DEFERRED:
+        raise ValueError("shade: a shadow queue comes with a shadow launch")
     dev = state["ox"].device
     if dev.type == "cpu":
         return shade_plain(state, hit, looked, mode, sun_position, sun_color,
-                           sun_radius, prev_occluded, next_key, next_targets)
+                           sun_radius, prev_occluded, next_key, next_targets,
+                           next_queue, shadow_queue)
     if dev.type != "cuda":
         raise ValueError(f"shade: unsupported device {dev}")
     return _launch_shade(state, hit, looked, mode, sun_position, sun_color,
-                         sun_radius, prev_occluded, next_key, next_targets)
+                         sun_radius, prev_occluded, next_key, next_targets,
+                         next_queue, shadow_queue)
 
 
 shade.launches = 0
@@ -459,7 +504,8 @@ def _launch_camera(cam, width, height, spp, sample_base, row0, rows, sun):
 
 
 def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
-                  sun_radius, prev_occluded, next_key, next_targets):
+                  sun_radius, prev_occluded, next_key, next_targets,
+                  next_queue, shadow_queue):
     dev = state["ox"].device
     n = state["ox"].shape[0]
     for k, dtype in _STATE_TYPES.items():
@@ -486,6 +532,11 @@ def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
     if next_targets and mode != SUN_PROBE:
         raise ValueError("shade: next targets are for the sun_in_kernel "
                          "build")
+    for name, q in (("next_queue", next_queue),
+                    ("shadow_queue", shadow_queue)):
+        if q is not None:
+            _check("shade", f"{name}.lanes", q.lanes, torch.int32, n, dev)
+            _check("shade", f"{name}.count", q.count, torch.int32, 1, dev)
 
     out = {}
     if mode == SUN_DEFERRED:
@@ -513,6 +564,12 @@ def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
         a.pr, a.pg, a.pb = (state[k].data_ptr() for k in PENDING_KEYS)
     if prev_occluded is not None:
         a.prev_occluded = prev_occluded.data_ptr()
+    if next_queue is not None:
+        a.next_queue = next_queue.lanes.data_ptr()
+        a.next_count = next_queue.count.data_ptr()
+    if shadow_queue is not None:
+        a.shadow_queue = shadow_queue.lanes.data_ptr()
+        a.shadow_count = shadow_queue.count.data_ptr()
     if mode != SUN_OFF:
         a.sun_p_ptr, a.sun_p[:] = _frame_value("shade", "sun_position",
                                                sun_position, 3, dev)

@@ -28,6 +28,11 @@ use_skip=False)` (an XLA wavefront in the JAX package, where the Pallas
 kernel always skips), as the `NO_SKIP` variant of each build above
 ("exact", "exact+shadow", "exact+stats", "exact+shadow+stats").
 
+Every build takes a queue of lanes (`ops.trace.LaneQueue`, filled by
+kernel D): the launch then traces only the queued lanes and leaves the
+others' outputs unwritten. The frame's bounce levels pass one after their
+first scatter launch; every other caller passes none and gets every lane.
+
 For tensors on the CPU the wrapper runs the plain torch version,
 `grid_hit_plain`. For CUDA tensors it launches kernel A or raises.
 """
@@ -55,10 +60,30 @@ def _build_name(shadow: bool, stats: bool, use_skip: bool = True) -> str:
 def grid_hit_plain(static: GridStatic, tables, material_indices,
                    ox, oy, oz, dx, dy, dz, active, ray_key=None,
                    max_steps: int = 768, shadow_targets=None,
-                   stats: bool = False, use_skip: bool = True):
+                   stats: bool = False, use_skip: bool = True, queue=None):
     """The plain torch version of every build of kernel A: the traversal
     twin `ops.trace._grid_hit_soa`, run a second time for the sun rays of
-    the lanes that hit when `shadow_targets` is given."""
+    the lanes that hit when `shadow_targets` is given. With a `queue` it
+    runs on the queued lanes, gathered, and scatters their results back;
+    the other lanes' outputs are 0 (the kernel leaves them unwritten)."""
+    if queue is not None:
+        lanes = queue.host_lanes()
+
+        def pick(a):
+            return None if a is None else a[lanes]
+
+        sub = grid_hit_plain(
+            static, tables, material_indices,
+            *(a[lanes] for a in (ox, oy, oz, dx, dy, dz)), active[lanes],
+            ray_key=pick(ray_key), max_steps=max_steps,
+            shadow_targets=(None if shadow_targets is None
+                            else tuple(pick(a) for a in shadow_targets)),
+            stats=stats, use_skip=use_skip)
+        out = {}
+        for k, v in sub.items():
+            out[k] = torch.zeros(ox.shape[0], dtype=v.dtype, device=v.device)
+            out[k][lanes] = v
+        return out
     out = _grid_hit_soa(static, tables, material_indices, ox, oy, oz,
                         dx, dy, dz, active, ray_key=ray_key,
                         max_steps=max_steps, stats=stats, use_skip=use_skip)
@@ -75,7 +100,7 @@ def grid_hit_plain(static: GridStatic, tables, material_indices,
 def grid_hit_tiles(static: GridStatic, tables, material_indices,
                    ox, oy, oz, dx, dy, dz, active, ray_key=None,
                    max_steps: int = 768, shadow_targets=None,
-                   stats: bool = False, use_skip: bool = True):
+                   stats: bool = False, use_skip: bool = True, queue=None):
     """First voxel hit for a wavefront of rays.
 
     Args:
@@ -93,6 +118,9 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
         first traversal.
       use_skip: False traces the exact cell-by-cell DDA (the `exact`
         builds), which never reads the records' distance lane.
+      queue: optional `ops.trace.LaneQueue`: only its lanes are traced
+        (each as without a queue, `active` included), and only their
+        entries of the outputs are written.
 
     Returns dict(found bool, t, px, py, pz, nx, ny, nz f32, index int32),
     each of shape [N].
@@ -102,11 +130,11 @@ def grid_hit_tiles(static: GridStatic, tables, material_indices,
         return grid_hit_plain(static, tables, material_indices, *rays,
                               active, ray_key=ray_key, max_steps=max_steps,
                               shadow_targets=shadow_targets, stats=stats,
-                              use_skip=use_skip)
+                              use_skip=use_skip, queue=queue)
     if tables.device.type != "cuda":
         raise ValueError(f"grid_hit_tiles: unsupported device {tables.device}")
     return _launch(static, tables, material_indices, rays, active, ray_key,
-                   max_steps, shadow_targets, stats, use_skip)
+                   max_steps, shadow_targets, stats, use_skip, queue)
 
 
 # kernel A launches, in all and per build (_BUILDS); counted only where the
@@ -131,7 +159,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def _launch(static, tables, material_indices, rays, active, ray_key,
-            max_steps, shadow_targets, stats, use_skip):
+            max_steps, shadow_targets, stats, use_skip, queue):
     dev = tables.device
     n = rays[0].shape[0]
     _check("tables", tables, torch.int32, (static.cells, 8), dev)
@@ -151,6 +179,9 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
             raise ValueError("grid_hit_tiles: shadow_targets is (tx, ty, tz)")
         for name, a in zip(("tx", "ty", "tz"), shadow_targets):
             _check(name, a, torch.float32, (n,), dev)
+    if queue is not None:
+        _check("queue.lanes", queue.lanes, torch.int32, (n,), dev)
+        _check("queue.count", queue.count, torch.int32, (1,), dev)
 
     k = trace_constants(static)
     p = _build.TraceParams()
@@ -193,7 +224,10 @@ def _launch(static, tables, material_indices, rays, active, ray_key,
             *(a.data_ptr() for a in rays), ptr(ray_key), active.data_ptr(),
             *(ptr(a) for a in (shadow_targets or (None, None, None))),
             *(out[name].data_ptr() for name in _OUT_FIELDS),
-            ptr(out.get("occluded")), ptr(out.get("n_step")), stream)
+            ptr(out.get("occluded")), ptr(out.get("n_step")),
+            *((None, None) if queue is None
+              else (queue.lanes.data_ptr(), queue.count.data_ptr())),
+            stream)
     _build.check(status, "zvt_traverse")
     grid_hit_tiles.launches += 1
     grid_hit_tiles.build_launches[_build_name(shadow, stats, use_skip)] += 1

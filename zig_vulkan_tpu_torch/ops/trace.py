@@ -14,6 +14,10 @@ through
 4. the sun-shadow ray: a second traversal, or traced by the same kernel A
    thread with `shadow_probe`.
 
+After the first level's scatter launch, every launch of kernels A and B
+takes a queue of the live lanes that kernel D filled (`LaneQueue`), not
+the whole wavefront.
+
 The camera rays before the first level (kernel C) and the background,
 tone map and sample resolve after the last (kernel E) are `ops.shade`'s
 too; this module holds the traversal's plain version, the scene tables and
@@ -35,6 +39,8 @@ float32 tensor operand rounds as the float32 host value did.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -599,41 +605,83 @@ def _rand_vec3_range_soa(cox, coy, lo, hi):
     return v[:, 0], v[:, 1], v[:, 2]
 
 
+class LaneQueue(NamedTuple):
+    """A queue of live lanes on a wavefront's device: `lanes`, int32[N],
+    holds lane ids in its first `count[0]` entries; `count`, int32[1] (a
+    view of one frame's count slots), is what kernel D's appends advance.
+    Kernels A and B read the count on the card; a plain twin, on CPU
+    tensors only, reads it on the host."""
+
+    lanes: torch.Tensor
+    count: torch.Tensor
+
+    def host_lanes(self) -> torch.Tensor:
+        """The queued lane ids, int64: the plain twins' gather index."""
+        return self.lanes[:int(self.count[0])].long()
+
+
 def _trace_levels(static: GridStatic, tables, material_indices, mats,
                   state: dict, max_bounce: int, mode: int, sun,
-                  targets=None, max_steps: int = 768, use_skip: bool = True):
+                  targets=None, max_steps: int = 768, use_skip: bool = True,
+                  report=None):
     """The bounce levels of a wavefront: per level kernel A's scatter
     launch, kernel B's material lookup, kernel D's shading (`ops.shade`,
     the ray `state` updated in place) and, with SUN_DEFERRED, kernel A's
     shadow launch. `sun` = (position, colour, radius); `targets` are the
     first level's sun targets (SUN_PROBE). Returns the last shadow
-    launch's hits (SUN_DEFERRED with a level), else None."""
+    launch's hits (SUN_DEFERRED with a level), else None.
+
+    Every lane is live at the first scatter launch. After it, kernel D
+    appends the lanes it leaves bouncing to the next level's scatter queue
+    and the lanes it marks active to its level's shadow queue
+    (`LaneQueue`s over one int32[N] buffer each and one count slot a level
+    and queue, zeroed at the start), and each later launch of kernels A and
+    B takes its queue: the lanes outside it are neither read nor written.
+    `report`, a dict, gains `trace_launches` (kernel A's launches) and
+    `trace_queued` (those that took a queue)."""
     from . import shade
     from .tile_tracer import grid_hit_tiles  # imports this module
 
-    key = occluded = None
+    n, dev = state["ox"].shape[0], state["ox"].device
+    deferred = mode == shade.SUN_DEFERRED
+    counts = shade.zeroed_counts(2 * max_bounce, dev)
+    scatter = (torch.empty(n, dtype=torch.int32, device=dev)
+               if max_bounce > 1 else None)
+    shadow = torch.empty(n, dtype=torch.int32, device=dev) if deferred else None
+    launches = queued = 0
+    key = occluded = queue = None
     for level in range(max_bounce):
         last = level == max_bounce - 1
         h = grid_hit_tiles(static, tables, material_indices,
                            *(state[k] for k in shade.RAY_KEYS),
                            state["bouncing"], ray_key=key,
                            max_steps=max_steps, shadow_targets=targets,
-                           use_skip=use_skip)
-        looked = table_lookup(mats, h["index"])
+                           use_skip=use_skip, queue=queue)
+        launches, queued = launches + 1, queued + (queue is not None)
+        looked = table_lookup(mats, h["index"], queue=queue)
+        queue = None if last else LaneQueue(
+            scatter, counts[2 * level:2 * level + 1])
+        shadow_queue = LaneQueue(
+            shadow, counts[2 * level + 1:2 * level + 2]) if deferred else None
         out = shade.shade(state, h, looked, mode, *sun,
                           prev_occluded=occluded, next_key=not last,
-                          next_targets=mode == shade.SUN_PROBE and not last)
+                          next_targets=mode == shade.SUN_PROBE and not last,
+                          next_queue=queue, shadow_queue=shadow_queue)
         # dielectric-skip state exists only after a refraction: the first
         # level has no key
         key = out.get("key")
         targets = (tuple(out[k] for k in shade.TARGET_KEYS)
                    if "tx" in out else None)
-        if mode == shade.SUN_DEFERRED:
+        if deferred:
             occluded = grid_hit_tiles(
                 static, tables, material_indices, h["px"], h["py"],
                 h["pz"], *(out[k] for k in shade.SHADOW_KEYS),
                 out["active"], max_steps=max_steps,
-                use_skip=use_skip)["found"]
+                use_skip=use_skip, queue=shadow_queue)["found"]
+            launches, queued = launches + 1, queued + 1
+    if report is not None:
+        report["trace_launches"] = report.get("trace_launches", 0) + launches
+        report["trace_queued"] = report.get("trace_queued", 0) + queued
     return occluded
 
 
@@ -745,7 +793,7 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
                 max_bounce: int, sun_position, sun_color, sun_radius,
                 sun_enabled: bool, max_steps: int = 768,
                 sample_base: float = 0.0, shadow_probe: bool = False,
-                use_skip: bool = True, row0=0, rows=None):
+                use_skip: bool = True, row0=0, rows=None, report=None):
     """Render a band of image rows (the sharding unit; the whole frame by
     default): f32[rows, width, 3], tone-mapped and gamma'd
     (brick_raytracer.comp:153-178; zig_vulkan_tpu/ops/trace.py:1382-1470).
@@ -769,7 +817,8 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     camera basis (`cam`, four f32[3]), `sun_position` and `sun_color`
     (f32[3]), `sun_radius` and `sample_base` (0-d). Then nothing on the
     path reads them back or copies from the host (the engine's compiled
-    step passes views of its push constants)."""
+    step passes views of its push constants). `report` (a dict) gains the
+    levels' kernel A launch counts (`_trace_levels`)."""
     from . import shade
 
     w, h = int(width), int(height)
@@ -784,7 +833,7 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
         static, tables, material_indices, mats, state, max_bounce, mode,
         (sun_position, sun_color, sun_radius),
         tuple(rays[k] for k in shade.TARGET_KEYS) if probe else None,
-        max_steps, use_skip)
+        max_steps, use_skip, report)
     color = shade.resolve(state, spp, sun_color if sun_enabled else None,
                           occluded)
     return color.reshape(rows, w, 3)
