@@ -244,7 +244,12 @@ class Config5:
         camera through `build_sharded_step` over `devices` (default: the
         configuration's), the scene and the records replicated once: the
         step's graphs, captured on the first call. Its attribute `op_by_op`
-        renders the same frame through the same bodies op by op."""
+        renders the same frame through the same bodies op by op.
+
+        The step's `max_bounce=1` is the one level of `build_config5`'s
+        `max_bounce=0`: the step takes the camera's internal count of
+        levels, the configuration the user's, and the camera adds one
+        (`core/camera.py:89-90`)."""
         rt = self.rt
         m = pmesh.make_mesh(self.devices if devices is None else devices)
         step = pmesh.build_sharded_step(
