@@ -44,7 +44,12 @@ a replayed frame are counted in a `torch.profiler` trace of the card
    bit), kernel B's
    `torch.index_select` time, the plain versions' times of C, D, E and F
    (kernel D's inputs restored before each call: it updates the ray state
-   in place); kernel F's launch is the runtime build (the knobs read from
+   in place; its launches after the first level's take a queue), kernel
+   D's levels of this frame and of config 4's emissive frame
+   (`shade_levels`: the lanes each shades, hits and leaves bouncing, its
+   time over its queue, over every lane and with its queue emptied, the
+   queued launch bit for bit against the launch over every lane); kernel
+   F's launch is the runtime build (the knobs read from
    the step's push constants), also run through the static build on the
    same image (the share of pixels equal bit for bit and the largest
    difference), and on the frame's image to 5/4 of its size with the
@@ -3000,17 +3005,23 @@ def replay_shading(kind, args, kw):
                              **{name: torch.sort(queued_lanes(q)).values
                                 for name, q in queues.items()}))
         # with its queues kernel D writes the shadow launch's inputs and the
-        # next level's only for the lanes of their queue
+        # next level's only for the lanes of their queue, and over a queue
+        # it writes the shadow mask only for that queue's lanes
         got, want = runs
-        for name, mask, keys in (
-                ("shadow_queue", "active", shade.SHADOW_KEYS),
-                ("next_queue", "state.bouncing",
-                 ("key",) + shade.TARGET_KEYS)):
-            if kw.get(name) is not None:
-                m = want[mask]
+        masks = {name: want[mask].clone() for name, mask in (
+            ("shadow_queue", "active"), ("next_queue", "state.bouncing"))
+            if kw.get(name) is not None and mask in want}
+        for name, keys in (("shadow_queue", shade.SHADOW_KEYS),
+                           ("next_queue", ("key",) + shade.TARGET_KEYS)):
+            if name in masks:
                 for k in keys:
                     if k in want:
+                        m = masks[name]
                         got[k], want[k] = got[k][m], want[k][m]
+        if kw.get("queue") is not None and "active" in want:
+            lanes = queued_lanes(kw["queue"])
+            got["active"], want["active"] = (got["active"][lanes],
+                                             want["active"][lanes])
         return got, want
     return ({"pixels": shade.resolve(*args, **kw)},
             {"pixels": shade.resolve_plain(*args, **kw)})
@@ -3404,14 +3415,22 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
                 n = int(state["ox"].numel())
                 active = int((state["bouncing"] & hit["found"]).sum())
                 bouncing = int(got["state.bouncing"].sum())
+                queue = kw.get("queue")
+                # over a queue the launch reads only the queued lanes; the
+                # build that takes or fills queues, only the hit lanes' state
+                read = n if queue is None else int(queue.count[0])
                 flags = dict(prev=kw.get("prev_occluded") is not None,
                              next_key=bool(kw.get("next_key")),
                              next_targets=bool(kw.get("next_targets")))
-                bound, by = roofline.shade_bound_ms(n, active, bouncing,
-                                                    args[3], **flags)
-                what = dict(level=i, lanes=n, active=active,
-                            bouncing_after=bouncing, sun_mode=args[3],
-                            **flags)
+                queued = any(kw.get(name) is not None for name in (
+                    "queue", "next_queue", "shadow_queue"))
+                bound, by = roofline.shade_bound_ms(read, active, bouncing,
+                                                    args[3], **flags,
+                                                    queued=queued)
+                what = dict(level=i, lanes=n,
+                            queued=None if queue is None else read,
+                            active=active, bouncing_after=bouncing,
+                            sun_mode=args[3], **flags)
             else:
                 n = int(args[0]["cr"].numel())
                 pixels = int(got["pixels"].shape[0])
@@ -3548,6 +3567,103 @@ def frame_kernels(rt, reps: int = FRAME_REPS):
         log("frame B", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
                           for k, v in row.items()})
     return rows
+
+
+def shade_levels(rt, label, reps: int = FRAME_REPS):
+    """Phase 6b's kernel D levels of one frame of `rt` (its step's body run
+    op by op, each launch captured and replayed on its own inputs): the
+    lanes each level's launch shades (its queue's, or every lane), the lanes
+    that hit and those it leaves bouncing, and its device time over its
+    queue, over every lane (the launch before kernel D took a queue) and
+    with its queue emptied. The launch over its queue leaves the state, the
+    queues' lanes and the outputs read later as the launch over every lane
+    does, bit for bit. Returns one dict a level."""
+    import torch
+
+    from zig_vulkan_tpu_torch.ops import shade, trace
+
+    cap = []
+    with capturing(shade, "shade", cap):
+        rt.render_op_by_op()
+    torch.cuda.synchronize()
+    rows = []
+    for i, (args, kw) in enumerate(cap):
+        state, hit = args[0], args[1]
+        n = int(state["ox"].numel())
+        queue = kw.get("queue")
+        work = _clone(state)
+        fills = [kw[name] for name in ("next_queue", "shadow_queue")
+                 if kw.get(name) is not None]
+
+        def before(work=work, state=state, fills=fills):
+            for k, v in state.items():
+                work[k].copy_(v)
+            for q in fills:
+                q.count.zero_()
+
+        def run(work=work, args=args, kw=kw, **extra):
+            return shade.shade(work, *args[1:], **dict(kw, **extra))
+
+        runs = []
+        for extra in ({}, {"queue": None}):
+            before()
+            out = run(**extra)
+            runs.append(dict(
+                {f"state.{k}": v.clone() for k, v in work.items()},
+                **{name: torch.sort(queued_lanes(kw[name])).values
+                   for name in ("next_queue", "shadow_queue")
+                   if kw.get(name) is not None},
+                **{k: v.clone() for k, v in out.items()}))
+        got, want = runs
+        # the outputs that later launches read: the shadow mask on the
+        # queue's lanes, the shadow rays and next key and targets on the
+        # lanes of the queues they go with
+        lanes = None if queue is None else queued_lanes(queue)
+        shadow = want.get("shadow_queue")
+        nxt = want.get("next_queue")
+        for k in list(want):
+            at = (lanes if k == "active" else shadow
+                  if k in shade.SHADOW_KEYS else nxt
+                  if k in ("key",) + shade.TARGET_KEYS else None)
+            if at is not None:
+                got[k], want[k] = got[k][at], want[k][at]
+        bad, _, same = compare_bits(got, want)
+        if not same:
+            raise AssertionError(f"{label}: kernel D at level {i} over its "
+                                 f"queue differs from its launch over "
+                                 f"every lane: {bad}")
+        active = int((state["bouncing"] & hit["found"]).sum())
+        row = dict(level=i, lanes=n,
+                   shaded=n if queue is None else int(queue.count[0]),
+                   active=active,
+                   bouncing_after=int(want["state.bouncing"].sum()),
+                   ms=device_ms(run, reps, before=before))
+        if queue is not None:
+            empty = trace.LaneQueue(queue.lanes,
+                                    torch.zeros_like(queue.count))
+            row.update(
+                ms_all_lanes=device_ms(lambda: run(queue=None), reps,
+                                       before=before),
+                ms_none_live=device_ms(lambda: run(queue=empty), reps,
+                                       before=before))
+        rows.append(row)
+        log(f"{label} D", **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                             for k, v in row.items()})
+    log(f"{label} D", levels=len(rows),
+        ms_frame=f"{sum(r['ms'] for r in rows):.5f}",
+        ms_frame_all_lanes=f"""{sum(r.get('ms_all_lanes', r['ms'])
+                                    for r in rows):.5f}""")
+    return rows
+
+
+def emissive_engine(dev, scale):
+    """BASELINE config 4's engine (`benchmarks.configs.build_config4`) at
+    `scale`, its camera on the emissive block."""
+    from zig_vulkan_tpu_torch.benchmarks import configs
+
+    rt = configs.build_config4(scale, dev)
+    configs.look_at_emissive_block(rt)
+    return rt
 
 
 def masked_pixels(img, dn, mode, live, n_taps, out_h, out_w):
@@ -4362,6 +4478,7 @@ def ptxas_summary(text):
                     if t else "B aligned" if "lookup_kernelILb1E" in m[1]
                     else "B" if "lookup_kernel" in m[1]
                     else "C" if "camera_rays_kernel" in m[1]
+                    else "D queued" if "shade_kernelILb1E" in m[1]
                     else "D" if "shade_kernel" in m[1]
                     else "E" if "resolve_kernel" in m[1]
                     else f_build_name(m[1]) or m[1])
@@ -4674,6 +4791,10 @@ def smoke(dev, make_scene, cfg, headline=(1920, 1080), frames: int = FRAMES,
     # -- 6b. the frame's kernel launches, one by one --------------------------------
     t0 = time.perf_counter()
     frame_rows = frame_kernels(rt)
+    # kernel D's levels over their queues, of this frame and of config 4's
+    # four-level emissive frame
+    shade_levels(rt, "default frame")
+    shade_levels(emissive_engine(dev, scale), "config 4 frame")
     log("frame kernels", phase_seconds=f"{time.perf_counter() - t0:.2f}")
 
     # -- 7. headline analogue: primary rays at 1920x1080 ---------------------------

@@ -256,13 +256,15 @@ def test_sun_states_are_ignored(cell, world, tables, program, reference):
 
 
 def test_one_launch_a_frame_and_no_queue(program, tables):
-    """One level, no sun: kernel A runs once a frame and takes no queue,
-    and no queue buffer is made."""
+    """One level, no sun: kernels A and D run once a frame and take no
+    queue, and no queue buffer is made."""
     _, snap, made, _ = program
     counters = snap["counters"]
     assert snap["zones"]["draw"]["count"] == tables.poses
     assert counters["trace_launches"] == tables.poses
     assert counters["trace_queued"] == 0
+    assert counters["shade_launches"] == tables.poses
+    assert counters["shade_queued"] == 0
     assert made == 0
 
 

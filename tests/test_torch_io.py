@@ -463,10 +463,11 @@ def test_zones_are_no_ops_unless_enabled():
     assert set(snap["zones"]) == {"build_tables", "step_lookup",
                                   "push_constants", "render_step",
                                   "device_sync", "draw"}
-    # the records' first build, and the frame's kernel A launches: two
-    # levels without the sun, the second queued
+    # the records' first build, and the frame's kernel A and kernel D
+    # launches: two levels without the sun, the second queued
     assert snap["counters"] == {"host_waits": 1, "trace_launches": 2,
-                                "trace_queued": 1}
+                                "trace_queued": 1, "shade_launches": 2,
+                                "shade_queued": 1}
 
 
 def test_trace_session_writes_the_zones(tmp_path):

@@ -66,9 +66,10 @@ def test_shading_args_layouts_match_the_c_structs():
     assert c.radius.offset == 176 and ctypes.sizeof(c) == 184
     assert d.found.offset == 0 and d.radius_ptr.offset == 40 * 8
     assert d.shadow_count.offset == 44 * 8
-    assert d.n.offset == 360 and d.sun.offset == 368
-    assert d.sun_c.offset == 384 and d.radius.offset == 396
-    assert ctypes.sizeof(d) == 400
+    assert d.in_queue.offset == 45 * 8 and d.in_count.offset == 46 * 8
+    assert d.n.offset == 376 and d.sun.offset == 384
+    assert d.sun_c.offset == 400 and d.radius.offset == 412
+    assert ctypes.sizeof(d) == 416
     assert e.out.offset == 80 and e.m.offset == 88 and e.gamma.offset == 104
     assert e.sun_c.offset == 108 and ctypes.sizeof(e) == 120
 

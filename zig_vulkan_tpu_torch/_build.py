@@ -88,7 +88,7 @@ class ShadeArgs(ctypes.Structure):
         "pr", "pg", "pb", "prev_occluded",
         "active", "shx", "shy", "shz", "key", "tx", "ty", "tz",
         "sun_p_ptr", "sun_c_ptr", "radius_ptr", "next_queue", "next_count",
-        "shadow_queue", "shadow_count") + [
+        "shadow_queue", "shadow_count", "in_queue", "in_count") + [
         ("n", ctypes.c_int64),
         ("sun", ctypes.c_int),
         ("sun_p", ctypes.c_float * 3),

@@ -30,15 +30,23 @@
 // bouncing to the next level's scatter queue and each lane it marks
 // `active` to this level's shadow queue, lane ids of int32 after a count on
 // the card that starts the frame at 0 (one atomic a block and queue, the
-// block's lanes in lane order): kernel A's later launches and kernel B
-// take those queues instead of the whole wavefront, so the shadow launch's
-// directions and the next level's key and sun targets are written only for
-// the lanes of their queue (the shadow launch's mask for every lane). This
-// kernel still reads every lane: a lane outside the last scatter queue is
-// not bouncing, so every value of its that kernels A and B left unwritten
-// is read under a select that drops it, and a lane outside the last shadow
-// queue has a pending term of 0, so its unwritten `occluded` adds +0
-// either way.
+// block's lanes in the order it read them): kernel A's later launches and
+// kernel B take those queues instead of the whole wavefront, so the shadow
+// launch's directions and the next level's key and sun targets are written
+// only for the lanes of their queue. From the second level on, this kernel
+// takes a queue too and shades only its lanes: with a shadow launch the
+// previous level's shadow queue, else the previous level's scatter queue
+// (the queue kernels A and B took). A lane outside it changes nothing
+// here: it is not bouncing (the bouncing lanes are a subset of the last
+// active ones), so it is not active, its loop count, ray and dielectric
+// state stay, its pending term and shadow mask already hold 0 (written at
+// the last level that shaded it), and its colour would gain +0 twice,
+// which leaves a colour that started at +0 and only ever added terms as
+// it was. So the lanes outside the queue are neither read nor written,
+// the shadow mask included, and every lane of the queue is shaded as over
+// the whole wavefront. The grid is the whole wavefront's, as the queue's
+// length is known only on the card; a block past the count exits at once.
+// The first level's launch and kernel E take every lane.
 //
 // What bounds it on an H100: memory traffic, about 190 bytes a lane with a
 // separate shadow launch (the hit, the five looked-up values, the state
@@ -52,7 +60,11 @@
 // stays in registers, where the torch version writes and reads some 250
 // temporaries a lane. The state writes that do not change a lane (origin
 // and dielectric state of a lane that did not hit, the direction of a lane
-// that stops bouncing) are skipped; they would store the value read.
+// that stops bouncing) are skipped; they would store the value read. In
+// the build that takes or fills queues, a lane that did not hit (most of a
+// first level's lanes are sky) reads only its colour, pending term and
+// masks: on an H100 that takes the first level's launch from 0.213 to
+// 0.127 ms at 4,147,200 lanes.
 //
 // Float parity: built with --fmad=false and without fast math; every
 // expression keeps the torch version's operation order; the clamp before
@@ -114,6 +126,9 @@ struct ShadeArgs {
   int32_t* next_count;
   int32_t* shadow_queue;         // the lanes marked active
   int32_t* shadow_count;
+  // the queue this level shades (NULL: every lane): lane ids and count
+  const int32_t* in_queue;
+  const int32_t* in_count;
   int64_t n;
   int sun;                       // SUN_OFF, SUN_PROBE or SUN_DEFERRED
   float sun_p[3];
@@ -139,77 +154,102 @@ constexpr float DIEL = 0x1.99999ap-5f;     // float32(0.05)
 // Lane i's shading; sets `bouncing_out` and `active_out` to the lane's new
 // bouncing flag and its shadow mask. QUEUED: the launch fills its queues,
 // so the shadow directions and the next level's key and sun targets are
-// written only for the lanes that their queue holds.
+// written only for the lanes that their queue holds, and a lane that is
+// not active (a level's queue or wavefront holds many such lanes: rays
+// gone to the sky) reads none of its hit, material and ray, unless the
+// launch writes every lane's next key or sun targets (it has no next
+// queue). Such a lane's colour, pending term and masks take the same
+// writes either way, and its loop count, which would store the value
+// read, is not written.
 template <bool QUEUED, typename Index>
 __device__ __forceinline__ void shade_lane(const ShadeArgs& a, Index i,
                                            bool& bouncing_out,
                                            bool& active_out) {
   const bool active = a.bouncing[i] != 0 && a.found[i] != 0;
-  const float ar = a.albedo_r[i], ag = a.albedo_g[i], ab = a.albedo_b[i];
-  const float type_data = a.type_data[i];
-  const int mtype = (int)a.mtype[i];  // as torch's .to(torch.int32)
-  const bool is_emissive = mtype == MAT_EMISSIVE;
-  const bool known = mtype <= MAT_DIELECTRIC || is_emissive;
-  a.loop_count[i] = a.loop_count[i] + ((active && known) ? 1 : 0);
+  const bool reads = !QUEUED || active ||
+                     (a.next_queue == nullptr &&
+                      (a.key != nullptr || a.tx != nullptr));
+  // what the colour and the state update read of a lane that is read; a
+  // lane that is not read is not active, so they select none of it
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f, type_data = 0.0f;
+  bool is_emissive = false, is_lam = false, is_met = false;
+  bool result = false, refracted = false;
+  float px = 0.0f, py = 0.0f, pz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float internal = 0.0f, ir = 0.0f;
+  float lamx = 0.0f, lamy = 0.0f, lamz = 0.0f;
+  float metx = 0.0f, mety = 0.0f, metz = 0.0f;
+  float diex = 0.0f, diey = 0.0f, diez = 0.0f;
+  if (reads) {
+    ar = a.albedo_r[i];
+    ag = a.albedo_g[i];
+    ab = a.albedo_b[i];
+    type_data = a.type_data[i];
+    const int mtype = (int)a.mtype[i];  // as torch's .to(torch.int32)
+    is_emissive = mtype == MAT_EMISSIVE;
+    const bool known = mtype <= MAT_DIELECTRIC || is_emissive;
+    a.loop_count[i] = a.loop_count[i] + ((active && known) ? 1 : 0);
 
-  const float px = a.px[i], py = a.py[i], pz = a.pz[i];
-  const float nx = a.nx[i], ny = a.ny[i], nz = a.nz[i];
-  const float dx = a.dx[i], dy = a.dy[i], dz = a.dz[i];
-  const float internal = a.internal_refl[i];
-  const float cox = px + pz;
-  const float coy = py + pz;
+    px = a.px[i];
+    py = a.py[i];
+    pz = a.pz[i];
+    const float nx = a.nx[i], ny = a.ny[i], nz = a.nz[i];
+    dx = a.dx[i];
+    dy = a.dy[i];
+    dz = a.dz[i];
+    internal = a.internal_refl[i];
+    const float cox = px + pz;
+    const float coy = py + pz;
 
-  // lambertian (brick_raytracer.comp:539-544)
-  float lamx, lamy, lamz;
-  zvt::rand_vec3_range(cox, coy, -LAMBERT, LAMBERT - -LAMBERT, lamx, lamy,
-                       lamz);
-  lamx = nx + lamx;
-  lamy = ny + lamy;
-  lamz = nz + lamz;
-  zvt::norm3(lamx, lamy, lamz);
+    // lambertian (brick_raytracer.comp:539-544)
+    zvt::rand_vec3_range(cox, coy, -LAMBERT, LAMBERT - -LAMBERT, lamx, lamy,
+                         lamz);
+    lamx = nx + lamx;
+    lamy = ny + lamy;
+    lamz = nz + lamz;
+    zvt::norm3(lamx, lamy, lamz);
 
-  // metal (brick_raytracer.comp:546-551)
-  const float dn = zvt::dot3(dx, dy, dz, nx, ny, nz);
-  const float fuzz_lo = -type_data;
-  float metx, mety, metz;
-  zvt::rand_vec3_range(cox, coy, fuzz_lo, type_data - fuzz_lo, metx, mety,
-                       metz);
-  metx = (dx - 2.0f * dn * nx) + metx;
-  mety = (dy - 2.0f * dn * ny) + mety;
-  metz = (dz - 2.0f * dn * nz) + metz;
-  zvt::norm3(metx, mety, metz);
-  const bool met_ok = zvt::dot3(metx, mety, metz, nx, ny, nz) > 0.0f;
+    // metal (brick_raytracer.comp:546-551)
+    const float dn = zvt::dot3(dx, dy, dz, nx, ny, nz);
+    const float fuzz_lo = -type_data;
+    zvt::rand_vec3_range(cox, coy, fuzz_lo, type_data - fuzz_lo, metx, mety,
+                         metz);
+    metx = (dx - 2.0f * dn * nx) + metx;
+    mety = (dy - 2.0f * dn * ny) + mety;
+    metz = (dz - 2.0f * dn * nz) + metz;
+    zvt::norm3(metx, mety, metz);
+    const bool met_ok = zvt::dot3(metx, mety, metz, nx, ny, nz) > 0.0f;
 
-  // dielectric (brick_raytracer.comp:576-596)
-  float dnx, dny, dnz;
-  zvt::rand_vec3_range(cox, coy, -DIEL, DIEL - -DIEL, dnx, dny, dnz);
-  dnx = nx + dnx;
-  dny = ny + dny;
-  dnz = nz + dnz;
-  zvt::norm3(dnx, dny, dnz);
-  const float ir = type_data;
-  const float eta = __fdiv_rn(ir, internal);
-  const float c1 = -zvt::dot3(dx, dy, dz, dnx, dny, dnz);
-  const float w = eta * c1;
-  const float c2m = (w - eta) * (w + eta);
-  const bool should_refract = c2m >= -1.0f;
-  float root = 1.0f + c2m;
-  root = root < 0.0f ? 0.0f : root;  // torch.clamp(min=0): NaN stays NaN
-  const float wk = w - __fsqrt_rn(root);
-  const bool do_refract = should_refract && zvt::rand3(px, py, pz) > 0.5f;
-  const float ddn = zvt::dot3(dx, dy, dz, dnx, dny, dnz);
-  float diex = do_refract ? eta * dx + wk * dnx : dx - 2.0f * ddn * dnx;
-  float diey = do_refract ? eta * dy + wk * dny : dy - 2.0f * ddn * dny;
-  float diez = do_refract ? eta * dz + wk * dnz : dz - 2.0f * ddn * dnz;
-  zvt::norm3(diex, diey, diez);
+    // dielectric (brick_raytracer.comp:576-596)
+    float dnx, dny, dnz;
+    zvt::rand_vec3_range(cox, coy, -DIEL, DIEL - -DIEL, dnx, dny, dnz);
+    dnx = nx + dnx;
+    dny = ny + dny;
+    dnz = nz + dnz;
+    zvt::norm3(dnx, dny, dnz);
+    ir = type_data;
+    const float eta = __fdiv_rn(ir, internal);
+    const float c1 = -zvt::dot3(dx, dy, dz, dnx, dny, dnz);
+    const float w = eta * c1;
+    const float c2m = (w - eta) * (w + eta);
+    const bool should_refract = c2m >= -1.0f;
+    float root = 1.0f + c2m;
+    root = root < 0.0f ? 0.0f : root;  // torch.clamp(min=0): NaN stays NaN
+    const float wk = w - __fsqrt_rn(root);
+    const bool do_refract = should_refract && zvt::rand3(px, py, pz) > 0.5f;
+    const float ddn = zvt::dot3(dx, dy, dz, dnx, dny, dnz);
+    diex = do_refract ? eta * dx + wk * dnx : dx - 2.0f * ddn * dnx;
+    diey = do_refract ? eta * dy + wk * dny : dy - 2.0f * ddn * dny;
+    diez = do_refract ? eta * dz + wk * dnz : dz - 2.0f * ddn * dnz;
+    zvt::norm3(diex, diey, diez);
 
-  const bool is_lam = mtype == MAT_LAMBERTIAN;
-  const bool is_met = mtype == MAT_METAL;
-  const bool is_die = mtype == MAT_DIELECTRIC;
-  // emissive paths terminate (superset; see core.materials)
-  const bool result = is_lam || (is_met && met_ok) ||
-                      (!is_lam && !is_met && is_die);
-  const bool refracted = is_die && do_refract;
+    is_lam = mtype == MAT_LAMBERTIAN;
+    is_met = mtype == MAT_METAL;
+    const bool is_die = mtype == MAT_DIELECTRIC;
+    // emissive paths terminate (superset; see core.materials)
+    result = is_lam || (is_met && met_ok) ||
+             (!is_lam && !is_met && is_die);
+    refracted = is_die && do_refract;
+  }
 
   // the colour: the previous level's pending lit term, this level's
   // emissive term, then its diffuse or lit term
@@ -284,7 +324,8 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a, Index i,
   }
   const float new_internal = active ? (refracted ? ir : 1.0f) : internal;
   const int new_ignore =
-      active ? (refracted ? MAT_DIELECTRIC : MAT_NONE) : a.ignore_type[i];
+      active ? (refracted ? MAT_DIELECTRIC : MAT_NONE)
+             : reads ? a.ignore_type[i] : MAT_NONE;  // not read: unused
   if (active) {
     a.internal_refl[i] = new_internal;
     a.ignore_type[i] = new_ignore;
@@ -313,8 +354,9 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a, Index i,
 
 // Appends lane i to the next queue where `bouncing` and to the shadow
 // queue where `active`: one atomic a block and queue (the counts of the
-// block's warps scanned in shared memory), so the block's lanes go in lane
-// order after the count's value. Every thread of the block calls it.
+// block's warps scanned in shared memory), so the block's lanes go in
+// thread order (lane order, or the order of the queue it shades) after the
+// count's value. Every thread of the block calls it.
 __device__ __forceinline__ void append(const ShadeArgs& a, int i,
                                        bool bouncing, bool active) {
   // each warp's count of lanes for the two queues, then their offsets
@@ -347,10 +389,11 @@ __device__ __forceinline__ void append(const ShadeArgs& a, int i,
     a.shadow_queue[base[1] + taken[1][warp] + __popc(m1 & below)] = i;
 }
 
-// One thread a lane. The QUEUED build (a launch with a queue) is held to
-// 48 registers, 5 blocks of 256 threads resident, as the build without
-// one takes: unbounded, the appends' barriers take it to 64 and 4 blocks,
-// and a level's launch runs 4-8% longer on an H100.
+// One thread a lane, or a queued lane. The QUEUED build (a launch that
+// takes or fills a queue) is held to 48 registers, 5 blocks of 256 threads
+// resident, as the build without one takes: unbounded, the appends'
+// barriers take it to 64 and 4 blocks, and a level's launch runs 4-8%
+// longer on an H100.
 template <bool QUEUED>
 __global__ void __launch_bounds__(THREADS, QUEUED ? 5 : 1)
 shade_kernel(const ShadeArgs a) {
@@ -362,7 +405,15 @@ shade_kernel(const ShadeArgs a) {
   }
   // the wrapper takes fewer than 2^31 lanes: 32-bit lane ids, as the
   // queues hold them
-  const int i = (int)blockIdx.x * THREADS + (int)threadIdx.x;
+  const int j = (int)blockIdx.x * THREADS + (int)threadIdx.x;
+  int i = j;
+  if (a.in_queue != nullptr) {
+    // thread j shades lane in_queue[j]; the whole block exits past the
+    // count, before the appends' barriers
+    const int count = *a.in_count;
+    if ((int)blockIdx.x * THREADS >= count) return;
+    i = j < count ? a.in_queue[j] : (int)a.n;
+  }
   if (i < a.n) shade_lane<true>(a, i, bouncing, active);
   append(a, i, bouncing, active);
 }
@@ -380,12 +431,14 @@ extern "C" int zvt_zero(void* ptr, int64_t bytes, void* stream) {
 
 extern "C" int zvt_shade(const ShadeArgs* args, void* stream) {
   if ((args->next_queue == nullptr) != (args->next_count == nullptr) ||
-      (args->shadow_queue == nullptr) != (args->shadow_count == nullptr))
+      (args->shadow_queue == nullptr) != (args->shadow_count == nullptr) ||
+      (args->in_queue == nullptr) != (args->in_count == nullptr))
     return (int)cudaErrorInvalidValue;
   if (args->n > 0) {
     const unsigned blocks = (unsigned)((args->n + THREADS - 1) / THREADS);
     cudaStream_t s = (cudaStream_t)stream;
-    if (args->next_queue != nullptr || args->shadow_queue != nullptr)
+    if (args->next_queue != nullptr || args->shadow_queue != nullptr ||
+        args->in_queue != nullptr)
       shade_kernel<true><<<blocks, THREADS, 0, s>>>(*args);
     else
       shade_kernel<false><<<blocks, THREADS, 0, s>>>(*args);

@@ -67,9 +67,9 @@ edit graphs mark their span (edit_graph) and the insert's field rebuild
 mean is the zone temporal, counted under temporal_frames and
 temporal_resets, and its frame graph marks the mean (temporal) on the
 card; each frame counts kernel A's launches (trace_launches) and those
-that took a queue of live lanes (trace_queued), as the frame's body
-reported them (a replay what its capture's body did). `utils.profiling`
-lists them all.
+that took a queue of live lanes (trace_queued), and kernel D's
+(shade_launches, shade_queued), as the frame's body reported them (a
+replay what its capture's body did). `utils.profiling` lists them all.
 """
 
 from __future__ import annotations
@@ -277,7 +277,7 @@ class VoxelRT:
         tables = self._tables
         material_indices = self.arrays.material_indices
         mats = self.mats
-        report = {}  # the body's kernel A counts, as its last run took them
+        report = {}  # the body's kernel A and D counts, as its last run did
 
         def body(pc, accum):
             report.clear()

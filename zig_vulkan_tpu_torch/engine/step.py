@@ -265,8 +265,9 @@ class Step:
     on the CPU); `op_by_op` calls the body directly. Both return a fresh
     image: later frames do not overwrite it. `report` is a dict of
     counters that the body fills each time it runs (kernel A's
-    `trace_launches` and `trace_queued`): each frame adds them to the
-    profiling counters, a replay those of the capture's body."""
+    `trace_launches` and `trace_queued`, kernel D's `shade_launches` and
+    `shade_queued`): each frame adds them to the profiling counters, a
+    replay those of the capture's body."""
 
     def __init__(self, key, body, device, accum_shape=None, pool=None,
                  report=None):

@@ -20,7 +20,7 @@ their counterparts, one hand-written CUDA kernel each, with the wrappers
 
 The module has no JAX counterpart. A level runs A scatter -> B -> D -> A
 shadow; D also fills the queues of live lanes that the later launches of
-A and B take (`ops.trace._trace_levels`, `zeroed_counts`). With a shadow
+A, B and D take (`ops.trace._trace_levels`, `zeroed_counts`). With a shadow
 launch (the sun on, not traced in kernel A), a level's lit term needs that
 launch's `occluded`, so D writes it as a pending term that the next
 level's D (or E, after the last level) adds, where the sun ray was not
@@ -186,9 +186,44 @@ def shade_plain(state: dict, hit: dict, looked, mode: int,
                 sun_position=None, sun_color=None, sun_radius=None,
                 prev_occluded=None, next_key: bool = False,
                 next_targets: bool = False, next_queue=None,
-                shadow_queue=None) -> dict:
+                shadow_queue=None, queue=None) -> dict:
     """The plain torch version of kernel D (the body of a bounce level of
-    `_ray_color_soa`, brick_raytracer.comp:203-259); see `shade`."""
+    `_ray_color_soa`, brick_raytracer.comp:203-259); see `shade`. With a
+    `queue` it shades the queued lanes, gathered, and scatters them back;
+    the other lanes' outputs are 0 (the kernel leaves them unwritten)."""
+    sun = (sun_position, sun_color, sun_radius)
+    if queue is None:
+        out = _shade_lanes(state, hit, looked, mode, *sun, prev_occluded,
+                           next_key, next_targets)
+        bouncing = state["bouncing"]
+    else:
+        lanes = queue.host_lanes()
+        n = state["ox"].shape[0]
+        sub = {k: v[lanes] for k, v in state.items()}
+        picked = _shade_lanes(
+            sub, {k: v[lanes] for k, v in hit.items()},
+            tuple(t[lanes] for t in looked), mode, *sun,
+            None if prev_occluded is None else prev_occluded[lanes],
+            next_key, next_targets)
+        for k, v in sub.items():
+            state[k][lanes] = v
+        out = {}
+        for k, v in picked.items():
+            out[k] = torch.zeros(n, dtype=v.dtype, device=v.device)
+            out[k][lanes] = v
+        bouncing = torch.zeros(n, dtype=torch.bool, device=lanes.device)
+        bouncing[lanes] = sub["bouncing"]
+    if next_queue is not None:
+        _append(next_queue, bouncing)
+    if shadow_queue is not None:
+        _append(shadow_queue, out["active"])
+    return out
+
+
+def _shade_lanes(state: dict, hit: dict, looked, mode: int, sun_position,
+                 sun_color, sun_radius, prev_occluded, next_key: bool,
+                 next_targets: bool) -> dict:
+    """`shade_plain` over every lane of `state`, without the appends."""
     s = state
     ox, oy, oz, dx, dy, dz = (s[k] for k in RAY_KEYS)
     internal_refl, ignore_type = s["internal_refl"], s["ignore_type"]
@@ -314,17 +349,13 @@ def shade_plain(state: dict, hit: dict, looked, mode: int,
             _radius(sun_radius))))
     for k, v in new.items():
         s[k].copy_(v)
-    if next_queue is not None:
-        _append(next_queue, bouncing)
-    if shadow_queue is not None:
-        _append(shadow_queue, active)
     return out
 
 
 def shade(state: dict, hit: dict, looked, mode: int, sun_position=None,
           sun_color=None, sun_radius=None, prev_occluded=None,
           next_key: bool = False, next_targets: bool = False,
-          next_queue=None, shadow_queue=None) -> dict:
+          next_queue=None, shadow_queue=None, queue=None) -> dict:
     """Shade one bounce level: update `state` (`new_state`'s dict) in place
     from kernel A's hit `hit` (found, px..pz, nx..nz; `occluded` with
     SUN_PROBE) and kernel B's `looked` = (albedo r, g, b, mtype, type_data),
@@ -346,23 +377,33 @@ def shade(state: dict, hit: dict, looked, mode: int, sun_position=None,
     gain the lanes left bouncing and (SUN_DEFERRED) the lanes of the
     shadow mask `active`: the next scatter launch's and this level's shadow
     launch's lanes. Each lane is appended once, after the count's value;
-    the plain version appends in lane order, the kernel in lane order
-    within each block of 256 lanes. Since the launches read only their
-    queue's lanes, the kernel then writes `shx, shy, shz` only for the
-    lanes of the shadow queue, and `key` and `tx, ty, tz` only for those
-    of the next queue (the plain version writes every lane)."""
+    the plain version appends in lane order, the kernel in the order it
+    shades them (lane order, or the order of `queue`) within each block of
+    256. Since the launches read only their queue's lanes, the kernel then
+    writes `shx, shy, shz` only for the lanes of the shadow queue, and
+    `key` and `tx, ty, tz` only for those of the next queue (the plain
+    version writes every lane it shades).
+
+    `queue` (a `LaneQueue`, or None: every lane) holds the lanes this level
+    shades: the other lanes are neither read nor written, the outputs
+    included (the plain version's are 0 there). Shading a lane that is not
+    bouncing and has no pending term (0, or a `prev_occluded` hit) changes
+    nothing, so a level after the first may take the lanes the previous
+    level marked active (with SUN_DEFERRED) or left bouncing: the state and
+    the queued outputs are those of a launch over every lane, bit for
+    bit."""
     if shadow_queue is not None and mode != SUN_DEFERRED:
         raise ValueError("shade: a shadow queue comes with a shadow launch")
     dev = state["ox"].device
     if dev.type == "cpu":
         return shade_plain(state, hit, looked, mode, sun_position, sun_color,
                            sun_radius, prev_occluded, next_key, next_targets,
-                           next_queue, shadow_queue)
+                           next_queue, shadow_queue, queue)
     if dev.type != "cuda":
         raise ValueError(f"shade: unsupported device {dev}")
     return _launch_shade(state, hit, looked, mode, sun_position, sun_color,
                          sun_radius, prev_occluded, next_key, next_targets,
-                         next_queue, shadow_queue)
+                         next_queue, shadow_queue, queue)
 
 
 shade.launches = 0
@@ -505,7 +546,7 @@ def _launch_camera(cam, width, height, spp, sample_base, row0, rows, sun):
 
 def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
                   sun_radius, prev_occluded, next_key, next_targets,
-                  next_queue, shadow_queue):
+                  next_queue, shadow_queue, queue):
     dev = state["ox"].device
     n = state["ox"].shape[0]
     for k, dtype in _STATE_TYPES.items():
@@ -533,7 +574,7 @@ def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
         raise ValueError("shade: next targets are for the sun_in_kernel "
                          "build")
     for name, q in (("next_queue", next_queue),
-                    ("shadow_queue", shadow_queue)):
+                    ("shadow_queue", shadow_queue), ("queue", queue)):
         if q is not None:
             _check("shade", f"{name}.lanes", q.lanes, torch.int32, n, dev)
             _check("shade", f"{name}.count", q.count, torch.int32, 1, dev)
@@ -570,6 +611,9 @@ def _launch_shade(state, hit, looked, mode, sun_position, sun_color,
     if shadow_queue is not None:
         a.shadow_queue = shadow_queue.lanes.data_ptr()
         a.shadow_count = shadow_queue.count.data_ptr()
+    if queue is not None:
+        a.in_queue = queue.lanes.data_ptr()
+        a.in_count = queue.count.data_ptr()
     if mode != SUN_OFF:
         a.sun_p_ptr, a.sun_p[:] = _frame_value("shade", "sun_position",
                                                sun_position, 3, dev)

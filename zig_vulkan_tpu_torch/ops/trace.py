@@ -16,7 +16,8 @@ through
 
 After the first level's scatter launch, every launch of kernels A and B
 takes a queue of the live lanes that kernel D filled (`LaneQueue`), not
-the whole wavefront.
+the whole wavefront, and so does every launch of kernel D after the
+first level's.
 
 The camera rays before the first level (kernel C) and the background,
 tone map and sample resolve after the last (kernel E) are `ops.shade`'s
@@ -631,25 +632,37 @@ def _trace_levels(static: GridStatic, tables, material_indices, mats,
     first level's sun targets (SUN_PROBE). Returns the last shadow
     launch's hits (SUN_DEFERRED with a level), else None.
 
-    Every lane is live at the first scatter launch. After it, kernel D
-    appends the lanes it leaves bouncing to the next level's scatter queue
-    and the lanes it marks active to its level's shadow queue
-    (`LaneQueue`s over one int32[N] buffer each and one count slot a level
-    and queue, zeroed at the start), and each later launch of kernels A and
-    B takes its queue: the lanes outside it are neither read nor written.
-    `report`, a dict, gains `trace_launches` (kernel A's launches) and
-    `trace_queued` (those that took a queue)."""
+    Every lane is live at the first level. After its scatter launch,
+    kernel D appends the lanes it leaves bouncing to the next level's
+    scatter queue and the lanes it marks active to its level's shadow
+    queue (`LaneQueue`s, one count slot a level and queue, zeroed at the
+    start), and each later launch of kernels A and B takes its queue. From
+    the second level on, kernel D takes a queue too: the previous level's
+    shadow queue with SUN_DEFERRED (the lanes whose pending term it adds),
+    else the scatter queue that A and B took. The lanes outside a launch's
+    queue are neither read nor written: a lane that is not bouncing and
+    has no pending term is left as it is by kernel D, and kernel E reads
+    only what D leaves unchanged or 0 there. D reads one queue while it
+    fills the next of the same kind, so those alternate between two
+    int32[N] buffers by level; one buffer holds every scatter queue with
+    SUN_DEFERRED. `report`, a dict, gains `trace_launches` (kernel A's
+    launches), `trace_queued` (those that took a queue), `shade_launches`
+    (kernel D's) and `shade_queued` (those that took a queue)."""
     from . import shade
     from .tile_tracer import grid_hit_tiles  # imports this module
 
     n, dev = state["ox"].shape[0], state["ox"].device
     deferred = mode == shade.SUN_DEFERRED
     counts = shade.zeroed_counts(2 * max_bounce, dev)
-    scatter = (torch.empty(n, dtype=torch.int32, device=dev)
-               if max_bounce > 1 else None)
-    shadow = torch.empty(n, dtype=torch.int32, device=dev) if deferred else None
-    launches = queued = 0
-    key = occluded = queue = None
+
+    def buffers(k):
+        return [torch.empty(n, dtype=torch.int32, device=dev)
+                for _ in range(k)]
+
+    scatter = buffers(min(max_bounce - 1, 1 if deferred else 2))
+    shadow = buffers(min(max_bounce, 2)) if deferred else []
+    launches = queued = shaded = 0
+    key = occluded = queue = shadow_queue = None
     for level in range(max_bounce):
         last = level == max_bounce - 1
         h = grid_hit_tiles(static, tables, material_indices,
@@ -659,14 +672,20 @@ def _trace_levels(static: GridStatic, tables, material_indices, mats,
                            use_skip=use_skip, queue=queue)
         launches, queued = launches + 1, queued + (queue is not None)
         looked = table_lookup(mats, h["index"], queue=queue)
+        # the lanes the previous level's D marked active (their pending
+        # term) or, without a shadow launch, left bouncing
+        taken = shadow_queue if deferred else queue
+        shaded += taken is not None
         queue = None if last else LaneQueue(
-            scatter, counts[2 * level:2 * level + 1])
+            scatter[level % len(scatter)], counts[2 * level:2 * level + 1])
         shadow_queue = LaneQueue(
-            shadow, counts[2 * level + 1:2 * level + 2]) if deferred else None
+            shadow[level % 2], counts[2 * level + 1:2 * level + 2]
+        ) if deferred else None
         out = shade.shade(state, h, looked, mode, *sun,
                           prev_occluded=occluded, next_key=not last,
                           next_targets=mode == shade.SUN_PROBE and not last,
-                          next_queue=queue, shadow_queue=shadow_queue)
+                          next_queue=queue, shadow_queue=shadow_queue,
+                          queue=taken)
         # dielectric-skip state exists only after a refraction: the first
         # level has no key
         key = out.get("key")
@@ -680,8 +699,11 @@ def _trace_levels(static: GridStatic, tables, material_indices, mats,
                 use_skip=use_skip, queue=shadow_queue)["found"]
             launches, queued = launches + 1, queued + 1
     if report is not None:
-        report["trace_launches"] = report.get("trace_launches", 0) + launches
-        report["trace_queued"] = report.get("trace_queued", 0) + queued
+        for name, k in (("trace_launches", launches),
+                        ("trace_queued", queued),
+                        ("shade_launches", max_bounce),
+                        ("shade_queued", shaded)):
+            report[name] = report.get(name, 0) + k
     return occluded
 
 
@@ -818,7 +840,7 @@ def render_rows(static: GridStatic, tables, material_indices, mats,
     (f32[3]), `sun_radius` and `sample_base` (0-d). Then nothing on the
     path reads them back or copies from the host (the engine's compiled
     step passes views of its push constants). `report` (a dict) gains the
-    levels' kernel A launch counts (`_trace_levels`)."""
+    levels' kernel A and kernel D launch counts (`_trace_levels`)."""
     from . import shade
 
     w, h = int(width), int(height)

@@ -50,7 +50,8 @@ that ran their plain body), pose_native (1 a pose the native routine took,
 0 a pose its numpy twin took), temporal_frames and temporal_resets (1 a
 frame drawn with a temporal key, 1 a frame whose running mean was zeroed),
 trace_launches and trace_queued (a frame's kernel A launches, and those of
-them that took a queue of live lanes);
+them that took a queue of live lanes), shade_launches and shade_queued (the
+same of kernel D);
 the device spans (`device_mark` pairs) edit_graph (an edit graph from its
 first node to its last), edit_field (the insert's field rebuild; on a card
 its three launches, the last of which also writes the touched rows) and

@@ -26,7 +26,9 @@ table a lane; its tables (a few KiB) are read once per block.
 Kernels C, D and E (csrc/camera.cu, shade.cu, resolve.cu) read and write
 flat arrays, every lane once: their bytes are counted from the arrays each
 launch reads and writes (kernel D skips the state writes that would store
-the value read, so those count for the lanes that change), and their
+the value read, so those count for the lanes that change; its build that
+takes or fills queues reads and works on the state of the lanes that hit
+alone), and their
 operations from the source, by hand: the float operations of each lane's
 hashes, square roots and selects (`CAMERA_OPS`, `SHADE_OPS`,
 `RESOLVE_OPS_PER_SAMPLE`), leaving out index arithmetic; both counts are
@@ -162,9 +164,14 @@ RESOLVE_OPS_PER_SAMPLE = 3 + 11 + 3 + 3 + 6 + 3
 RESOLVE_OPS_PER_PIXEL = 6
 
 RAY_BYTES = 6 * 4             # origin and direction
-STATE_READ_BYTES = (1 + 6 * 4 + 5 * 4 + 3 * 4 + 4 + 4 + 4 + 1 + 3 * 4)
-# found, hit point and normal, the five looked-up values, direction,
-# internal reflection, ignore type, loop count, bouncing, colour
+# kernel D, every lane: bouncing and found read, the colour read and
+# written, the bouncing flag written
+SHADE_LANE_BYTES = 1 + 1 + 2 * 3 * 4 + 1
+# a lane whose state it reads: its hit point and normal, the five looked-up
+# values, its direction and internal reflection, its loop count read and
+# written
+SHADE_READ_BYTES = 6 * 4 + 5 * 4 + 3 * 4 + 4 + 2 * 4
+IGNORE_TYPE_BYTES = 4
 
 
 def camera_bytes(n: int, targets: bool = False) -> int:
@@ -176,26 +183,36 @@ def camera_bytes(n: int, targets: bool = False) -> int:
 
 def shade_bytes(n: int, active: int, bouncing: int, mode: int,
                 prev: bool = False, next_key: bool = False,
-                next_targets: bool = False) -> int:
+                next_targets: bool = False, queued: bool = False) -> int:
     """Bytes of one kernel D launch over `n` lanes, `active` of them hit
     and `bouncing` of them bounce on (`ops.shade.sun_mode`'s `mode`;
-    `prev`: a pending term from the previous level is added)."""
+    `prev`: a pending term from the previous level is added). `queued`:
+    the build that takes or fills queues, which reads the state of the
+    `active` lanes alone (a lane that did not hit moves only its masks,
+    colour and pending term) and writes the shadow directions only for
+    them and the next key and sun targets only for the `bouncing` lanes."""
     from ..ops import shade
 
-    per = STATE_READ_BYTES + 4 + 1 + 3 * 4  # + loop count, bouncing, colour
-    if mode == shade.SUN_PROBE:
-        per += OCCLUDED_BYTES
-    if mode == shade.SUN_DEFERRED:
-        per += 3 * 4 + 1 + 3 * 4  # pending, the shadow mask and directions
+    every = SHADE_LANE_BYTES
     if prev:
-        per += 3 * 4 + OCCLUDED_BYTES
-    if next_key:
-        per += KEY_BYTES
-    if next_targets:
-        per += TARGET_BYTES
+        every += 3 * 4 + OCCLUDED_BYTES  # the pending term, its shadow hit
+    read = SHADE_READ_BYTES
+    if mode == shade.SUN_PROBE:
+        read += OCCLUDED_BYTES
+    shadow = 0
+    if mode == shade.SUN_DEFERRED:
+        every += 3 * 4 + 1  # the pending term and the shadow mask written
+        shadow = 3 * 4      # the shadow directions
+    nxt = (KEY_BYTES if next_key else 0) + (
+        TARGET_BYTES if next_targets else 0)
     # origin, internal reflection and ignore type of the lanes that hit;
     # the direction of the lanes that bounce on
-    return n * per + active * (3 * 4 + 4 + 4) + bouncing * 3 * 4 + 4 * 7
+    changed = active * (3 * 4 + 4 + 4) + bouncing * 3 * 4 + 4 * 7
+    if queued:
+        return (n * every + active * (read + shadow) + bouncing * nxt
+                + changed)
+    # the ignore type is read where a lane did not hit
+    return n * (every + read + IGNORE_TYPE_BYTES + shadow + nxt) + changed
 
 
 def resolve_bytes(n: int, pixels: int, pending: bool = False) -> int:
@@ -213,13 +230,18 @@ def camera_bound_ms(n: int, targets: bool = False):
 
 def shade_bound_ms(n: int, active: int, bouncing: int, mode: int,
                    prev: bool = False, next_key: bool = False,
-                   next_targets: bool = False):
+                   next_targets: bool = False, queued: bool = False):
     from ..ops import shade
 
     ops = SHADE_OPS + (SHADE_SHADOW_OPS if mode == shade.SUN_DEFERRED
-                       else 0) + (SHADE_TARGET_OPS if next_targets else 0)
+                       else 0)
+    target_ops = SHADE_TARGET_OPS if next_targets else 0
+    # the queued build works only on the lanes that hit (and computes the
+    # next sun targets of those that bounce on)
+    n_ops = (active * ops + bouncing * target_ops if queued
+             else n * (ops + target_ops))
     return bound_ms(shade_bytes(n, active, bouncing, mode, prev, next_key,
-                                next_targets), n * ops)
+                                next_targets, queued), n_ops)
 
 
 def resolve_bound_ms(n: int, pixels: int, pending: bool = False):
