@@ -464,10 +464,12 @@ def test_zones_are_no_ops_unless_enabled():
                                   "push_constants", "render_step",
                                   "device_sync", "draw"}
     # the records' first build, and the frame's kernel A and kernel D
-    # launches: two levels without the sun, the second queued
+    # launches: two levels without the sun, the second queued; the first
+    # frame is a key switch (from none), to a step it built
     assert snap["counters"] == {"host_waits": 1, "trace_launches": 2,
                                 "trace_queued": 1, "shade_launches": 2,
-                                "shade_queued": 1}
+                                "shade_queued": 1, "key_switches": 1,
+                                "key_returns": 0}
 
 
 def test_trace_session_writes_the_zones(tmp_path):

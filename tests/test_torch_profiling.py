@@ -187,6 +187,47 @@ def test_a_replay_reads_the_last_replay_of_its_graph_first(tracing):
     assert snap["zones"]["device_marks"]["count"] == 1
 
 
+def test_untraced_records_nothing_and_its_zone_covers_it(tracing, clock):
+    """Inside `untraced()` no zone, wait, counter or mark is recorded, and a
+    capture's marks stay empty (no card is touched); the zone open around
+    it takes its time as its own; after it, recording goes on."""
+    with profiling.zone("edit_insert"):
+        clock.now += 1.0
+        with profiling.capture_marks() as marks, profiling.untraced():
+            with profiling.zone("edit_upload"), profiling.wait("w"):
+                clock.now += 2.0
+            profiling.count("edit_lanes", 5)
+            profiling.device_mark("edit_graph", "cuda")
+            profiling.device_mark("edit_graph", "cuda")
+    profiling.count("edit_lanes", 3)
+    assert marks == []
+    snap = profiling.snapshot()
+    assert set(snap["zones"]) == {"edit_insert"}
+    assert snap["zones"]["edit_insert"] == pytest.approx(
+        {"count": 1, "total_ms": 3000.0, "self_ms": 3000.0})
+    assert snap["counters"] == {"edit_lanes": 3}
+    assert snap["device"] == {}
+
+
+def test_a_key_switch_and_a_return_to_a_kept_step(tracing):
+    """A frame under another step than the frame before it counts a key
+    switch; one whose step was kept counts a return besides."""
+    from zig_vulkan_tpu_torch.engine.controls import ControlPanel
+
+    rt = _engine()
+    ui = ControlPanel(rt)
+    rt.draw()  # the first frame: a switch from none, its step built
+    ui.set_samples_per_pixel(2)
+    rt.draw()  # a switch, built
+    ui.set_samples_per_pixel(1)
+    rt.draw()  # a switch, kept: a return
+    rt.draw()  # no switch
+    ui.set_samples_per_pixel(2)
+    rt.draw()  # a return
+    counters = profiling.snapshot()["counters"]
+    assert (counters["key_switches"], counters["key_returns"]) == (4, 2)
+
+
 def test_device_mark_is_a_no_op_on_the_cpu(tracing):
     profiling.device_mark("edit_graph", "cpu")
     profiling.device_mark("edit_graph", torch.device("cpu"))

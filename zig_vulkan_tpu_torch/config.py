@@ -113,6 +113,12 @@ class EngineConfig:
     (SURVEY.md §5.2): the engine validates the scene at init and checks
     every frame it returns for non-finite or out-of-range pixels
     (`utils.validation`).
+
+    `cards` is the number of cards the frame's rows are split over: shard i
+    goes on `cuda:i` (every shard on the CPU where the engine's device is
+    the CPU), each card holding a replica of the scene
+    (`parallel.mesh.ShardedStep`); 1 draws the whole frame on the engine's
+    device.
     """
 
     internal_resolution_width: int = 1024
@@ -124,6 +130,7 @@ class EngineConfig:
     denoiser: DenoiserConfig = dataclasses.field(default_factory=DenoiserConfig)
     trace: TraceConfig = dataclasses.field(default_factory=TraceConfig)
     debug_validation: bool = False
+    cards: int = 1
 
 
 # Brick geometry constants (reference brick/State.zig:5-11; Vulkan

@@ -69,7 +69,22 @@ temporal_resets, and its frame graph marks the mean (temporal) on the
 card; each frame counts kernel A's launches (trace_launches) and those
 that took a queue of live lanes (trace_queued), and kernel D's
 (shade_launches, shade_queued), as the frame's body reported them (a
-replay what its capture's body did). `utils.profiling` lists them all.
+replay what its capture's body did); a frame under another step than the
+frame before it counts a key switch (key_switches), and a return to a kept
+step besides (key_returns). `utils.profiling` lists them all.
+
+With `EngineConfig(cards=n)`, n > 1, the frame's rows are split over a
+mesh of n shards (`mesh_devices`: shard i on `cuda:i`, or every shard on
+the CPU), and a key's step is a `parallel.mesh.ShardedStep`: each shard
+traces its band of rows and post-processes its output rows (the halo rows
+crossing between neighbouring cards) through graphs replayed on its own
+stream, and the bands are put together on the first card, where `draw()`
+waits for the joined frame. Each card holds a replica of the scene, the
+material table and the records: the first card's are the engine's own, each
+other card's those of an engine of one card on it (`_mirrors`), which the
+edits, `flush_grid` and the material pushes reach after the engine's own,
+so the replicas never diverge. The per-frame values are the same push
+constants (`_push_constants`); the temporal mean is not drawn on a mesh.
 """
 
 from __future__ import annotations
@@ -81,7 +96,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import DenoiserConfig, EngineConfig
+from ..config import DenoiserConfig, EngineConfig, TraceConfig
 from ..core.camera import Camera
 from ..core.grid import BrickGrid, grid_at
 from ..core.materials import MAT_DIELECTRIC, MaterialTable
@@ -89,6 +104,7 @@ from ..core.sun import Sun
 from ..ops import denoise as denoise_mod
 from ..ops import edit as edit_ops
 from ..ops import trace as trace_mod
+from ..parallel import mesh as pmesh
 from ..utils import profiling, validation
 from .benchmark import Benchmark
 from .metrics import FrameMetrics
@@ -165,6 +181,30 @@ class VoxelRT:
         self._step_cache = {}
         self._push = PushRing(self.device)
         self._edit_cache = {}  # padded size -> EditStep
+        self._drawn = None  # the step of the last frame drawn
+
+        # the mesh of cards > 1 (None on one card), the engines of one card
+        # that hold the other cards' replicas, and each shard's owner of its
+        # replica
+        self.mesh = None
+        self._mirrors = ()
+        self._owners = ()
+        if int(config.cards) > 1:
+            self._split(grid, materials, int(config.cards))
+
+    def _split(self, grid: BrickGrid, materials: MaterialTable,
+               cards: int) -> None:
+        """The mesh of `cards` shards and a replica of the scene on each of
+        its devices: the engine's own on the first, an engine of one card
+        on each other (from the same host grid)."""
+        self.mesh = pmesh.make_mesh(mesh_devices(self.device, cards))
+        one = dataclasses.replace(self.config, cards=1,
+                                  debug_validation=False)
+        owners = {self.mesh.devices[0]: self}
+        for dev in self.mesh.distinct[1:]:
+            owners[dev] = VoxelRT(grid, materials, one, dev)
+        self._mirrors = tuple(owners[d] for d in self.mesh.distinct[1:])
+        self._owners = tuple(owners[d] for d in self.mesh.devices)
 
     def tables(self):
         """The scene's per-cell traversal records, built on first use with
@@ -193,38 +233,62 @@ class VoxelRT:
         current key is captured once and replayed. In debug mode
         (`utils.validation.enable_debug_mode`) a frame with non-finite or
         out-of-range pixels raises SceneValidationError."""
-        return _checked(self._render(Step.__call__))
+        return _checked(self._render(True))
 
     def render_op_by_op(self):
         """The same frame as `render()`, through the same step's body called
         op by op on any device (no graph): each kernel launch goes through
         its wrapper. Advances the temporal count as `render()` does."""
-        return _checked(self._render(Step.op_by_op))
+        return _checked(self._render(False))
 
-    def step(self) -> Step:
-        """The current key's step, built (not captured) on first use and
-        kept: a return to a key replays its graph."""
+    def step(self):
+        """The current key's step (a `parallel.mesh.ShardedStep` on a
+        mesh), built (not captured) on first use and kept: a return to a
+        key replays its graph."""
         self.tables()
+        for mirror in self._mirrors:
+            mirror.tables()
         key = self._step_key()
         step = self._step_cache.get(key)
         if step is None:
             step = self._step_cache[key] = self._build_step(key)
         return step
 
-    def _render(self, run):
-        """One frame of the current step through `run(step)`."""
+    def _render(self, graphed: bool):
+        """One frame of the current step, through its graph or op by op."""
         with profiling.zone("step_lookup"):
+            kept = len(self._step_cache)
             step = self.step()
+            if step is not self._drawn:
+                # a frame under another step than the frame before it: a
+                # return where the key's step was kept (its graph replays)
+                self._drawn = step
+                profiling.count("key_switches")
+                profiling.count("key_returns",
+                                len(self._step_cache) == kept)
+        if self.mesh is not None:
+            return self._render_sharded(step, graphed)
         with profiling.zone("push_constants"):
             if step.accum is not None:
                 with profiling.zone("temporal"):
                     self._carry_or_reset(step)
             self._push.upload(self._push_constants(), step.pc)
         with profiling.zone("render_step"):
-            image = run(step)
+            image = step() if graphed else step.op_by_op()
         if step.accum is not None:
             self._accum_count += 1
         return image
+
+    def _render_sharded(self, step, graphed: bool):
+        """One frame of a mesh's step over every card's replica and
+        records, from the engine's push constants."""
+        with profiling.zone("push_constants"):
+            pc = self._push_constants()
+        owners = self._owners
+        with profiling.zone("render_step"):
+            return step.frame(tuple(o.arrays for o in owners),
+                              tuple(o.mats for o in owners), pc,
+                              tuple(o._tables for o in owners), graphed)
 
     def _carry_or_reset(self, step: Step) -> None:
         """Point the running mean at `step`'s accumulator: carried over
@@ -265,14 +329,17 @@ class VoxelRT:
             bool(tc.empty_skip), bool(self.temporal_enabled),
             bool(tc.sun_in_kernel))
 
-    def _build_step(self, key: StepKey) -> Step:
-        """The step of `key` over the scene's current tensors: camera rays
-        from pc[0:12], the trace with the sun from pc[12:19] and the sample
-        base from pc[21], the temporal mean through pc[22], then
+    def _build_step(self, key: StepKey):
+        """The step of `key` (on a mesh, `_build_sharded_step`'s) over the
+        scene's current tensors: camera rays from pc[0:12], the trace with
+        the sun from pc[12:19] and the sample base from pc[21], the
+        temporal mean through pc[22], then
         `denoise.postprocess` on the runtime path (as the JAX step's
         `denoise(..., max_samples=MAX_RUNTIME_SAMPLES)`) with the denoiser's
         samples, distribution bias and hue tolerance read from pc[23],
         pc[19] and pc[20]."""
+        if self.mesh is not None:
+            return self._build_sharded_step(key)
         static = self.grid_static
         tables = self._tables
         material_indices = self.arrays.material_indices
@@ -308,6 +375,22 @@ class VoxelRT:
                        if key.temporal else None)
         return Step(key, body, self.device, accum_shape, self._graphs,
                     report)
+
+    def _build_sharded_step(self, key: StepKey):
+        """The mesh's step of `key`: the frame of `_build_step` with the
+        rows split over the shards, the post-process on the denoiser's
+        runtime path with its knobs read from the same push constants."""
+        return pmesh.build_sharded_step(
+            self.mesh, self.grid_static, width=key.internal_width,
+            height=key.internal_height, spp=key.samples_per_pixel,
+            max_bounce=key.max_bounce, sun_enabled=key.sun_enabled,
+            out_width=key.output_width, out_height=key.output_height,
+            denoiser=DenoiserConfig(pixel_multiplier=key.pixel_multiplier,
+                                    enabled=key.denoiser_enabled),
+            trace_config=TraceConfig(max_steps=key.max_steps,
+                                     empty_skip=key.empty_skip,
+                                     sun_in_kernel=key.sun_in_kernel),
+            max_samples=denoise_mod.MAX_RUNTIME_SAMPLES)
 
     def _push_constants(self) -> np.ndarray:
         """Per-frame values packed into one f32[24] array, the JAX engine's
@@ -370,6 +453,8 @@ class VoxelRT:
             dst.copy_(src)
         self._bricks_upper = int(grid.arrays.active_bricks)
         self._records_current = False
+        for mirror in self._mirrors:
+            mirror.flush_grid(grid)
 
     def push_materials(self, materials: MaterialTable) -> None:
         """Replace the material table (VoxelRT.zig:85-88), written into the
@@ -380,6 +465,8 @@ class VoxelRT:
         is_diel, ir = _classification(materials)
         self._mat_is_diel.copy_(torch.from_numpy(is_diel))
         self._mat_ir.copy_(torch.from_numpy(ir))
+        for mirror in self._mirrors:
+            mirror.push_materials(materials)
 
     def push_albedo(self, index: int, albedo) -> None:
         """Update one material's albedo (VoxelRT.zig:90-92 pushAlbedo), in
@@ -388,7 +475,12 @@ class VoxelRT:
         self.push_materials(self.materials_host)
 
     def set_temporal(self, enabled: bool) -> None:
-        """Toggle temporal accumulation (BASELINE config 4)."""
+        """Toggle temporal accumulation (BASELINE config 4). Not on a
+        mesh: the running mean is drawn on one card."""
+        if enabled and self.mesh is not None:
+            raise ValueError("set_temporal: the temporal mean is not drawn "
+                             "on a mesh of cards; build the engine with "
+                             "cards=1")
         self.temporal_enabled = bool(enabled)
         self._accum = None
         self._accum_count = 0
@@ -536,6 +628,13 @@ class VoxelRT:
         with profiling.zone("edit_launch"):
             kernels = run(step.graph(key, lambda: self._edit_body(*key)))
         profiling.count("edit_kernel", int(kernels))
+        # the same edit on the other cards' replicas, untraced: the edit's
+        # zones, counters and device spans stay those of one edit of the
+        # scene (its `edit_insert` / `edit_remove` zone covers them all)
+        with profiling.untraced():
+            for mirror in self._mirrors:
+                mirror._edit(op, xyz, mats, run)
+                mirror._bricks_upper = self._bricks_upper
 
     def _edit_body(self, op: str, records: bool):
         """The edit of `op` over an `EditStep`'s buffer (`ops.edit.insert`
@@ -627,6 +726,21 @@ class VoxelRT:
 
     def device_image_to_host(self, image) -> np.ndarray:
         return image.cpu().numpy()
+
+
+def mesh_devices(device, cards: int):
+    """The devices of an engine's mesh of `cards` shards on `device`: on a
+    card, `cards` cards from the device's on (shard i on `cuda:i` from
+    `cuda:0`); on the CPU every shard on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * cards
+    first = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if first + cards > torch.cuda.device_count():
+        raise ValueError(f"cards={cards} from cuda:{first}: this machine has "
+                         f"{torch.cuda.device_count()} CUDA device(s)")
+    return [torch.device("cuda", first + i) for i in range(cards)]
 
 
 def _call_body(graphed: GraphedCall):

@@ -18,7 +18,7 @@ here is one process that owns a tuple of `torch.device`s:
   neighbours' traced bands (`ops.denoise.band_input_rows`), read in place
   on its own card or copied from another card, and post-processes its band
   of output rows;
-- the bands are concatenated on the mesh's first device.
+- the bands are put together in one image on the mesh's first device.
 
 On CUDA devices each shard's trace and post-process are CUDA graphs
 (`engine.step.GraphedCall`), captured on the first call for the replicas
@@ -36,12 +36,32 @@ Ordering on CUDA is fork-join with events, never a device-wide
 synchronize: each shard's stream first waits for the caller's current
 stream of its device; a shard that reads a neighbour's band waits for the
 event recorded after that band's trace; at the end the caller's stream of
-every device waits for the shards' last events. The streams belong to the
-step, so a buffer that one stream allocated and another read is reused only
-by a later step, which starts behind that join.
+every device waits for the shards' last events, and the first device's for
+every shard's. The streams belong to the step, so a buffer that one stream
+allocated and another read is reused only by a later step, which starts
+behind that join. The assembly then copies each band into its rows of a
+fresh image on the first device: a band from another card by a copy
+between cards, which runs on that card's current stream and is fenced both
+ways against the first device's current stream.
+
+The engine (`engine.engine.VoxelRT` with `EngineConfig(cards=n)`) draws
+through `ShardedStep.frame`, with its own push constants and
+`max_samples`: the post-process then reads the denoiser's samples,
+distribution bias and hue tolerance from them, as the engine's one-card
+step does. While tracing is on (`utils.profiling`), a frame is the zone
+`mesh_dispatch`; each shard's trace and post-process are each between a
+pair of device marks `mesh_shard.<i>` on the shard's stream (after the
+halo waits, so a shard's span is its own work), and the assembly between
+the marks `mesh_assemble` on the first device's stream; a frame counts
+`mesh_shards`, `mesh_halo_bytes` (halo rows copied between cards) and
+`mesh_assembled_bytes` (band bytes copied onto the first device from
+others), and adds each shard's kernel A and D counts (`trace_launches`,
+`trace_queued`, `shade_launches`, `shade_queued`), as its trace body
+reported them, as the engine's one-card step does.
 
 The host dispatches the shards in turn from one thread; a thread per shard
-was measured on the H100 and lost (PERF.md section 5).
+was timed on the H100 and lost (CHANGES.md, the entry of the row-sharded
+bring-up: "a thread a shard was timed ... and lost").
 
     python -m zig_vulkan_tpu_torch.parallel.mesh [n] [--device cpu]
 
@@ -64,6 +84,7 @@ from ..engine.step import (PUSH_CONSTANTS, GraphedCall, PushRing,
                            pack_frame, trace_from_pc)
 from ..ops import denoise as denoise_mod
 from ..ops import trace as trace_mod
+from ..utils import profiling
 from ..utils.device import NoCudaDevice, cli_main
 
 TILE_AXIS = "tiles"
@@ -155,7 +176,8 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
                        out_width: Optional[int] = None,
                        out_height: Optional[int] = None,
                        denoiser: DenoiserConfig = DenoiserConfig(),
-                       trace_config: TraceConfig = TraceConfig()):
+                       trace_config: TraceConfig = TraceConfig(),
+                       max_samples: Optional[int] = None):
     """Build a multi-device render step.
 
     Returns a `ShardedStep`: step(arrays_r, mats_r, cam, sun_position,
@@ -168,6 +190,12 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
     every replica when the caller brings none: engines and benchmarks pass
     the cache, so that a frame costs the trace alone.
 
+    `step.frame(arrays_r, mats_r, pc, tables)` draws the same frame from
+    push constants the caller packed (the engine's). With `max_samples` the
+    post-process takes the denoiser's runtime path (`denoise.postprocess(
+    ..., max_samples=)`), its samples, distribution bias and hue tolerance
+    read from pc[23], pc[19] and pc[20].
+
     The image equals the unsharded `render_rows` + `denoise.postprocess` bit
     for bit. `trace_config.max_steps`, `empty_skip` and `sun_in_kernel` act
     as in the engine. The JAX step's `use_pallas`, `tile_interpret`,
@@ -176,7 +204,8 @@ def build_sharded_step(mesh: Mesh, static: GridStatic, *,
     return ShardedStep(mesh, static, width=width, height=height, spp=spp,
                        max_bounce=max_bounce, sun_enabled=sun_enabled,
                        out_width=out_width, out_height=out_height,
-                       denoiser=denoiser, trace_config=trace_config)
+                       denoiser=denoiser, trace_config=trace_config,
+                       max_samples=max_samples)
 
 
 class BandPlan:
@@ -187,7 +216,7 @@ class BandPlan:
 
     def __init__(self, static: GridStatic, n: int, *, width, height, spp,
                  max_bounce, sun_enabled, out_width, out_height, denoiser,
-                 trace_config):
+                 trace_config, max_samples=None):
         if height % n != 0:
             raise ValueError(f"internal height {height} must divide the "
                              f"mesh size {n}")
@@ -199,35 +228,50 @@ class BandPlan:
         self.out_w = int(out_width or width)
         self.out_h = int(out_height or height)
         self.denoiser = denoiser
+        self.max_samples = max_samples
         self.trace_config = trace_config
         self.use_skip = bool(trace_config.empty_skip)
         # output rows of shard i, and the input rows they read
         self.out_rows = [(i * self.out_h // n, (i + 1) * self.out_h // n)
                          for i in range(n)]
         self.in_rows = [denoise_mod.band_input_rows(
-            r0, r1, self.out_h, self.height, denoiser)
+            r0, r1, self.out_h, self.height, denoiser, max_samples)
             for r0, r1 in self.out_rows]
         # without the denoiser at the same size, shard i's output rows are
         # its traced rows
         self.traced_is_output = (not denoiser.enabled and (
             self.out_h, self.out_w) == (self.height, self.width))
+        # shard i's kernel A and D counts, as its trace body's last run
+        # reported them (`ops.trace.render_rows`' `report`)
+        self.reports = [{} for _ in range(n)]
 
     def trace(self, i, pc, tables, material_indices, mats):
         """Shard i's band of traced rows over its push constants `pc`."""
         tc = self.trace_config
+        report = self.reports[i]
+        report.clear()
         return trace_from_pc(
             pc, self.static, tables, material_indices, mats, self.width,
             self.height, self.spp, self.max_bounce, self.sun_enabled,
             max_steps=int(tc.max_steps), shadow_probe=bool(tc.sun_in_kernel),
-            use_skip=self.use_skip, row0=i * self.rows, rows=self.rows)
+            use_skip=self.use_skip, row0=i * self.rows, rows=self.rows,
+            report=report)
 
-    def post(self, i, *pieces):
-        """Shard i's output rows from the pieces of its input rows."""
+    def post(self, i, *pieces, pc=None):
+        """Shard i's output rows from the pieces of its input rows; with
+        `max_samples` the denoiser's knobs are read from its push constants
+        `pc` (0-d views, read in place by a replay)."""
         a = self.in_rows[i][0]
         slab = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        denoiser = self.denoiser
+        if self.max_samples is not None:
+            denoiser = dataclasses.replace(
+                denoiser, samples=pc[23], distribution_bias=pc[19],
+                inverse_hue_tolerance=pc[20])
         return denoise_mod.postprocess(
-            slab, self.denoiser, self.out_h, self.out_w,
-            band=denoise_mod.Band(*self.out_rows[i], a, self.height))
+            slab, denoiser, self.out_h, self.out_w,
+            band=denoise_mod.Band(*self.out_rows[i], a, self.height),
+            max_samples=self.max_samples)
 
     def sources(self, i):
         """(shard j, its input rows [r0, r1)) whose traced rows shard i's
@@ -246,7 +290,8 @@ class ShardedStep:
     graph, on the shard's stream (captured on the first call, or on the
     first call with other replicas or records: one set of graphs is kept;
     op by op on the CPU). `op_by_op` calls the same bodies on the same
-    inputs without graphs. Both return a fresh image."""
+    inputs without graphs. `frame` is either route over push constants the
+    caller packed. Each returns a fresh image."""
 
     def __init__(self, mesh: Mesh, static: GridStatic, **frame):
         self.mesh = mesh
@@ -264,6 +309,14 @@ class ShardedStep:
         self._inputs = None   # the replicas and records the graphs read
         self._trace = None    # shard -> GraphedCall of its trace
         self._post = None     # shard -> GraphedCall of its post-process
+        self.marks = tuple(f"mesh_shard.{i}" for i in range(mesh.size))
+        # bytes of the bands that the assembly copies onto the first device
+        # from another
+        first, plan = mesh.devices[0], self.plan
+        self.assembled_bytes = sum(
+            (r1 - r0) * plan.out_w * 3 * 4
+            for (r0, r1), dev in zip(plan.out_rows, mesh.devices)
+            if dev != first)
         if self.cuda:
             from .. import _build
 
@@ -271,15 +324,26 @@ class ShardedStep:
 
     def __call__(self, arrays_r, mats_r, cam, sun_position, sun_color,
                  sun_radius, tables=None, sample_base=0.0):
-        return self._frame(arrays_r, mats_r, cam, sun_position, sun_color,
-                           sun_radius, tables, sample_base, self.graphed)
+        return self._frame(arrays_r, mats_r, tables, self.graphed,
+                           *self._packed(cam, sun_position, sun_color,
+                                         sun_radius, sample_base))
 
     def op_by_op(self, arrays_r, mats_r, cam, sun_position, sun_color,
                  sun_radius, tables=None, sample_base=0.0):
         """The same frame with each shard's bodies called op by op (no
         graph): every kernel launch goes through its wrapper."""
-        return self._frame(arrays_r, mats_r, cam, sun_position, sun_color,
-                           sun_radius, tables, sample_base, False)
+        return self._frame(arrays_r, mats_r, tables, False,
+                           *self._packed(cam, sun_position, sun_color,
+                                         sun_radius, sample_base))
+
+    def frame(self, arrays_r, mats_r, pc: np.ndarray, tables,
+              graphed: bool = True):
+        """The frame over host push constants `pc` (f32[PUSH_CONSTANTS] in
+        the engine's layout: `engine.engine.VoxelRT._push_constants`) and
+        the per-shard records `tables`, through the graphs where the mesh
+        has them and `graphed`, else op by op."""
+        return self._frame(arrays_r, mats_r, tables,
+                           graphed and self.graphed, pc)
 
     def _on(self, i):
         """Shard i's device and stream as the current ones."""
@@ -291,14 +355,19 @@ class ShardedStep:
         return (None if self.streams[i] is None
                 else self.streams[i].record_event())
 
-    def _frame(self, arrays_r, mats_r, cam, sun_position, sun_color,
-               sun_radius, tables, sample_base, graphed):
+    def _frame(self, arrays_r, mats_r, tables, graphed, pc, basis=None):
+        with profiling.zone("mesh_dispatch"):
+            return self._dispatch(arrays_r, mats_r, tables, graphed, pc,
+                                  basis)
+
+    def _dispatch(self, arrays_r, mats_r, tables, graphed, pc, basis):
         mesh, plan, devices = self.mesh, self.plan, self.mesh.devices
         if tables is None:
             tables = map_replicas(
                 mesh, lambda a: trace_mod.one_shot_tables(
                     plan.static, a, plan.use_skip), arrays_r)
-        self._upload(cam, sun_position, sun_color, sun_radius, sample_base)
+        self._upload(pc, basis)
+        profiling.count("mesh_shards", mesh.size)
         callers = {dev: torch.cuda.current_stream(dev) for dev in self.cuda}
         for i, stream in enumerate(self.streams):
             if stream is not None:
@@ -311,8 +380,14 @@ class ShardedStep:
         traced, traced_at = [], []
         for i in range(mesh.size):
             with self._on(i):
+                profiling.device_mark(self.marks[i], devices[i])
                 traced.append(self._traced(i, inputs[i], graphed))
+                profiling.device_mark(self.marks[i], devices[i])
                 traced_at.append(self._recorded(i))
+        # each shard's kernel A and D counts (a replay its capture's)
+        for report in plan.reports:
+            for name, n in report.items():
+                profiling.count(name, n)
         # every band is traced (its event recorded) before any shard reads
         # its neighbours' rows
         bands, done_at = traced, traced_at
@@ -322,15 +397,34 @@ class ShardedStep:
                 with self._on(i):
                     pieces = [self._piece(i, j, r0, r1, traced, traced_at)
                               for j, r0, r1 in plan.sources(i)]
-                    bands.append(self._posted(i, pieces, graphed))
+                    profiling.device_mark(self.marks[i], devices[i])
+                    bands.append(self._posted(i, inputs[i][0], pieces,
+                                              graphed))
+                    profiling.device_mark(self.marks[i], devices[i])
                     done_at.append(self._recorded(i))
+        first = devices[0]
         for i, dev in enumerate(devices):
             if self.streams[i] is not None:
                 callers[dev].wait_event(done_at[i])
-        first = devices[0]
+                if dev != first:
+                    callers[first].wait_event(done_at[i])
+        return self._assemble(bands)
+
+    def _assemble(self, bands):
+        """A fresh image on the first device with each shard's band in its
+        output rows, the copies between the `mesh_assemble` marks on the
+        first device's stream, behind every shard's last event."""
+        plan, first = self.plan, self.mesh.devices[0]
+        profiling.count("mesh_assembled_bytes", self.assembled_bytes)
         with (torch.cuda.device(first) if first.type == "cuda"
               else contextlib.nullcontext()):
-            return torch.cat([band.to(first) for band in bands])
+            image = torch.empty((plan.out_h, plan.out_w, 3),
+                                dtype=torch.float32, device=first)
+            profiling.device_mark("mesh_assemble", first)
+            for (r0, r1), band in zip(plan.out_rows, bands):
+                image[r0:r1].copy_(band, non_blocking=True)
+            profiling.device_mark("mesh_assemble", first)
+        return image
 
     def _hold(self, inputs):
         """Graphs over `inputs`: kept while a call brings the same tensors,
@@ -357,14 +451,15 @@ class ShardedStep:
             g.out.copy_(band)
         return g.out
 
-    def _posted(self, i, pieces, graphed):
+    def _posted(self, i, pc, pieces, graphed):
         """Shard i's output rows: its body's, or its graph's, a graph over
-        the pieces of the call that captures it."""
+        the pieces of the call that captures it and its push constants
+        `pc`."""
         if not graphed:
-            return self.plan.post(i, *pieces)
+            return self.plan.post(i, *pieces, pc=pc)
         if self._post[i] is None:
-            self._post[i] = GraphedCall(functools.partial(self.plan.post, i),
-                                        *pieces)
+            self._post[i] = GraphedCall(
+                functools.partial(self.plan.post, i, pc=pc), *pieces)
         return self._post[i]()
 
     def _piece(self, i, j, r0, r1, traced, traced_at):
@@ -391,21 +486,33 @@ class ShardedStep:
         # trace, and shard i's stream (still current on `dev`) waits for it
         with self._on(j):
             slab.copy_(piece, non_blocking=True)
+        profiling.count("mesh_halo_bytes", piece.numel() * piece.element_size())
         return slab
 
-    def _upload(self, cam, sun_position, sun_color, sun_radius,
+    def _packed(self, cam, sun_position, sun_color, sun_radius,
                 sample_base):
-        """The frame's push constants to every distinct device: one upload
-        from pinned memory (the camera, when it lies on a card, copied
-        there on the card), then a copy to each other card."""
+        """(the frame's push constants, the camera basis where it lies on
+        a card, else None): `pack_frame`'s values and the denoiser's knobs
+        (pc[19], pc[20], pc[23]) of the step's configuration."""
         basis = torch.cat([cam[k].reshape(3)
                            for k in trace_mod.CAMERA_BASIS])
         on_host = basis.device.type == "cpu"
         pc = pack_frame(basis.numpy() if on_host else None, sun_position,
                         sun_color, sun_radius, sample_base)
+        dn = self.plan.denoiser
+        pc[19] = np.float32(dn.distribution_bias)
+        pc[20] = np.float32(dn.inverse_hue_tolerance)
+        pc[23] = np.float32(min(int(dn.samples),
+                                denoise_mod.MAX_RUNTIME_SAMPLES))
+        return pc, None if on_host else basis
+
+    def _upload(self, pc, basis):
+        """The frame's push constants to every distinct device: one upload
+        from pinned memory (the camera basis, when it lies on a card,
+        copied there on the card), then a copy to each other card."""
         devices = self.mesh.distinct
         self.push.upload(pc, self.pcs[devices[0]])
-        if not on_host:
+        if basis is not None:
             self.pcs[devices[0]][0:12].copy_(basis)
         for dev in devices[1:]:
             self.pcs[dev].copy_(self.pcs[devices[0]], non_blocking=True)

@@ -14,7 +14,8 @@ less what the zones opened inside it cover). `count` adds to a counter,
 CUDA graphs too. `snapshot()` reads the store as plain numbers.
 
 Everything is a no-op unless tracing is enabled, by `enable()` or for the
-scope of a `trace_session`. `enable(True)` from off starts a new, empty
+scope of a `trace_session`, and inside an `untraced()` scope, where a
+graph captured holds no mark either. `enable(True)` from off starts a new, empty
 recording; `enable(False)` keeps it for reading. The store holds one entry
 a name, and at most `MAX_PENDING` device mark pairs wait to be read, so it
 stays bounded however long tracing stays on.
@@ -38,6 +39,11 @@ The zones of the engine (`engine.engine.VoxelRT`, `engine.step`,
       edit_upload       the batch's pinned upload
       edit_launch       the edit graph's replay (its capture on first use)
     capture           GraphedCall's warm-up and capture of a graph
+    mesh_dispatch     a frame of the row-sharded step (parallel.mesh
+                      ShardedStep: an engine with cards > 1, inside
+                      render_step): the push constants' upload, the
+                      shards' graphs, the copies between cards and the
+                      assembly issued
 
 the host waits (`wait`, counted under `host_waits`): build_tables (the
 records' first build), guard_statuses and guard_active_bricks (the
@@ -50,12 +56,19 @@ that ran their plain body), pose_native (1 a pose the native routine took,
 0 a pose its numpy twin took), temporal_frames and temporal_resets (1 a
 frame drawn with a temporal key, 1 a frame whose running mean was zeroed),
 trace_launches and trace_queued (a frame's kernel A launches, and those of
-them that took a queue of live lanes), shade_launches and shade_queued (the
-same of kernel D);
+them that took a queue of live lanes; on a mesh, summed over its shards),
+shade_launches and shade_queued (the same of kernel D), key_switches and
+key_returns (1 a frame drawn under another key than the frame before it,
+1 such a frame whose key's step was kept: a replay), mesh_shards (a sharded frame's shards), mesh_halo_bytes
+(the halo rows a sharded frame copies between cards) and
+mesh_assembled_bytes (the band bytes it copies onto its first card from
+the others);
 the device spans (`device_mark` pairs) edit_graph (an edit graph from its
 first node to its last), edit_field (the insert's field rebuild; on a card
-its three launches, the last of which also writes the touched rows) and
-temporal (the running mean inside the frame graph).
+its three launches, the last of which also writes the touched rows),
+temporal (the running mean inside the frame graph), mesh_shard.<i> (shard
+i's trace and, a second pair, its post-process on the shard's stream) and
+mesh_assemble (a sharded frame's assembly on its first card's stream).
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog
@@ -75,6 +88,7 @@ from typing import Iterator
 import torch
 
 _ENABLED = False
+_MUTED = False  # inside `untraced()`
 _NVTX = False  # whether zones push NVTX ranges: set where tracing is enabled
 _OFF = contextlib.nullcontext()  # what a zone is while tracing is off
 
@@ -251,7 +265,7 @@ def zone(name: str):
     """A named zone (ztracy.ZoneN analog), used as `with zone(name):`. Its
     parent is the zone open when it begins. While tracing is off it is a
     shared null context: it records nothing."""
-    if not _ENABLED:
+    if not _ENABLED or _MUTED:
         return _OFF
     return _Zone(name)
 
@@ -259,7 +273,7 @@ def zone(name: str):
 def wait(site: str):
     """The zone of a host wait on the card at `site`, also counted under
     `host_waits`."""
-    if not _ENABLED:
+    if not _ENABLED or _MUTED:
         return _OFF
     _store.add("host_waits", 1)
     return _Zone(site)
@@ -267,8 +281,23 @@ def wait(site: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to counter `name`."""
-    if _ENABLED:
+    if _ENABLED and not _MUTED:
         _store.add(name, int(n))
+
+
+@contextlib.contextmanager
+def untraced() -> Iterator[None]:
+    """A scope that records nothing: no zone, wait, counter or device mark,
+    and a graph captured in it holds no mark node, so that its replays add
+    no device span either. The zone open around the scope still covers its
+    time. (The engine's mirrors repeat an edit on the other cards' replicas
+    in one: the edit's counters and spans are those of one edit.)"""
+    global _MUTED
+    was, _MUTED = _MUTED, True
+    try:
+        yield
+    finally:
+        _MUTED = was
 
 
 # the pairs of the capture in progress (GraphedCall._capture), or None
@@ -282,7 +311,7 @@ def device_mark(name: str, device) -> None:
     event becomes an event-record node of the graph, and every replay of
     the graph that tracing sees times the span (`replaying`); outside a
     capture the pair is timed while tracing is on. A no-op off the card."""
-    if torch.device(device).type != "cuda":
+    if _MUTED or torch.device(device).type != "cuda":
         return
     if _capture_marks is not None:
         _capture_marks.mark(name, device)
@@ -322,14 +351,18 @@ def replaying(pairs: list) -> None:
 def _queue(pairs) -> None:
     _store.pending.extend(pairs)
     if len(_store.pending) > MAX_PENDING:
-        _settle()
+        # the older half: pairs the card has most likely run, so that a
+        # frame being issued does not wait for its own marks
+        _settle(len(_store.pending) - MAX_PENDING // 2)
 
 
-def _settle() -> None:
-    """Read every pending pair into its device span, waiting (as a host
-    wait) for a pair the card has not run yet."""
+def _settle(n: int | None = None) -> None:
+    """Read the `n` oldest pending pairs (every one by default) into their
+    device spans, waiting (as a host wait) for a pair the card has not run
+    yet."""
     st = _store
-    for name, begin, end in st.pending:
+    n = len(st.pending) if n is None else n
+    for name, begin, end in st.pending[:n]:
         if not end.query():
             with wait("device_marks"):
                 end.synchronize()
@@ -338,7 +371,7 @@ def _settle() -> None:
             rec = st.device[name] = [0, 0.0]
         rec[0] += 1
         rec[1] += begin.elapsed_time(end)
-    st.pending = []
+    st.pending = st.pending[n:]
 
 
 def snapshot() -> dict:
