@@ -3,7 +3,7 @@ denoised frame of BASELINE config 5's streamed world, its rows split over
 four cards) at a size the CPU runs (`rtbench.tests.small.small_cell`: a
 32x16x32-brick world and 64x36 frames, every shard on the CPU): the
 configuration against the two it is made of, the reference `plain_banded`
-against `plain`, the cell's four readers on planted stores, the control and
+against `plain`, the cell's five readers on planted stores, the control and
 the whole harness run. Imports nothing of JAX.
 
     python -m pytest tests/test_rtbench_pathtraced_4k_4cards.py -q
@@ -22,7 +22,7 @@ CELL = "pathtraced_4k_4cards"
 CPU = torch.device("cpu")
 SEED = 2**33 + 25
 READERS = ("mesh.host_ms", "mesh.balance_share", "mesh.assemble_ms",
-           "assemble_roofline")
+           "assemble_roofline", "mesh.frame_device_ms")
 LAYER = ("engine on a mesh (engine.py VoxelRT.draw, parallel/mesh.py "
          "ShardedStep)")
 RESOLUTION = ("internal_resolution_width", "internal_resolution_height",
@@ -120,6 +120,24 @@ def test_readers_on_a_planted_store(monkeypatch):
     assert per_frame == 74_649_600
     assert bound == pytest.approx(0.15612988235, rel=1e-9)
     assert _read("assemble_roofline") == pytest.approx(100 * bound / 0.3)
+
+
+def test_frame_device_ms_on_a_planted_store(monkeypatch):
+    """Ten frames of 62 card ms between the `mesh_frame` marks read 6.2 ms
+    a frame; a store with the mesh's other marks and no `mesh_frame` (a
+    program that marks no frame) reads nothing."""
+    shards = {f"mesh_shard.{i}": {"count": 20, "total_ms": 40.0}
+              for i in range(4)}
+    _store(monkeypatch, device={**shards,
+                                "mesh_assemble": {"count": 10,
+                                                  "total_ms": 3.0},
+                                "mesh_frame": {"count": 10,
+                                               "total_ms": 62.0}})
+    assert _read("mesh.frame_device_ms") == pytest.approx(6.2)
+    _store(monkeypatch, device={**shards, "mesh_assemble": {
+        "count": 10, "total_ms": 3.0}})
+    assert _read("mesh.frame_device_ms") is None
+    assert _read("mesh.assemble_ms") == pytest.approx(0.3)
 
 
 @pytest.mark.parametrize("ms_over_bound", [1.0, 1.5, 40.0])

@@ -344,3 +344,45 @@ def test_four_card_frame_is_the_one_card_frame(cell, world):
     for (name, a, _), (_, b, _) in zip(_session(rt, None, tables),
                                        _session(one, None, tables)):
         assert torch.equal(a, b), name
+
+
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: the host runs ahead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [2, 4])
+def test_back_to_back_frames_on_the_cards(cell, world, cards):
+    """16 frames drawn back to back through the sharded step's graphs, the
+    camera moving between them, no host synchronize among them, and each
+    post-process held back by a spin kernel on its stream so that the host
+    issues later frames' halo copies while earlier frames still read their
+    slabs: each image equals the op-by-op route's and the one-card
+    engine's bit for bit (the slabs' write-after-read fence)."""
+    _cards(cards)
+    path, tables = world
+    rt = _engine(cell, path, cards, "cuda:0")
+    one = _engine(cell, path, 1, "cuda:0")
+    prog, prog_one = harness.Program(rt), harness.Program(one)
+    prog.pose(tables.frame(0))
+    rt.draw()  # the capture frame
+    step = rt.step()
+    posted = step._posted
+
+    def held_back(i, *args):
+        torch.cuda._sleep(SPIN_CYCLES)  # on shard i's stream, current here
+        return posted(i, *args)
+
+    step._posted = held_back
+    poses = range(1, 17)
+    images = []
+    for g in poses:
+        prog.pose(tables.frame(g))
+        images.append(rt.render())
+    del step._posted
+    torch.cuda.synchronize()
+    for g, image in zip(poses, images):
+        prog.pose(tables.frame(g))
+        prog_one.pose(tables.frame(g))
+        assert torch.equal(image, rt.render_op_by_op()), g
+        assert torch.equal(image, one.render()), g
+    assert not torch.equal(images[0], images[1])

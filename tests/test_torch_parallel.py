@@ -31,6 +31,8 @@ one, so only whole vectors compare bit for bit between a band and the
 whole image. A CUDA device computes every element alike.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -408,11 +410,12 @@ def test_remove_batch_matches_reference():
     np.testing.assert_array_equal(grids[0].arrays.occupancy, before)
 
 
-def _moving_frames(f, n, denoiser, calls=3):
-    """`calls` frames of one sharded step, the camera and the sun moved and
-    the sample base changed between them, each with the unsharded frame of
-    the same values."""
-    m = _cpu_mesh(n)
+def _moving_frames(f, n, denoiser, calls=3, devices=None):
+    """`calls` frames of one sharded step (over `n` shards of the CPU, or
+    over `devices`), the camera and the sun moved and the sample base
+    changed between them, each with the unsharded frame of the same
+    values."""
+    m = _cpu_mesh(n) if devices is None else pmesh.make_mesh(devices)
     d = f.camera.d_camera
     step = pmesh.build_sharded_step(
         m, f.static, width=W, height=H, spp=int(d.samples_per_pixel),
@@ -496,3 +499,181 @@ def test_sharded_graphs_read_static_bands(monkeypatch, n, denoise):
     assert torch.equal(step(*args, tables=fresh, sample_base=base), want)
     assert _FakeGraph.captures - before == n * 4
     assert step._inputs[0][1] is fresh[0]  # (pc, records, ...)
+
+
+class _Op:
+    """An operation a stand-in stream holds: its name, the frame that
+    issued it and the operations it follows directly."""
+
+    def __init__(self, name, frame, after):
+        self.name, self.frame, self.after = name, frame, after
+
+    def follows(self, other) -> bool:
+        """Whether `other` is among the operations this one waits for,
+        directly or through others."""
+        seen, todo = set(), list(self.after)
+        while todo:
+            op = todo.pop()
+            if op is other:
+                return True
+            if id(op) not in seen:
+                seen.add(id(op))
+                todo.extend(op.after)
+        return False
+
+
+class _FakeCards:
+    """Streams, events and copies between cards on the CPU, as a CUDA
+    build of torch has them, for a mesh of `cpu:<k>` stand-in cards: a
+    stream holds operations in order, an event the last of them, a wait an
+    operation that follows the event's. A graph replays on the current
+    stream of the current card. A copy into a halo slab or into another
+    card's push constants is a copy between cards: it runs on the source
+    card's current stream after that stream waited for the destination
+    card's current stream, which then waits for the copy (torch's two-way
+    barrier). `log` is what each stream was given, in the order issued."""
+
+    def __init__(self, monkeypatch, step):
+        self.step, self.frame, self.log = step, 0, []
+        self.device = step.mesh.devices[0]
+        self.current = {}
+        fake = self
+
+        class Stream:
+            def __init__(self, device, name="stream"):
+                self.device, self.name, self.ops = device, name, []
+
+            def issue(self, name, *after):
+                last = self.ops[-1:]
+                op = _Op(name, fake.frame,
+                         last + [a for a in after if a is not None])
+                self.ops.append(op)
+                fake.log.append((self.name, name))
+                return op
+
+            def wait_event(self, event):
+                if event.op is not None:
+                    self.issue("wait", event.op)
+
+            def wait_stream(self, other):
+                self.wait_event(other.record_event())
+
+            def record_event(self):
+                event = Event()
+                event.record(self)
+                return event
+
+        class Event:
+            op = None
+
+            def record(self, stream):
+                self.op = stream.ops[-1] if stream.ops else None
+
+        @contextlib.contextmanager
+        def stream(s):
+            was = fake.device, current_stream(s.device)
+            fake.device, fake.current[s.device] = s.device, s
+            try:
+                yield
+            finally:
+                fake.device, fake.current[s.device] = was
+
+        def current_stream(device):
+            device = torch.device(device)
+            if device not in self.current:
+                self.current[device] = Stream(device, f"caller {device}")
+            return self.current[device]
+
+        class Graph(_FakeGraph):
+            def __call__(self):
+                shard = self.body.args[0]
+                current_stream(fake.device).issue(
+                    (self.body.func.__name__, shard))
+                return super().__call__()
+
+        copy = torch.Tensor.copy_
+
+        def copy_(dst, src, non_blocking=False):
+            out = copy(dst, src, non_blocking)
+            devices, pcs = step.mesh.devices, step.pcs
+            halo = [k for k, slab in step.slabs.items() if slab is dst]
+            if halo:
+                i, j = halo[0]
+                fake.between(devices[j], devices[i], ("halo", i, j))
+            elif any(dst is t for t in pcs.values()) and src is pcs[devices[0]]:
+                dev = next(d for d, t in pcs.items() if t is dst)
+                fake.between(devices[0], dev, ("push constants", str(dev)))
+            return out
+
+        self.current_stream = current_stream
+        monkeypatch.setattr(torch.cuda, "Stream", Stream)
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "stream", stream)
+        monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+        monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+        monkeypatch.setattr(pmesh, "GraphedCall", Graph)
+        step.streams = [Stream(dev, f"shard {i}")
+                        for i, dev in enumerate(step.mesh.devices)]
+        step.cuda = list(step.mesh.distinct)
+        step.graphed = True
+
+    def between(self, src, dst, name):
+        """A copy from card `src` to card `dst` under torch's barrier."""
+        s, d = self.current_stream(src), self.current_stream(dst)
+        ready = d.record_event()
+        s.wait_event(ready)
+        op = s.issue(name)
+        d.wait_event(s.record_event())
+        return op
+
+    def ops(self, frame):
+        """The operations frame `frame` issued, by name."""
+        return {op.name: op for s in self._streams() for op in s.ops
+                if op.frame == frame and op.name != "wait"}
+
+    def _streams(self):
+        return (list(self.current.values()) + list(self.step.streams)
+                + list(self.step.__dict__.get("halo_streams", {}).values()))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_halo_copies_issued_before_any_post_process(monkeypatch, n):
+    """The order of a frame's work on four (two) cards, with stand-ins for
+    the cards' streams and events as `_FakeGraph` stands in for the graphs:
+    no shard's post-process waits, directly or through a copy, for another
+    shard's post-process; each halo copy waits for its source band's trace
+    and for no other trace or post-process of the frame, and for the
+    frame before's post-process of its destination (the slab's last
+    reader), and comes before its destination's post-process, which waits
+    for the traces it reads and for no others. The images are the unsharded
+    frames bit for bit."""
+    f = Frame(spp=1, max_bounce=1, sun=True)
+    dn = tconfig.DenoiserConfig(enabled=True, samples=8)
+    devices = [f"cpu:{k}" for k in range(n)]
+    cards = before = None
+    for step, args, tables, base, want in _moving_frames(f, n, dn,
+                                                         devices=devices):
+        if cards is None:
+            cards = _FakeCards(monkeypatch, step)
+        cards.frame += 1
+        assert torch.equal(step(*args, tables=tables, sample_base=base), want)
+        ops = cards.ops(cards.frame)
+        traces = {i: ops[("trace", i)] for i in range(n)}
+        posts = {i: ops[("post", i)] for i in range(n)}
+        for i, post in posts.items():
+            assert [k for k, p in posts.items() if post.follows(p)] == [], (
+                i, cards.log)
+        for i, post in posts.items():
+            sources = {j for j, _, _ in step.plan.sources(i)}
+            assert {k for k, t in traces.items()
+                    if post.follows(t)} == sources | {i}, (i, cards.log)
+            for j in sources - {i}:
+                copy = ops[("halo", i, j)]
+                assert post.follows(copy), (i, j, cards.log)
+                assert {k for k, t in traces.items()
+                        if copy.follows(t)} == {j}, (i, j, cards.log)
+                assert not any(copy.follows(p) for p in posts.values())
+                # the slab's last reader: the frame before's post-process
+                assert before is None or copy.follows(before[i])
+        before = posts
+    assert len(step.slabs) == 2 * (n - 1)

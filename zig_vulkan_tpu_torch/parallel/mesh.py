@@ -33,16 +33,28 @@ each on its own stream (what the JAX package's virtual CPU devices are to
 its tests). A mesh of `cpu` devices runs the same code without streams.
 
 Ordering on CUDA is fork-join with events, never a device-wide
-synchronize: each shard's stream first waits for the caller's current
-stream of its device; a shard that reads a neighbour's band waits for the
-event recorded after that band's trace; at the end the caller's stream of
-every device waits for the shards' last events, and the first device's for
-every shard's. The streams belong to the step, so a buffer that one stream
-allocated and another read is reused only by a later step, which starts
-behind that join. The assembly then copies each band into its rows of a
-fresh image on the first device: a band from another card by a copy
-between cards, which runs on that card's current stream and is fenced both
-ways against the first device's current stream.
+synchronize, and the frame is issued in three phases: every shard's trace,
+then every halo copy between cards, then every shard's post-process. Each
+shard's stream first waits for the caller's current stream of its device
+(as it was when the frame began); a shard that reads a neighbour's band on
+its own card waits for the event recorded after that band's trace. A copy
+between cards runs on the source card's current stream, and torch fences it
+both ways against the destination card's current stream. So the copy runs
+on the source shard's stream, which holds only its trace when the copies
+are issued, while the destination card's current stream is the slab's own
+halo stream, which holds only a wait for the slab's last reader (the
+destination shard's post-process of the frame before); the destination
+shard's stream waits for the event recorded on the halo stream after the
+copy. No stream waits for another shard's post-process before its own, so
+the post-processes of the shards run at once. At the end the caller's
+stream of every device waits for the shards' last events, and the first
+device's for every shard's. The streams and events belong to the step (its
+events are made once, on first use); a buffer that one stream allocated and
+another read is reused only by a later step, which starts behind that
+join. The assembly then copies each band into its rows of a fresh image on
+the first device: a band from another card by a copy between cards, which
+runs on that card's current stream and is fenced both ways against the
+first device's current stream.
 
 The engine (`engine.engine.VoxelRT` with `EngineConfig(cards=n)`) draws
 through `ShardedStep.frame`, with its own push constants and
@@ -52,12 +64,14 @@ step does. While tracing is on (`utils.profiling`), a frame is the zone
 `mesh_dispatch`; each shard's trace and post-process are each between a
 pair of device marks `mesh_shard.<i>` on the shard's stream (after the
 halo waits, so a shard's span is its own work), and the assembly between
-the marks `mesh_assemble` on the first device's stream; a frame counts
-`mesh_shards`, `mesh_halo_bytes` (halo rows copied between cards) and
-`mesh_assembled_bytes` (band bytes copied onto the first device from
-others), and adds each shard's kernel A and D counts (`trace_launches`,
-`trace_queued`, `shade_launches`, `shade_queued`), as its trace body
-reported them, as the engine's one-card step does.
+the marks `mesh_assemble` on the first device's stream, and the whole
+frame on the cards between the marks `mesh_frame` on the same stream (the
+first before the push constants' upload, the second after the assembly);
+a frame counts `mesh_shards`, `mesh_halo_bytes` (halo rows copied between
+cards) and `mesh_assembled_bytes` (band bytes copied onto the first device
+from others), and adds each shard's kernel A and D counts
+(`trace_launches`, `trace_queued`, `shade_launches`, `shade_queued`), as
+its trace body reported them, as the engine's one-card step does.
 
 The host dispatches the shards in turn from one thread; a thread per shard
 was timed on the H100 and lost (CHANGES.md, the entry of the row-sharded
@@ -286,12 +300,13 @@ class ShardedStep:
     """The row-sharded frame of `build_sharded_step` (the JAX package's
     jitted `shard_map` step, zig_vulkan_tpu/parallel/mesh.py:127-134).
 
-    Calling it runs each shard's trace graph, then each shard's post-process
-    graph, on the shard's stream (captured on the first call, or on the
-    first call with other replicas or records: one set of graphs is kept;
-    op by op on the CPU). `op_by_op` calls the same bodies on the same
-    inputs without graphs. `frame` is either route over push constants the
-    caller packed. Each returns a fresh image."""
+    Calling it runs each shard's trace graph, then the halo copies between
+    cards, then each shard's post-process graph, on the shard's stream
+    (captured on the first call, or on the first call with other replicas
+    or records: one set of graphs is kept; op by op on the CPU). `op_by_op`
+    calls the same bodies on the same inputs without graphs. `frame` is
+    either route over push constants the caller packed. Each returns a
+    fresh image."""
 
     def __init__(self, mesh: Mesh, static: GridStatic, **frame):
         self.mesh = mesh
@@ -306,6 +321,9 @@ class ShardedStep:
                                      device=dev) for dev in mesh.distinct}
         self.push = PushRing(mesh.devices[0])
         self.slabs = {}       # (shard, source shard) -> its halo rows' copy
+        # (shard, source shard) -> the slab's halo stream on the shard's card
+        self.halo_streams = {}
+        self.events = {}      # the ordering's events, made on first use
         self._inputs = None   # the replicas and records the graphs read
         self._trace = None    # shard -> GraphedCall of its trace
         self._post = None     # shard -> GraphedCall of its post-process
@@ -347,13 +365,23 @@ class ShardedStep:
 
     def _on(self, i):
         """Shard i's device and stream as the current ones."""
-        if self.streams[i] is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.streams[i])
+        return _current(self.streams[i])
 
-    def _recorded(self, i):
-        return (None if self.streams[i] is None
-                else self.streams[i].record_event())
+    def _event(self, *key):
+        """The ordering's event `key`, made on its first use and recorded
+        anew every frame."""
+        event = self.events.get(key)
+        if event is None:
+            event = self.events[key] = torch.cuda.Event()
+        return event
+
+    def _record(self, stream, *key):
+        """Event `key` recorded now on `stream`; None without a stream."""
+        if stream is None:
+            return None
+        event = self._event(*key)
+        event.record(stream)
+        return event
 
     def _frame(self, arrays_r, mats_r, tables, graphed, pc, basis=None):
         with profiling.zone("mesh_dispatch"):
@@ -362,16 +390,20 @@ class ShardedStep:
 
     def _dispatch(self, arrays_r, mats_r, tables, graphed, pc, basis):
         mesh, plan, devices = self.mesh, self.plan, self.mesh.devices
+        first = devices[0]
         if tables is None:
             tables = map_replicas(
                 mesh, lambda a: trace_mod.one_shot_tables(
                     plan.static, a, plan.use_skip), arrays_r)
+        profiling.device_mark("mesh_frame", first)
         self._upload(pc, basis)
         profiling.count("mesh_shards", mesh.size)
         callers = {dev: torch.cuda.current_stream(dev) for dev in self.cuda}
+        begun = {dev: self._record(stream, "begun", dev)
+                 for dev, stream in callers.items()}
         for i, stream in enumerate(self.streams):
             if stream is not None:
-                stream.wait_stream(callers[devices[i]])
+                stream.wait_event(begun[devices[i]])
         inputs = tuple((self.pcs[devices[i]], tables[i],
                         arrays_r[i].material_indices, mats_r[i])
                        for i in range(mesh.size))
@@ -383,32 +415,39 @@ class ShardedStep:
                 profiling.device_mark(self.marks[i], devices[i])
                 traced.append(self._traced(i, inputs[i], graphed))
                 profiling.device_mark(self.marks[i], devices[i])
-                traced_at.append(self._recorded(i))
+                traced_at.append(self._record(self.streams[i], "traced", i))
         # each shard's kernel A and D counts (a replay its capture's)
         for report in plan.reports:
             for name, n in report.items():
                 profiling.count(name, n)
-        # every band is traced (its event recorded) before any shard reads
-        # its neighbours' rows
         bands, done_at = traced, traced_at
         if not plan.traced_is_output:
+            # every halo copy is issued before any post-process, so that no
+            # copy waits behind a post-process on its source shard's stream
+            reads = [[self._halo(i, j, r0, r1, traced, traced_at)
+                      for j, r0, r1 in plan.sources(i)]
+                     for i in range(mesh.size)]
             bands, done_at = [], []
-            for i in range(mesh.size):
+            for i, read in enumerate(reads):
                 with self._on(i):
-                    pieces = [self._piece(i, j, r0, r1, traced, traced_at)
-                              for j, r0, r1 in plan.sources(i)]
+                    for _, ready in read:
+                        if ready is not None:
+                            self.streams[i].wait_event(ready)
                     profiling.device_mark(self.marks[i], devices[i])
-                    bands.append(self._posted(i, inputs[i][0], pieces,
-                                              graphed))
+                    bands.append(self._posted(
+                        i, inputs[i][0], [piece for piece, _ in read],
+                        graphed))
                     profiling.device_mark(self.marks[i], devices[i])
-                    done_at.append(self._recorded(i))
-        first = devices[0]
+                    done_at.append(self._record(self.streams[i], "posted",
+                                                i))
         for i, dev in enumerate(devices):
             if self.streams[i] is not None:
                 callers[dev].wait_event(done_at[i])
                 if dev != first:
                     callers[first].wait_event(done_at[i])
-        return self._assemble(bands)
+        image = self._assemble(bands)
+        profiling.device_mark("mesh_frame", first)
+        return image
 
     def _assemble(self, bands):
         """A fresh image on the first device with each shard's band in its
@@ -462,32 +501,39 @@ class ShardedStep:
                 functools.partial(self.plan.post, i, pc=pc), *pieces)
         return self._post[i]()
 
-    def _piece(self, i, j, r0, r1, traced, traced_at):
-        """Image rows [r0, r1) of shard j's traced band for shard i's
-        post-process, ordered behind shard j's trace; called with shard i's
-        stream current. On shard i's device the piece is a view; from
-        another card a copy fills shard i's static slab for shard j (the
-        slab a post graph reads)."""
+    def _halo(self, i, j, r0, r1, traced, traced_at):
+        """(image rows [r0, r1) of shard j's traced band for shard i's
+        post-process, the event shard i's stream waits for before it reads
+        them, or None). On shard i's device the piece is a view, behind
+        shard j's trace; from another card a copy fills shard i's static
+        slab for shard j (the slab a post graph reads), issued before any
+        post-process."""
         rows = self.plan.rows
         piece = traced[j][r0 - j * rows:r1 - j * rows]
         dev = self.mesh.devices[i]
         if j == i:
-            return piece
+            return piece, None
         if piece.device == dev:
-            if self.streams[i] is not None:
-                self.streams[i].wait_event(traced_at[j])
-            return piece
+            return piece, traced_at[j]
         slab = self.slabs.get((i, j))
         if slab is None:
-            slab = self.slabs[(i, j)] = torch.empty(
-                piece.shape, dtype=piece.dtype, device=dev)
-        # a copy between cards runs on the source card's current stream;
-        # with shard j's stream current there it is ordered behind shard j's
-        # trace, and shard i's stream (still current on `dev`) waits for it
-        with self._on(j):
+            with self._on(i):
+                slab = self.slabs[(i, j)] = torch.empty(
+                    piece.shape, dtype=piece.dtype, device=dev)
+            if self.streams[i] is not None:
+                self.halo_streams[(i, j)] = torch.cuda.Stream(dev)
+        # a copy between cards runs on the source card's current stream,
+        # fenced both ways against the destination card's: shard j's stream,
+        # which holds its trace and no post-process yet, and the slab's halo
+        # stream, which waits only for the slab's last reader (shard i's
+        # post-process of the frame before)
+        halo = self.halo_streams.get((i, j))
+        if halo is not None:
+            halo.wait_event(self._event("posted", i))
+        with _current(halo), self._on(j):
             slab.copy_(piece, non_blocking=True)
         profiling.count("mesh_halo_bytes", piece.numel() * piece.element_size())
-        return slab
+        return slab, self._record(halo, "copied", i, j)
 
     def _packed(self, cam, sun_position, sun_color, sun_radius,
                 sample_base):
@@ -516,6 +562,13 @@ class ShardedStep:
             self.pcs[devices[0]][0:12].copy_(basis)
         for dev in devices[1:]:
             self.pcs[dev].copy_(self.pcs[devices[0]], non_blocking=True)
+
+
+def _current(stream):
+    """`stream` and its device as the current ones; nothing for None."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
 
 
 def render_image_sharded(mesh: Mesh, static: GridStatic, arrays: GridArrays,

@@ -67,8 +67,10 @@ the device spans (`device_mark` pairs) edit_graph (an edit graph from its
 first node to its last), edit_field (the insert's field rebuild; on a card
 its three launches, the last of which also writes the touched rows),
 temporal (the running mean inside the frame graph), mesh_shard.<i> (shard
-i's trace and, a second pair, its post-process on the shard's stream) and
-mesh_assemble (a sharded frame's assembly on its first card's stream).
+i's trace and, a second pair, its post-process on the shard's stream),
+mesh_assemble (a sharded frame's assembly on its first card's stream) and
+mesh_frame (a sharded frame on its first card's stream, from before the
+push constants' upload to after the assembly).
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog
