@@ -3,7 +3,7 @@ denoised frame of BASELINE config 5's streamed world, its rows split over
 four cards) at a size the CPU runs (`rtbench.tests.small.small_cell`: a
 32x16x32-brick world and 64x36 frames, every shard on the CPU): the
 configuration against the two it is made of, the reference `plain_banded`
-against `plain`, the cell's five readers on planted stores, the control and
+against `plain`, the cell's eight readers on planted stores, the control and
 the whole harness run. Imports nothing of JAX.
 
     python -m pytest tests/test_rtbench_pathtraced_4k_4cards.py -q
@@ -22,7 +22,8 @@ CELL = "pathtraced_4k_4cards"
 CPU = torch.device("cpu")
 SEED = 2**33 + 25
 READERS = ("mesh.host_ms", "mesh.balance_share", "mesh.assemble_ms",
-           "assemble_roofline", "mesh.frame_device_ms")
+           "assemble_roofline", "mesh.frame_device_ms", "mesh.lead_ms",
+           "mesh.halo_wait_ms", "mesh.straggler_ms")
 LAYER = ("engine on a mesh (engine.py VoxelRT.draw, parallel/mesh.py "
          "ShardedStep)")
 RESOLUTION = ("internal_resolution_width", "internal_resolution_height",
@@ -103,8 +104,11 @@ def _read(name):
 def test_readers_on_a_planted_store(monkeypatch):
     """Ten frames: 5 ms of `mesh_dispatch`; the four shards' card ms 10,
     20, 30, 40; 3 ms of assembly carrying the full cell's 74,649,600 bytes a
-    frame (0.156130 ms at 478.125 GB/s, 18 links of 26.5625 GB/s)."""
+    frame (0.156130 ms at 478.125 GB/s, 18 links of 26.5625 GB/s); the
+    shards' leads 1, 4, 7, 10 ms and halo waits 2, 5, 3, 1 ms (the
+    largest of each on another shard) and 17 ms of straggler wait."""
     per_frame = 3 * 540 * 3840 * 12
+    leads, waits = (1.0, 4.0, 7.0, 10.0), (2.0, 5.0, 3.0, 1.0)
     _store(monkeypatch,
            zones={"mesh_dispatch": {"count": 10, "total_ms": 5.0,
                                     "self_ms": 5.0}},
@@ -112,7 +116,15 @@ def test_readers_on_a_planted_store(monkeypatch):
            device={**{f"mesh_shard.{i}": {"count": 20,
                                           "total_ms": 10.0 * (i + 1)}
                       for i in range(4)},
+                   **{f"mesh_lead.{i}": {"count": 10, "total_ms": ms}
+                      for i, ms in enumerate(leads)},
+                   **{f"mesh_halo_wait.{i}": {"count": 10, "total_ms": ms}
+                      for i, ms in enumerate(waits)},
+                   "mesh_straggler": {"count": 10, "total_ms": 17.0},
                    "mesh_assemble": {"count": 10, "total_ms": 3.0}})
+    assert _read("mesh.lead_ms") == pytest.approx(1.0)
+    assert _read("mesh.halo_wait_ms") == pytest.approx(0.5)
+    assert _read("mesh.straggler_ms") == pytest.approx(1.7)
     assert _read("mesh.host_ms") == pytest.approx(0.5)
     assert _read("mesh.balance_share") == pytest.approx(62.5)
     assert _read("mesh.assemble_ms") == pytest.approx(0.3)
@@ -138,6 +150,36 @@ def test_frame_device_ms_on_a_planted_store(monkeypatch):
         "count": 10, "total_ms": 3.0}})
     assert _read("mesh.frame_device_ms") is None
     assert _read("mesh.assemble_ms") == pytest.approx(0.3)
+
+
+def test_the_first_cards_spans_on_a_planted_store(monkeypatch):
+    """Eight frames on two shards, as the first card's spans tile its
+    frame: lead 0.3, shard 4.0 (trace and post-process), halo wait 0.2,
+    straggler 1.1 and assembly 0.3 ms a frame make the 5.9 ms of
+    `mesh_frame`; shard 1 waits longer for its start (0.5) and less for
+    its halo (0.1). A store without the halo waits (no post-process) still
+    reads the leads and the straggler wait."""
+    frame = {"mesh_lead.0": 0.3, "mesh_shard.0": 4.0,
+             "mesh_halo_wait.0": 0.2, "mesh_straggler": 1.1,
+             "mesh_assemble": 0.3}
+    device = {name: {"count": 8, "total_ms": 8 * ms}
+              for name, ms in frame.items()}
+    device.update({"mesh_lead.1": {"count": 8, "total_ms": 8 * 0.5},
+                   "mesh_halo_wait.1": {"count": 8, "total_ms": 8 * 0.1},
+                   "mesh_frame": {"count": 8,
+                                  "total_ms": 8 * sum(frame.values())}})
+    _store(monkeypatch, device=device, frames=8)
+    assert _read("mesh.lead_ms") == pytest.approx(0.5)
+    assert _read("mesh.halo_wait_ms") == pytest.approx(0.2)
+    assert _read("mesh.straggler_ms") == pytest.approx(1.1)
+    assert _read("mesh.frame_device_ms") == pytest.approx(5.9)
+    assert _read("mesh.assemble_ms") == pytest.approx(0.3)
+    no_halo = {n: v for n, v in device.items()
+               if not n.startswith("mesh_halo_wait.")}
+    _store(monkeypatch, device=no_halo, frames=8)
+    assert _read("mesh.halo_wait_ms") is None
+    assert _read("mesh.lead_ms") == pytest.approx(0.5)
+    assert _read("mesh.straggler_ms") == pytest.approx(1.1)
 
 
 @pytest.mark.parametrize("ms_over_bound", [1.0, 1.5, 40.0])

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtbench import check, scene, traffic
+from rtbench import check, scene, spec, traffic
 from rtbench import run as harness
 from rtbench.ref.core.grid import dense_materials
 from rtbench.tests.small import small_cell
@@ -54,10 +54,11 @@ def world(cell):
     return path, tables
 
 
-def _engine(cell, path, cards, device=CPU):
+def _engine(cell, path, cards, device=CPU, denoise=True):
     grid, materials = load_scene(str(path))
-    conf = dataclasses.replace(
-        harness.engine_config(cell.config["engine"]), cards=cards)
+    conf = harness.engine_config(cell.config["engine"])
+    conf = dataclasses.replace(conf, cards=cards, denoiser=dataclasses.replace(
+        conf.denoiser, enabled=denoise and conf.denoiser.enabled))
     return VoxelRT(grid, materials, conf, device=device)
 
 
@@ -172,9 +173,10 @@ def test_both_routes_on_a_mesh(monkeypatch, cell, world):
 @pytest.mark.parametrize("cards", [2, 4])
 def test_mesh_frame_spans_and_counters(monkeypatch, cell, world, cards):
     """A traced frame on a mesh: the zone `mesh_dispatch` inside
-    `render_step`, `mesh_shards`, the halo rows copied between the two
-    replicas' devices and the band bytes the assembly copies onto the
-    first. The card's marks are no-ops on the CPU."""
+    `render_step` and its four children once a frame, the halo slabs
+    filled between the two replicas' devices and the band bytes the
+    assembly copies onto the first; no count of shards or halo bytes. The
+    card's marks are no-ops on the CPU."""
     _split(monkeypatch, cards)
     path, tables = world
     rt = _engine(cell, path, cards)
@@ -194,20 +196,90 @@ def test_mesh_frame_spans_and_counters(monkeypatch, cell, world, cards):
     assert zones["mesh_dispatch"]["count"] == 3
     assert zones["render_step"]["total_ms"] >= zones["mesh_dispatch"][
         "total_ms"]
-    assert counters["mesh_shards"] == 3 * cards
+    children = ("mesh_upload", "mesh_issue_trace", "mesh_issue_halo",
+                "mesh_issue_post")
+    assert {n: zones[n]["count"] for n in children} == dict.fromkeys(
+        children, 3)
+    assert sum(zones[n]["total_ms"] for n in children) <= zones[
+        "mesh_dispatch"]["total_ms"]
+    assert "mesh_shards" not in counters
+    assert "mesh_halo_bytes" not in counters
     step = rt.step()
     plan = step.plan
     # the bands of the shards on `cpu:0`, 12 bytes a pixel
     assert step.assembled_bytes == 36 * 64 * 12 // 2
     assert counters["mesh_assembled_bytes"] == 3 * step.assembled_bytes
-    # the halo rows copied: a CPU tensor's device is `cpu`, so every
+    # the halo slabs: a CPU tensor's device is `cpu`, so every
     # neighbour's rows a shard on `cpu:0` reads are copied into its slab
-    halo = sum(b - a for i, dev in enumerate(rt.mesh.devices)
-               if dev == torch.device("cpu", 0)
-               for j, a, b in plan.sources(i) if j != i)
-    assert halo > 0
-    assert counters["mesh_halo_bytes"] == 3 * halo * 64 * 12
+    slabs = {(i, j) for i, dev in enumerate(rt.mesh.devices)
+             if dev == torch.device("cpu", 0)
+             for j, _, _ in plan.sources(i) if j != i}
+    assert slabs and set(step.slabs) == slabs
     assert snap["device"] == {}
+
+
+class _Clocked:
+    """A timing event on one clock for every card: `record` stamps it with
+    the next of a random, rising sequence of times (ms)."""
+
+    rng = np.random.default_rng(27)
+    now = 0.0
+
+    def __init__(self, **_):
+        self.t = None
+
+    def record(self, stream=None):
+        _Clocked.now += float(_Clocked.rng.uniform(0.01, 1.0))
+        self.t = _Clocked.now
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+FIRST_CARD = ("mesh_lead.0", "mesh_shard.0", "mesh_halo_wait.0",
+              "mesh_straggler", "mesh_assemble")
+
+
+@pytest.mark.parametrize("cards, denoise", [(2, True), (4, True),
+                                            (4, False)])
+def test_mesh_marks_tile_the_first_card(monkeypatch, cell, world, cards,
+                                        denoise):
+    """The sharded frame's device marks, each stamped in the order issued
+    on one rising clock and paired by the store's own `_Marks`: a frame
+    gives every shard a lead, a trace and a post-process span and a halo
+    wait between them (without the denoiser, a trace span and no halo
+    wait), and one straggler, assembly and frame span; the spans of shard
+    0 share their ends, so they add up to `mesh_frame` exactly."""
+    _split(monkeypatch, cards)
+    path, tables = world
+    rt = _engine(cell, path, cards, denoise=denoise)
+    assert rt.step().plan.traced_is_output is not denoise
+    prog = harness.Program(rt)
+    prog.step(tables.frame(0))
+    marks = profiling._Marks()
+    monkeypatch.setattr(profiling.torch.cuda, "Event", _Clocked)
+    monkeypatch.setattr(profiling.torch.cuda, "current_stream",
+                        lambda device=None: None)
+    monkeypatch.setattr(profiling, "device_mark", marks.mark)
+    frames = 3
+    for g in range(1, 1 + frames):
+        prog.step(tables.frame(g))
+    assert marks.opened == {}
+    spans, counts = {}, {}
+    for name, begin, end in marks.pairs:
+        spans[name] = spans.get(name, 0.0) + begin.elapsed_time(end)
+        counts[name] = counts.get(name, 0) + 1
+    want = dict.fromkeys(("mesh_frame", "mesh_straggler", "mesh_assemble"),
+                         frames)
+    for i in range(cards):
+        want[f"mesh_lead.{i}"] = frames
+        want[f"mesh_shard.{i}"] = (2 if denoise else 1) * frames
+        if denoise:
+            want[f"mesh_halo_wait.{i}"] = frames
+    assert counts == want
+    assert all(ms > 0 for ms in spans.values())
+    assert sum(spans.get(n, 0.0) for n in FIRST_CARD) == pytest.approx(
+        spans["mesh_frame"], rel=1e-12)
 
 
 def _traced(fn):
@@ -386,3 +458,44 @@ def test_back_to_back_frames_on_the_cards(cell, world, cards):
         assert torch.equal(image, rt.render_op_by_op()), g
         assert torch.equal(image, one.render()), g
     assert not torch.equal(images[0], images[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [2, 4])
+def test_traced_frames_tile_the_first_card(monkeypatch, cell, world, cards):
+    """16 frames drawn back to back while tracing is on: the store holds a
+    `mesh_lead.<i>` and a `mesh_halo_wait.<i>` span a frame for every
+    shard and a `mesh_straggler` span a frame; on the first card
+    `mesh_lead.0` + `mesh_shard.0` + `mesh_halo_wait.0` + `mesh_straggler`
+    + `mesh_assemble` is `mesh_frame` within 2%; each image equals
+    `plain_banded`'s (in blocks of 9 rows) bit for bit."""
+    _cards(cards)
+    path, tables = world
+    rt = _engine(cell, path, cards, "cuda:0")
+    prog = harness.Program(rt)
+    prog.pose(tables.frame(0))
+    rt.draw()  # the capture frame
+    poses = range(1, 17)
+    images = []
+
+    def frames():
+        for g in poses:
+            prog.pose(tables.frame(g))
+            images.append(rt.render())
+
+    snap = _traced(frames)
+    device = snap["device"]
+    n = len(poses)
+    for i in range(cards):
+        assert device[f"mesh_lead.{i}"]["count"] == n, i
+        assert device[f"mesh_halo_wait.{i}"]["count"] == n, i
+        assert device[f"mesh_shard.{i}"]["count"] == 2 * n, i
+    assert device["mesh_straggler"]["count"] == n
+    tiled = sum(device[name]["total_ms"] for name in FIRST_CARD)
+    assert tiled == pytest.approx(device["mesh_frame"]["total_ms"], rel=0.02)
+    banded = spec.plugin("references", "plain_banded")
+    monkeypatch.setattr(banded, "BLOCK_ROWS", 9)
+    ref = banded.Engine(*scene.load_reference(path), cell.config["engine"],
+                        torch.device("cuda", 0))
+    for g, image in zip(poses, images):
+        assert torch.equal(image, ref.image(tables.frame(g))), g

@@ -228,6 +228,83 @@ def test_a_key_switch_and_a_return_to_a_kept_step(tracing):
     assert (counters["key_switches"], counters["key_returns"]) == (4, 2)
 
 
+class StampedEvent:
+    """A timing event of `torch.cuda.Event`'s interface on the CPU: each
+    `record` stamps it 1 ms after the last."""
+
+    now = 0.0
+
+    def __init__(self, **_):
+        self.t = None
+
+    def record(self, stream=None):
+        StampedEvent.now += 1.0
+        self.t = StampedEvent.now
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+    def query(self):
+        return True
+
+
+@pytest.fixture
+def stamped(monkeypatch):
+    """Device marks on a stand-in card: `cuda` marks record stamped
+    events."""
+    monkeypatch.setattr(profiling.torch.cuda, "Event", StampedEvent)
+    monkeypatch.setattr(profiling.torch.cuda, "current_stream",
+                        lambda device=None: None)
+    monkeypatch.setattr(profiling.torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+
+
+def test_one_event_closes_a_span_and_opens_the_next(tracing, stamped):
+    """A mark of two names closes the open one and opens the other: three
+    events give two spans that share the middle one; names marked apart
+    keep pairing by name."""
+    profiling.device_mark("lead", "cuda")
+    profiling.device_mark(("lead", "trace"), "cuda")
+    profiling.device_mark("other", "cuda:1")
+    profiling.device_mark(("trace", "wait"), "cuda")
+    profiling.device_mark("other", "cuda:1")
+    profiling.device_mark("wait", "cuda")
+    (_, begin, end), = [p for p in profiling._store.pending
+                        if p[0] == "lead"]
+    (_, after, _), = [p for p in profiling._store.pending
+                      if p[0] == "trace"]
+    assert end is after
+    assert profiling.snapshot()["device"] == {
+        "lead": {"count": 1, "total_ms": 1.0},
+        "trace": {"count": 1, "total_ms": 2.0},
+        "other": {"count": 1, "total_ms": 2.0},
+        "wait": {"count": 1, "total_ms": 2.0}}
+
+
+def test_device_mark_returns_first_while_off(monkeypatch, stamped):
+    """Tracing off and no capture: `device_mark` records nothing and
+    builds no `torch.device`; in a capture the marks become the graph's
+    nodes, tracing off or not."""
+    profiling.enable(False)
+    before = profiling.snapshot()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("device_mark built a torch.device")
+
+    with monkeypatch.context() as m:
+        m.setattr(profiling.torch, "device", refuse)
+        profiling.device_mark("edit_graph", "cuda")
+        profiling.device_mark(("mesh_shard.0", "mesh_halo_wait.0"), "cuda:1")
+    assert profiling._store.eager.opened == {}
+    assert profiling._store.pending == []
+    assert profiling.snapshot() == before
+    with profiling.capture_marks() as marks:
+        profiling.device_mark("edit_graph", "cuda")
+        profiling.device_mark("edit_graph", "cuda")
+    assert [name for name, _, _ in marks] == ["edit_graph"]
+    assert profiling.snapshot() == before
+
+
 def test_device_mark_is_a_no_op_on_the_cpu(tracing):
     profiling.device_mark("edit_graph", "cpu")
     profiling.device_mark("edit_graph", torch.device("cpu"))
@@ -337,3 +414,22 @@ def test_replayed_insert_graph_times_the_edit_and_its_field(card):
     rt.insert_voxels(*batches[1])  # tracing off: nothing more
     torch.cuda.synchronize()
     assert profiling.snapshot()["device"] == snap["device"]
+
+
+@pytest.mark.cuda
+def test_one_event_serves_two_spans_on_the_card(card, tracing):
+    """On the card, a mark of two names closes one span and opens the
+    next: the two spans around a sleeping kernel add up to the span that
+    covers both."""
+    profiling.device_mark(("outer", "first"), card)
+    torch.cuda._sleep(1_000_000)
+    profiling.device_mark(("first", "second"), card)
+    torch.cuda._sleep(1_000_000)
+    profiling.device_mark(("second", "outer"), card)
+    device = profiling.snapshot()["device"]
+    assert {n: device[n]["count"] for n in device} == {
+        "outer": 1, "first": 1, "second": 1}
+    assert device["first"]["total_ms"] > 0 and device["second"][
+        "total_ms"] > 0
+    assert device["first"]["total_ms"] + device["second"][
+        "total_ms"] == pytest.approx(device["outer"]["total_ms"], abs=1e-3)

@@ -61,17 +61,30 @@ through `ShardedStep.frame`, with its own push constants and
 `max_samples`: the post-process then reads the denoiser's samples,
 distribution bias and hue tolerance from them, as the engine's one-card
 step does. While tracing is on (`utils.profiling`), a frame is the zone
-`mesh_dispatch`; each shard's trace and post-process are each between a
-pair of device marks `mesh_shard.<i>` on the shard's stream (after the
-halo waits, so a shard's span is its own work), and the assembly between
-the marks `mesh_assemble` on the first device's stream, and the whole
-frame on the cards between the marks `mesh_frame` on the same stream (the
-first before the push constants' upload, the second after the assembly);
-a frame counts `mesh_shards`, `mesh_halo_bytes` (halo rows copied between
-cards) and `mesh_assembled_bytes` (band bytes copied onto the first device
-from others), and adds each shard's kernel A and D counts
-(`trace_launches`, `trace_queued`, `shade_launches`, `shade_queued`), as
-its trace body reported them, as the engine's one-card step does.
+`mesh_dispatch`, with the children `mesh_upload`, `mesh_issue_trace`,
+`mesh_issue_halo` and `mesh_issue_post` (the assembly's issue is its own
+time). Its device spans are each on one card's clock, and one event
+closes a span where the next opens:
+
+- `mesh_frame`: the whole frame on the first device's stream, from before
+  the push constants' upload to after the assembly;
+- `mesh_lead.<i>`: from the frame's start on shard i's card (a mark on the
+  card's stream beside the upload, the first of `mesh_frame`'s on the first
+  card) to the start of shard i's trace on its stream;
+- `mesh_shard.<i>`: shard i's trace, and a second pair around its
+  post-process (after the halo waits, so a shard's span is its own work);
+- `mesh_halo_wait.<i>`: from the end of shard i's trace to the start of
+  its post-process (none without a post-process);
+- `mesh_straggler`: from the end of shard 0's last work to the start of
+  the assembly on the first device's stream, the wait for the slowest band;
+- `mesh_assemble`: the assembly on the first device's stream.
+
+So on the first card `mesh_frame` is `mesh_lead.0` + `mesh_shard.0` +
+`mesh_halo_wait.0` + `mesh_straggler` + `mesh_assemble`. A frame counts
+`mesh_assembled_bytes` (band bytes copied onto the first device from
+others), and adds each shard's kernel A and D counts (`trace_launches`,
+`trace_queued`, `shade_launches`, `shade_queued`), as its trace body
+reported them, as the engine's one-card step does.
 
 The host dispatches the shards in turn from one thread; a thread per shard
 was timed on the H100 and lost (CHANGES.md, the entry of the row-sharded
@@ -327,10 +340,26 @@ class ShardedStep:
         self._inputs = None   # the replicas and records the graphs read
         self._trace = None    # shard -> GraphedCall of its trace
         self._post = None     # shard -> GraphedCall of its post-process
-        self.marks = tuple(f"mesh_shard.{i}" for i in range(mesh.size))
+        first, plan = mesh.devices[0], self.plan
+        # the names each device mark serves: the frame's start on each
+        # card, then each shard's (trace begin, trace end[, post begin,
+        # post end])
+        self.starts = tuple(
+            (dev, (("mesh_frame",) if dev == first else ()) + tuple(
+                f"mesh_lead.{i}" for i, d in enumerate(mesh.devices)
+                if d == dev))
+            for dev in mesh.distinct)
+        self.marks = []
+        for i in range(mesh.size):
+            shard = f"mesh_shard.{i}"
+            end = (shard, "mesh_straggler") if i == 0 else (shard,)
+            halo = f"mesh_halo_wait.{i}"
+            self.marks.append(
+                ((f"mesh_lead.{i}", shard), end) if plan.traced_is_output
+                else ((f"mesh_lead.{i}", shard), (shard, halo),
+                      (halo, shard), end))
         # bytes of the bands that the assembly copies onto the first device
         # from another
-        first, plan = mesh.devices[0], self.plan
         self.assembled_bytes = sum(
             (r1 - r0) * plan.out_w * 3 * 4
             for (r0, r1), dev in zip(plan.out_rows, mesh.devices)
@@ -395,9 +424,10 @@ class ShardedStep:
             tables = map_replicas(
                 mesh, lambda a: trace_mod.one_shot_tables(
                     plan.static, a, plan.use_skip), arrays_r)
-        profiling.device_mark("mesh_frame", first)
-        self._upload(pc, basis)
-        profiling.count("mesh_shards", mesh.size)
+        for dev, names in self.starts:
+            profiling.device_mark(names, dev)
+        with profiling.zone("mesh_upload"):
+            self._upload(pc, basis)
         callers = {dev: torch.cuda.current_stream(dev) for dev in self.cuda}
         begun = {dev: self._record(stream, "begun", dev)
                  for dev, stream in callers.items()}
@@ -410,12 +440,14 @@ class ShardedStep:
         if graphed:
             self._hold(inputs)
         traced, traced_at = [], []
-        for i in range(mesh.size):
-            with self._on(i):
-                profiling.device_mark(self.marks[i], devices[i])
-                traced.append(self._traced(i, inputs[i], graphed))
-                profiling.device_mark(self.marks[i], devices[i])
-                traced_at.append(self._record(self.streams[i], "traced", i))
+        with profiling.zone("mesh_issue_trace"):
+            for i in range(mesh.size):
+                with self._on(i):
+                    profiling.device_mark(self.marks[i][0], devices[i])
+                    traced.append(self._traced(i, inputs[i], graphed))
+                    profiling.device_mark(self.marks[i][1], devices[i])
+                    traced_at.append(self._record(self.streams[i], "traced",
+                                                  i))
         # each shard's kernel A and D counts (a replay its capture's)
         for report in plan.reports:
             for name, n in report.items():
@@ -424,45 +456,46 @@ class ShardedStep:
         if not plan.traced_is_output:
             # every halo copy is issued before any post-process, so that no
             # copy waits behind a post-process on its source shard's stream
-            reads = [[self._halo(i, j, r0, r1, traced, traced_at)
-                      for j, r0, r1 in plan.sources(i)]
-                     for i in range(mesh.size)]
+            with profiling.zone("mesh_issue_halo"):
+                reads = [[self._halo(i, j, r0, r1, traced, traced_at)
+                          for j, r0, r1 in plan.sources(i)]
+                         for i in range(mesh.size)]
             bands, done_at = [], []
-            for i, read in enumerate(reads):
-                with self._on(i):
-                    for _, ready in read:
-                        if ready is not None:
-                            self.streams[i].wait_event(ready)
-                    profiling.device_mark(self.marks[i], devices[i])
-                    bands.append(self._posted(
-                        i, inputs[i][0], [piece for piece, _ in read],
-                        graphed))
-                    profiling.device_mark(self.marks[i], devices[i])
-                    done_at.append(self._record(self.streams[i], "posted",
-                                                i))
+            with profiling.zone("mesh_issue_post"):
+                for i, read in enumerate(reads):
+                    with self._on(i):
+                        for _, ready in read:
+                            if ready is not None:
+                                self.streams[i].wait_event(ready)
+                        profiling.device_mark(self.marks[i][2], devices[i])
+                        bands.append(self._posted(
+                            i, inputs[i][0], [piece for piece, _ in read],
+                            graphed))
+                        profiling.device_mark(self.marks[i][3], devices[i])
+                        done_at.append(self._record(self.streams[i],
+                                                    "posted", i))
         for i, dev in enumerate(devices):
             if self.streams[i] is not None:
                 callers[dev].wait_event(done_at[i])
                 if dev != first:
                     callers[first].wait_event(done_at[i])
-        image = self._assemble(bands)
-        profiling.device_mark("mesh_frame", first)
-        return image
+        return self._assemble(bands)
 
     def _assemble(self, bands):
         """A fresh image on the first device with each shard's band in its
         output rows, the copies between the `mesh_assemble` marks on the
-        first device's stream, behind every shard's last event."""
+        first device's stream, behind every shard's last event: the first
+        mark closes `mesh_straggler`, the second `mesh_frame`."""
         plan, first = self.plan, self.mesh.devices[0]
         profiling.count("mesh_assembled_bytes", self.assembled_bytes)
         with (torch.cuda.device(first) if first.type == "cuda"
               else contextlib.nullcontext()):
             image = torch.empty((plan.out_h, plan.out_w, 3),
                                 dtype=torch.float32, device=first)
-            profiling.device_mark("mesh_assemble", first)
+            profiling.device_mark(("mesh_straggler", "mesh_assemble"), first)
             for (r0, r1), band in zip(plan.out_rows, bands):
                 image[r0:r1].copy_(band, non_blocking=True)
-            profiling.device_mark("mesh_assemble", first)
+            profiling.device_mark(("mesh_assemble", "mesh_frame"), first)
         return image
 
     def _hold(self, inputs):
@@ -532,7 +565,6 @@ class ShardedStep:
             halo.wait_event(self._event("posted", i))
         with _current(halo), self._on(j):
             slab.copy_(piece, non_blocking=True)
-        profiling.count("mesh_halo_bytes", piece.numel() * piece.element_size())
         return slab, self._record(halo, "copied", i, j)
 
     def _packed(self, cam, sun_position, sun_color, sun_radius,

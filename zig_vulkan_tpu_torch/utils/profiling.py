@@ -43,7 +43,11 @@ The zones of the engine (`engine.engine.VoxelRT`, `engine.step`,
                       ShardedStep: an engine with cards > 1, inside
                       render_step): the push constants' upload, the
                       shards' graphs, the copies between cards and the
-                      assembly issued
+                      assembly issued (the assembly in its self time)
+      mesh_upload       the push constants' upload to every card
+      mesh_issue_trace  every shard's trace graph issued
+      mesh_issue_halo   every halo copy between cards issued
+      mesh_issue_post   every shard's post-process graph issued
 
 the host waits (`wait`, counted under `host_waits`): build_tables (the
 records' first build), guard_statuses and guard_active_bricks (the
@@ -59,18 +63,25 @@ trace_launches and trace_queued (a frame's kernel A launches, and those of
 them that took a queue of live lanes; on a mesh, summed over its shards),
 shade_launches and shade_queued (the same of kernel D), key_switches and
 key_returns (1 a frame drawn under another key than the frame before it,
-1 such a frame whose key's step was kept: a replay), mesh_shards (a sharded frame's shards), mesh_halo_bytes
-(the halo rows a sharded frame copies between cards) and
-mesh_assembled_bytes (the band bytes it copies onto its first card from
-the others);
+1 such a frame whose key's step was kept: a replay) and
+mesh_assembled_bytes (the band bytes a sharded frame copies onto its first
+card from the others);
 the device spans (`device_mark` pairs) edit_graph (an edit graph from its
 first node to its last), edit_field (the insert's field rebuild; on a card
 its three launches, the last of which also writes the touched rows),
-temporal (the running mean inside the frame graph), mesh_shard.<i> (shard
-i's trace and, a second pair, its post-process on the shard's stream),
-mesh_assemble (a sharded frame's assembly on its first card's stream) and
-mesh_frame (a sharded frame on its first card's stream, from before the
-push constants' upload to after the assembly).
+temporal (the running mean inside the frame graph), and those of a sharded
+frame, each on one card's clock: mesh_frame (on its first card's stream,
+from before the push constants' upload to after the assembly),
+mesh_lead.<i> (from the frame's start on shard i's card to its trace on
+the shard's stream: the card waiting for the upload and the host's issue),
+mesh_shard.<i> (shard i's trace and, a second pair, its post-process on the
+shard's stream), mesh_halo_wait.<i> (from shard i's trace to its
+post-process: its neighbours' traces and halo copies, and the host's
+issue), mesh_straggler (from the end of shard 0's last work to the
+assembly on the first card: the wait for the slowest band) and
+mesh_assemble (the assembly on the first card's stream). On the first card
+the five spans of shard 0 tile mesh_frame: lead, shard, halo wait,
+straggler, assemble.
 
 Usage:
     with profiling.trace_session("trace_dir"):    # -Denable_ztracy analog
@@ -100,20 +111,22 @@ MAX_PENDING = 256  # device mark pairs that wait to be read, at most
 
 class _Marks:
     """Device marks paired by name: `pairs` holds (name, begin event, end
-    event) for each name marked twice."""
+    event) for each name marked twice. One event may serve several names:
+    it closes those that are open and opens the others."""
 
     def __init__(self):
         self.opened = {}
         self.pairs = []
 
-    def mark(self, name: str, device) -> None:
+    def mark(self, names, device) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=True)
         ev.record(torch.cuda.current_stream(device))
-        begin = self.opened.pop(name, None)
-        if begin is None:
-            self.opened[name] = ev
-        else:
-            self.pairs.append((name, begin, ev))
+        for name in (names,) if isinstance(names, str) else names:
+            begin = self.opened.pop(name, None)
+            if begin is None:
+                self.opened[name] = ev
+            else:
+                self.pairs.append((name, begin, ev))
 
 
 class _Store:
@@ -306,20 +319,24 @@ def untraced() -> Iterator[None]:
 _capture_marks = None
 
 
-def device_mark(name: str, device) -> None:
-    """Mark the card's stream of `device` with a timing event of `name`.
-    Marks come in pairs of one name: the card's time between the two is a
-    device span of that name. During a graph capture (`capture_marks`) the
-    event becomes an event-record node of the graph, and every replay of
-    the graph that tracing sees times the span (`replaying`); outside a
-    capture the pair is timed while tracing is on. A no-op off the card."""
-    if _MUTED or torch.device(device).type != "cuda":
+def device_mark(names, device) -> None:
+    """Mark the card's stream of `device` with a timing event of `names`
+    (a name, or a tuple of names that the one event serves). Marks come in
+    pairs of one name: the card's time between the two is a device span of
+    that name, so an event that closes one span may open the next. During
+    a graph capture (`capture_marks`) the event becomes an event-record
+    node of the graph, and every replay of the graph that tracing sees
+    times the span (`replaying`); outside a capture the pair is timed while
+    tracing is on. A no-op off the card, and while tracing is off outside a
+    capture."""
+    if (_MUTED or (_capture_marks is None and not _ENABLED)
+            or torch.device(device).type != "cuda"):
         return
     if _capture_marks is not None:
-        _capture_marks.mark(name, device)
-    elif _ENABLED and not torch.cuda.is_current_stream_capturing():
+        _capture_marks.mark(names, device)
+    elif not torch.cuda.is_current_stream_capturing():
         eager = _store.eager
-        eager.mark(name, device)
+        eager.mark(names, device)
         if eager.pairs:
             _queue(eager.pairs)
             eager.pairs = []
